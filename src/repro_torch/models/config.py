@@ -1,0 +1,77 @@
+"""Model configuration (counterpart of `repro.models.config`)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from repro_torch.core.precision_policy import PAPER_POLICY, PrecisionPolicy
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Same fields and defaults as the reference. The port runs the dense
+    attention decoder; the other families' fields are kept so configs read
+    alike, and are refused where they would change the computation."""
+    arch: str = "custom"
+    family: str = "dense"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    act: str = "silu"
+    rope_theta: float = 10_000.0
+    max_seq_len: int = 8192
+
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_per_sample_dispatch: bool = True
+
+    block_pattern: Tuple[str, ...] = ()
+    window: int = 0
+    lru_dim: int = 0
+    ssm_proj_factor: float = 2.0
+
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+
+    frontend: Optional[str] = None
+    n_frontend_tokens: int = 0
+
+    policy: PrecisionPolicy = PAPER_POLICY
+    remat: bool = True
+    # The port always runs its layers in a Python loop (site keys are the
+    # reference's `scan_layers=False` keys); the field is kept for parity.
+    scan_layers: bool = True
+    sequence_parallel: bool = False
+    attn_chunk_threshold: int = 2048
+    attn_chunk_size: int = 1024
+
+    @property
+    def padded_vocab_size(self) -> int:
+        return -(-self.vocab_size // 16) * 16
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def pattern(self) -> Tuple[str, ...]:
+        return self.block_pattern if self.block_pattern else ("attn",)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def check_ported(self):
+        """Raise for what this slice of the port does not run."""
+        bad = [k for k in self.pattern() if k != "attn"]
+        if bad or self.n_experts or self.is_encoder_decoder or self.frontend:
+            raise NotImplementedError(
+                f"arch {self.arch!r}: the port runs dense attention decoders "
+                "only so far; the other families are queued in ROADMAP.md")

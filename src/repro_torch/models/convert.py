@@ -1,0 +1,57 @@
+"""Carry the reference's parameters into the port.
+
+`from_jax_params(tree, cfg, device)` takes the tree `repro.models.
+transformer.init_lm` returns, as nested dicts of numpy arrays (the caller
+converts with `jax.tree_util.tree_map(np.asarray, params)`), and returns
+the port's parameter dict on `device`. Scanned stacks (`stack_{p}`, with a
+leading group axis) are split into the unscanned `layer_{i}` layout the
+port runs; `layer_{i}` / `rem_{i}` trees pass through. Nothing is padded:
+the embedding already has `padded_vocab_size` rows.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+
+
+def _to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def _split_stacks(decoder: Dict[str, Any], cfg: ModelConfig):
+    pat = cfg.pattern()
+    out: Dict[str, Any] = {}
+    for key, sub in decoder.items():
+        if not key.startswith("stack_"):
+            out[key] = sub
+            continue
+        pos = int(key[len("stack_"):])
+        n_groups = cfg.n_layers // len(pat)
+
+        def take(t, g):
+            return {k: take(v, g) for k, v in t.items()} \
+                if isinstance(t, dict) else np.asarray(t)[g]
+
+        for g in range(n_groups):
+            out[f"layer_{g * len(pat) + pos}"] = take(sub, g)
+    return out
+
+
+def from_jax_params(tree, cfg: ModelConfig, device=None):
+    """The reference's init_lm tree (numpy leaves) -> the port's params."""
+    cfg.check_ported()
+    dev = resolve_device(device)
+    tree = dict(tree)
+    tree["decoder"] = _split_stacks(dict(tree["decoder"]), cfg)
+    emb = np.asarray(tree["embed"]["table"])
+    if emb.shape != (cfg.padded_vocab_size, cfg.d_model):
+        raise ValueError(f"embedding {emb.shape} does not match the config "
+                         f"({cfg.padded_vocab_size}, {cfg.d_model})")
+    return _to_torch(tree, dev)

@@ -1,0 +1,23 @@
+"""Architecture registry: the archs the port runs (see ROADMAP.md for the
+ones still to port)."""
+from __future__ import annotations
+
+import importlib
+from repro_torch.models.config import ModelConfig
+
+ARCHS = ["qwen2-1.5b"]
+
+
+def _module(arch: str):
+    name = arch.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def build_config(arch: str, *, smoke: bool = False, **overrides) -> ModelConfig:
+    if arch not in ARCHS:
+        raise ValueError(
+            f"arch {arch!r} is not ported to repro_torch yet (have {ARCHS}); "
+            "ROADMAP.md lists the queue of slices still to port")
+    mod = _module(arch)
+    cfg = mod.smoke() if smoke else mod.full()
+    return cfg.replace(**overrides) if overrides else cfg

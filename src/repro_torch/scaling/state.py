@@ -1,0 +1,138 @@
+"""Delayed-scaling state: per-site amax ring buffers and derived scales.
+
+Counterpart of `repro.scaling.state` for the forward sites (the "max"
+history policy, `DelayedScaling.update` and `freeze`). The state is tiny
+(a few hundred sites) and lives on the host as numpy float32, so every
+derived scale is the same IEEE f32 arithmetic as the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, Mapping, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.fp8_formats import get_format
+from repro_torch.core.precision_policy import QuantConfig
+
+_SAT_TOL = 1.0 - 2.0 ** -8
+
+_CLASS_OF_LETTER = {"W": "weight", "A": "act", "E": "error", "G": "grad"}
+
+
+def format_for_site(key: str, qcfg: QuantConfig,
+                    kv_format: Optional[str] = None) -> Optional[str]:
+    """Storage format a site key quantizes with (FP8 KV-cache sites follow
+    `kv_format`; every other site follows the recipe via its class)."""
+    base = key.split("#", 1)[0]
+    if base.endswith(("kv/k", "kv/v")):
+        return kv_format
+    letter = key.rsplit("#", 1)[1][-1]
+    cls = _CLASS_OF_LETTER.get(letter)
+    if cls is None:
+        raise ValueError(f"unrecognized tensor class {letter!r} in site "
+                         f"key {key!r}")
+    return qcfg.format_for(cls)
+
+
+@dataclasses.dataclass
+class ScaleState:
+    amax_history: np.ndarray   # (n_sites, history_len) f32, col 0 = newest
+    scale: np.ndarray          # (n_sites,) f32
+    step: int
+
+    @classmethod
+    def create(cls, n_sites: int, history_len: int) -> "ScaleState":
+        return cls(amax_history=np.zeros((n_sites, history_len), np.float32),
+                   scale=np.ones((n_sites,), np.float32), step=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalingConfig:
+    history_len: int = 16
+    policy: str = "max"
+    margin: float = 2.0
+    growth: float = 2.0
+
+    def __post_init__(self):
+        if self.policy != "max":
+            raise NotImplementedError(
+                f"history policy {self.policy!r} is not ported yet (max "
+                "only; ROADMAP.md)")
+
+
+class SiteRegistry:
+    """Stable key -> row mapping (sorted keys, one row per key: the port's
+    stack is unrolled, so every layer has its own keys)."""
+
+    def __init__(self, keys: Iterable[str]):
+        self.keys: Tuple[str, ...] = tuple(sorted(set(keys)))
+        self.index: Dict[str, int] = {k: i for i, k in enumerate(self.keys)}
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def class_letter(self, key: str) -> str:
+        return key.rsplit("#", 1)[1][-1]
+
+    def format_for(self, key: str, qcfg: QuantConfig) -> str:
+        return qcfg.fwd_format if self.class_letter(key) in ("W", "A") \
+            else qcfg.bwd_format
+
+    def fmt_max_vector(self, qcfg: QuantConfig) -> np.ndarray:
+        return np.asarray([get_format(self.format_for(k, qcfg)).max_normal
+                           for k in self.keys], np.float32)
+
+    def unpack(self, vec) -> Dict[str, np.float32]:
+        return {k: np.float32(vec[i]) for k, i in self.index.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class DelayedScaling:
+    registry: SiteRegistry
+    config: ScalingConfig = ScalingConfig()
+    qcfg: QuantConfig = QuantConfig(scaling="delayed")
+
+    def init(self) -> ScaleState:
+        return ScaleState.create(len(self.registry), self.config.history_len)
+
+    def scales_dict(self, state: ScaleState) -> Dict[str, np.float32]:
+        return self.registry.unpack(state.scale)
+
+    def update(self, state: ScaleState,
+               observed: Mapping[str, float]) -> ScaleState:
+        """Fold one step of observations into history and re-derive scales
+        (sites not observed carry their newest history value forward)."""
+        obs = state.amax_history[:, 0].copy()
+        seen = np.zeros((len(self.registry),), bool)
+        for k, v in observed.items():
+            i = self.registry.index.get(k)
+            if i is not None:
+                obs[i] = np.float32(v)
+                seen[i] = True
+        fmax = self.registry.fmt_max_vector(self.qcfg)
+        cap = state.scale * fmax
+        growth = np.float32(self.config.growth)
+        obs = np.where(np.isfinite(obs), obs, cap * growth)
+        # Pinned at the representable ceiling => probe the range upward.
+        saturated = seen & (obs >= cap * np.float32(_SAT_TOL)) \
+            & (obs <= cap / np.float32(_SAT_TOL))
+        obs = np.where(saturated, obs * growth, obs).astype(np.float32)
+        hist = np.concatenate([obs[:, None], state.amax_history[:, :-1]],
+                              axis=1)
+        amax = hist.max(axis=1)
+        scale = np.where(amax > 0,
+                         amax * np.float32(self.config.margin) / fmax,
+                         np.float32(1.0))
+        return ScaleState(amax_history=hist, scale=scale.astype(np.float32),
+                          step=state.step + 1)
+
+    def freeze(self, state: ScaleState) -> Dict[str, float]:
+        """Frozen per-site scales for serving (forward classes W/A only)."""
+        return {k: float(state.scale[i]) for k, i in self.registry.index.items()
+                if self.registry.class_letter(k) in ("W", "A")}
+
+    def frozen_formats(self) -> Dict[str, str]:
+        """Storage format each frozen (forward) site was calibrated under."""
+        return {k: format_for_site(k, self.qcfg) for k in self.registry.keys
+                if self.registry.class_letter(k) in ("W", "A")}

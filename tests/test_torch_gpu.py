@@ -1,0 +1,157 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test carries the `gpu` marker and skips without a CUDA device. The
+file imports neither jax nor the reference package, so it also runs on a
+GPU host without jax (`--noconftest` skips the JAX fixtures of conftest):
+
+    python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Inputs are exact-accumulation fixtures (operand exponents {0, 1}; for
+attention, constant keys so every exp is exactly 1, or scores that step up
+across kv blocks so every exp is 0 or 1), on which the kernels must match
+the plain versions bit for bit — NaN payload bytes compared as
+NaN, since GPU arithmetic returns a canonical NaN.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.fp8_attention import ops as attn
+from repro_torch.kernels.fused_quant_matmul import ops as fq
+
+FP8 = {"e4m3": (torch.float8_e4m3fn, 3), "e5m2": (torch.float8_e5m2, 2)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def exact_fp8(shape, fmt, gen):
+    """fp8 payload with exponents {0, 1}: every f32 partial sum of the
+    products below is exact, in any order."""
+    dt, man = FP8[fmt]
+    sign = torch.randint(0, 2, shape, generator=gen) * 2 - 1
+    mant = torch.randint(0, 1 << man, shape, generator=gen) / (1 << man)
+    ex = torch.randint(0, 2, shape, generator=gen).float()
+    return (sign * (1 + mant) * torch.exp2(ex)).to(dt)
+
+
+def canon(q):
+    u = q.view(torch.uint8).clone()
+    u[torch.isnan(q.float())] = 0xFF
+    return u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_gemm_kernel_matches_plain(card, dims, fmt):
+    gen = torch.Generator().manual_seed(7)
+    m, k, n = 100, 200, 72          # padded to the 64-tiles by the wrapper
+    a, w = exact_fp8((m, k), fmt, gen), exact_fp8((k, n), fmt, gen)
+    if dims == "nt":
+        w = w.t().contiguous()
+    elif dims == "tn":
+        a = a.t().contiguous()
+    rand8 = torch.randint(0, 256, (m, n), dtype=torch.uint8, generator=gen)
+    for rounding, saturate in (("rne", True), ("rne", False), ("sr", True),
+                               ("sr", False)):
+        kw = dict(dims=dims, out_format=fmt, rounding=rounding,
+                  saturate=saturate, with_amax=True, with_counts=True)
+        cpu = fq.fused_quant_matmul(a, w, 0.125, rand8=rand8, **kw)
+        launches = fq.fused_quant_matmul.launches
+        gpu = fq.fused_quant_matmul(a.to(card), w.to(card), 0.125,
+                                    rand8=rand8.to(card), **kw)
+        torch.cuda.synchronize()
+        assert fq.fused_quant_matmul.launches == launches + 1
+        assert torch.equal(canon(cpu[0]), canon(gpu[0].cpu()))
+        assert torch.equal(cpu[1], gpu[1].cpu()) or (
+            cpu[1].isnan() and gpu[1].isnan().cpu())
+        assert torch.equal(cpu[2], gpu[2].cpu())
+
+
+def _attn_case(mode, gen):
+    b, h, hkv, d = 3, 4, 2, 64        # head dim padded to 128 by the wrapper
+    t, s = (8, 160) if mode == "chunk" else (70, 200)
+    kw = {"mask_mode": "causal" if mode == "window" else mode}
+    if mode == "window":
+        kw["window"] = 50
+    if mode == "kv":
+        kw["kv_mask"] = (torch.rand((b, s), generator=gen) < 0.7).to(torch.int8)
+        kw["kv_mask"][1] = 0
+    if mode == "chunk":
+        lengths = torch.tensor([70, 33, 9])
+        cols = torch.arange(s)[None]
+        kw["kv_mask"] = torch.where(cols < lengths[:, None], cols, -1).int()
+        kw["chunk_pos"] = torch.tensor([[62, 8], [32, 1], [0, 5]]).int()
+    q = (exact_fp8((b, h, t, d), "e4m3", gen).float() / 4).to(torch.float8_e4m3fn)
+    k = (exact_fp8((b, hkv, 1, d), "e4m3", gen).float() / 4).to(
+        torch.float8_e4m3fn).expand(b, hkv, s, d).contiguous()
+    v = exact_fp8((b, hkv, s, d), "e4m3", gen)
+    return q, k, v, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["causal", "window", "full", "kv", "chunk"])
+def test_attention_kernel_matches_plain(card, mode):
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, kw = _attn_case(mode, gen)
+    scal = [0.0625, 1.0, 1.0, 1.0]
+    fk = dict(fmt_s="e4m3", fmt_p="e4m3", rounding_s="rne", rounding_p="rne")
+    cpu = attn.fp8_attention_fwd(q, k, v, 4, scal, **kw, **fk)
+    gkw = {n: x.to(card) if isinstance(x, torch.Tensor) else x
+           for n, x in kw.items()}
+    gpu = attn.fp8_attention_fwd(q.to(card), k.to(card), v.to(card), 4, scal,
+                                 **gkw, **fk)
+    torch.cuda.synchronize()
+    assert torch.equal(cpu[0], gpu[0].cpu())
+    assert torch.equal(cpu[1], gpu[1].cpu())
+    assert torch.equal(cpu[2], gpu[2].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["causal", "window", "full", "kv", "chunk"])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+def test_attention_kernel_matches_plain_stepped_scores(card, mode, rounding):
+    """Scores that step up by one per 128-column kv block (or sit at -224,
+    whose exp is exactly 0): the running max rises, l and acc are rescaled
+    by exp(-1), and P is quantized off the grid (f_p = 0.3). Held against
+    the plain version run on the card (the same exp), bit for bit."""
+    from repro_torch.kernels.fp8_attention import ref
+    gen = torch.Generator().manual_seed(5)
+    _, _, v, kw = _attn_case(mode, gen)
+    b, hkv, s, d = v.shape
+    if mode == "chunk":
+        kw["chunk_pos"] = torch.tensor([[142, 8], [130, 1], [0, 5]]).int()
+        kw["kv_mask"] = torch.where(torch.arange(s)[None] < torch.tensor(
+            [[150], [131], [9]]), torch.arange(s)[None], -1).int()
+    t = 8 if mode == "chunk" else s
+    q = torch.zeros((b, 4, t, d))
+    q[..., 0] = 1
+    k = exact_fp8((b, hkv, s, d), "e4m3", gen).float()
+    k[..., 0] = torch.where(torch.rand((b, hkv, s), generator=gen) < 0.5,
+                            (torch.arange(s) // 128).float(), -224.0)
+    q, k = (x.to(torch.float8_e4m3fn).to(card) for x in (q, k))
+    v = v.to(card)
+    kw = {n: x.to(card) if isinstance(x, torch.Tensor) else x
+          for n, x in kw.items()}
+    fk = dict(fmt_s="e4m3", fmt_p="e4m3", rounding_s=rounding,
+              rounding_p=rounding)
+    scal = [1.0, 1.0, 0.3, 1.5]
+    got = attn.fp8_attention_fwd(q, k, v, 4, scal, **kw, **fk)
+    want = ref.fp8_attention_fwd_ref(q, k, v, 4, scal, **kw, **fk)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
+    x = torch.zeros((2, 2, 8, 256), dtype=torch.float8_e4m3fn, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.fp8_attention_fwd(x, x, x, 0, [1.0] * 4)
+    with pytest.raises(ValueError):
+        fq.fused_quant_matmul(x[0, 0], x[0, 0].cpu())
