@@ -74,6 +74,14 @@ class QuantConfig:
     def delayed(self) -> bool:
         return self.scaling == "delayed"
 
+    @property
+    def needs_key(self) -> bool:
+        """SR somewhere: the call sites then need the step's generator."""
+        return self.enabled and "sr" in (self.weight_rounding,
+                                         self.act_rounding,
+                                         self.error_rounding,
+                                         self.grad_rounding)
+
     def eval_mode(self) -> "QuantConfig":
         """Deterministic inference variant: RNE everywhere, saturating."""
         return dataclasses.replace(self, act_rounding="rne", error_rounding="rne",

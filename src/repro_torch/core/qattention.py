@@ -1,14 +1,18 @@
-"""Fused FP8 flash attention, forward (counterpart of the forward of
-`repro.core.qattention`).
+"""Fused FP8 flash attention (counterpart of `repro.core.qattention`).
 
 `fp8_sdpa` quantizes q/k/v at their sites and runs the fused kernel with
-the score and prob Q nodes inside it (causal/full masks; calibration runs
-it in 'causal'). `fp8_sdpa_chunk` is the paged serving step: T consecutive
-tokens per request against a gathered KV view under the 'chunk' position
-mask. Scale sites (scaling.context.attention_keys): operands {#q,#k,#v}.A,
-in-kernel #qk.A / #p.A.
+the score and prob Q nodes inside it (causal/full masks), as an autograd
+Function: the fp8 payloads q8 / k8 / v8 and the SR seed are its backward
+residuals, and the backward quantizes dO at #E and runs the two backward
+kernels (dQ, then dK/dV) with the dP / dS Q nodes inside them.
+`fp8_sdpa_chunk` is the paged serving step: T consecutive tokens per
+request against a gathered KV view under the 'chunk' position mask.
+Scale sites (scaling.context.attention_keys): operands {#q,#k,#v}.A,
+in-kernel #qk.A / #p.A, and the error sites #E (dO), #dp.E, #ds.E.
 
-The backward (dP/dS kernels) belongs to the training slice of the port.
+The in-kernel SR seed is a uint32 drawn per call from the caller's
+generator (on its device, so it never reaches the host); a config without
+SR needs no generator and uses seed 0.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.precision_policy import ACT, QuantConfig, dtype_of
+from repro_torch.core.precision_policy import (ACT, ERROR, QuantConfig,
+                                               dtype_of)
 from repro_torch.core.qlinear import _observe, _quant_operand, kernel_backend
 from repro_torch.core.quantize import f32
 from repro_torch.scaling import context as scale_ctx
@@ -33,6 +38,28 @@ def _fwd_factors(s_q, s_k, s_v, s_s, s_p, sm_scale: float):
     """[f_s, s_s, f_p, f_o] in f32, evaluated in the reference's order."""
     f_s = f32(s_q) * f32(s_k) * f32(sm_scale) / f32(s_s)
     return [f_s, f32(s_s), f32(1.0) / f32(s_p), f32(s_p) * f32(s_v)]
+
+
+def _bwd_factors(s, sm_scale: float):
+    """[f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds, f_dq, f_dk, f_dv] in f32 from
+    the site scales {q, k, v, s, p, do, dp, ds}, in the reference's order
+    of operations (`repro.core.qattention._bwd_factors`)."""
+    q, k, v, ss, p, do, dp, ds = (f32(s[n]) for n in _ORDER)
+    sm = f32(sm_scale)
+    return [q * k * sm / ss, ss, f32(1.0) / p, p, do * v / dp, dp, sm / ds,
+            ds * k, ds * q, p * do]
+
+
+def _seed(cfg: QuantConfig, generator):
+    """The per-call SR hash seed: a uint32 drawn from `generator` on its
+    device, or 0 when the config rounds nothing stochastically."""
+    if not cfg.needs_key:
+        return 0
+    if generator is None:
+        raise ValueError("QuantConfig uses stochastic rounding; fp8_sdpa "
+                         "needs a torch.Generator")
+    return torch.randint(0, 1 << 32, (1,), dtype=torch.int64,
+                         device=generator.device, generator=generator)
 
 
 def _kernel_kwargs(cfg: QuantConfig):
@@ -57,46 +84,90 @@ def _check_frozen_sites(ctx, keys):
             "fuse_attention enabled")
 
 
+class _FP8SDPA(torch.autograd.Function):
+    """Custom gradient of the fused attention (the reference's
+    `_fp8_sdpa_fwd` / `_fp8_sdpa_bwd`). `meta`: (cfg, sm_scale,
+    mask_mode, window, scales, sctx, keys, generator)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, meta):
+        from repro_torch.kernels.fp8_attention import ops as attn_ops
+        cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen = meta
+        q8 = _quant_operand(q, ACT, cfg, scales["q"], gen)
+        k8 = _quant_operand(k, ACT, cfg, scales["k"], gen)
+        v8 = _quant_operand(v, ACT, cfg, scales["v"], gen)
+        seed = _seed(cfg, gen)
+        o, amax_s, amax_p = attn_ops.fp8_attention_fwd(
+            q8.data, k8.data, v8.data, seed,
+            _fwd_factors(scales["q"], scales["k"], scales["v"], scales["s"],
+                         scales["p"], sm_scale),
+            mask_mode=mask_mode, window=window, **_kernel_kwargs(cfg))
+        if keys is not None and sctx.mode in ("collect", "calibrate"):
+            sctx.record(keys["q"], _observe(q8))
+            sctx.record(keys["k"], _observe(k8))
+            sctx.record(keys["v"], _observe(v8))
+            sctx.record(keys["s"], amax_s * float(scales["s"]))
+            sctx.record(keys["p"], amax_p * float(scales["p"]))
+        ctx.save_for_backward(q8.data, k8.data, v8.data)
+        ctx.meta = meta
+        ctx.seed = seed
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        return o.to(dtype_of(cfg.output_dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels.fp8_attention import ops as attn_ops
+        q8, k8, v8 = ctx.saved_tensors
+        cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen = ctx.meta
+        qdo = _quant_operand(dy, ERROR, cfg, scales["do"], gen)
+        dq, dk, dv, amax_dp, amax_ds = attn_ops.fp8_attention_bwd(
+            q8, k8, v8, qdo.data, ctx.seed, _bwd_factors(scales, sm_scale),
+            mask_mode=mask_mode, window=window, fmt_e=cfg.format_for(ERROR),
+            rounding_e=cfg.rounding_for(ERROR),
+            saturate_e=cfg.saturate_for(ERROR), **_kernel_kwargs(cfg))
+        if keys is not None and sctx.mode == "collect":
+            sctx.record_bwd(keys["do"], _observe(qdo))
+            sctx.record_bwd(keys["dp"], amax_dp * float(scales["dp"]))
+            sctx.record_bwd(keys["ds"], amax_ds * float(scales["ds"]))
+        qd, kd, vd = ctx.dtypes
+        return dq.to(qd), dk.to(kd), dv.to(vd), None
+
+
 def fp8_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              cfg: QuantConfig, sm_scale: float, mask_mode: str = "causal",
              window: int = 0, site: Optional[str] = None,
-             seed: int = 0) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Fused FP8 attention over (B,H,Q,dh) queries and unrepeated
-    (B,Hkv,S,dh) keys/values. Under an active ScaleContext with a site,
-    operand scales come from the context and, in calibration, the q/k/v and
-    in-kernel S/P amaxes are recorded."""
-    from repro_torch.kernels.fp8_attention import ops as attn_ops
+    (B,Hkv,S,dh) keys/values, differentiable (mask_mode 'causal' or
+    'full' for the backward). Under an active ScaleContext with a site,
+    operand scales come from the context, the q/k/v and in-kernel S/P
+    amaxes are recorded, and the backward records #E / #dp.E / #ds.E.
+    SR bits (q/k/v, the per-call kernel seed, dO) come from `generator`."""
     ctx = scale_ctx.current()
     keys = None
     scales = {n: f32(1.0) for n in _ORDER}
     if cfg.delayed and ctx is not None and site is not None:
-        keys = scale_ctx.attention_keys(ctx.site_key(site))
+        skey = ctx.site_key(site)
+        keys = scale_ctx.attention_keys(skey)
         for kk in keys.values():
             ctx.register(kk)
+        ctx.register_token_site(skey)
         _check_frozen_sites(ctx, keys)
         scales = {n: ctx.scale_for(keys[n]) for n in _ORDER}
-    q8 = _quant_operand(q, ACT, cfg, scales["q"])
-    k8 = _quant_operand(k, ACT, cfg, scales["k"])
-    v8 = _quant_operand(v, ACT, cfg, scales["v"])
-    o, amax_s, amax_p = attn_ops.fp8_attention_fwd(
-        q8.data, k8.data, v8.data, seed,
-        _fwd_factors(scales["q"], scales["k"], scales["v"], scales["s"],
-                     scales["p"], sm_scale),
-        mask_mode=mask_mode, window=window, **_kernel_kwargs(cfg))
-    if keys is not None and ctx.mode == "calibrate":
-        ctx.record(keys["q"], _observe(q8))
-        ctx.record(keys["k"], _observe(k8))
-        ctx.record(keys["v"], _observe(v8))
-        ctx.record(keys["s"], amax_s * float(scales["s"]))
-        ctx.record(keys["p"], amax_p * float(scales["p"]))
-    return o.to(dtype_of(cfg.output_dtype))
+    if generator is None and cfg.needs_key:
+        raise ValueError("QuantConfig uses stochastic rounding; fp8_sdpa "
+                         "needs a torch.Generator")
+    meta = (cfg, sm_scale, mask_mode, window, scales, ctx, keys, generator)
+    return _FP8SDPA.apply(q, k, v, meta)
 
 
 def fp8_sdpa_chunk(q: torch.Tensor, k_cached: torch.Tensor,
                    v_cached: torch.Tensor, slot_pos: torch.Tensor,
                    chunk_pos: torch.Tensor, *, cfg: QuantConfig,
                    sm_scale: float, window: int = 0,
-                   site: Optional[str] = None, seed: int = 0) -> torch.Tensor:
+                   site: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
     """Serving chunk step through the fused kernel ('chunk' mask).
 
     q: (B,H,T,dh) — the chunk's queries. k_cached/v_cached: (B,Hkv,C,dh)
@@ -107,8 +178,8 @@ def fp8_sdpa_chunk(q: torch.Tensor, k_cached: torch.Tensor,
     from repro_torch.kernels.fp8_attention import ops as attn_ops
     if k_cached.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise NotImplementedError(
-            "FP8 KV-cache payloads are not ported yet (ROADMAP.md, next "
-            "slice); serve with a bf16 cache")
+            "FP8 KV-cache payloads are not ported yet (ROADMAP.md, slice "
+            "3); serve with a bf16 cache")
     ctx = scale_ctx.current()
     keys = None
     one = f32(1.0)
@@ -120,11 +191,11 @@ def fp8_sdpa_chunk(q: torch.Tensor, k_cached: torch.Tensor,
         _check_frozen_sites(ctx, keys)
         s_q, s_k, s_v, s_s, s_p = (ctx.scale_for(keys[n])
                                    for n in ("q", "k", "v", "s", "p"))
-    q8 = _quant_operand(q, ACT, cfg, s_q)
-    k8 = _quant_operand(k_cached, ACT, cfg, s_k)
-    v8 = _quant_operand(v_cached, ACT, cfg, s_v)
+    q8 = _quant_operand(q, ACT, cfg, s_q, generator)
+    k8 = _quant_operand(k_cached, ACT, cfg, s_k, generator)
+    v8 = _quant_operand(v_cached, ACT, cfg, s_v, generator)
     o, amax_s, amax_p = attn_ops.fp8_attention_fwd(
-        q8.data, k8.data, v8.data, seed,
+        q8.data, k8.data, v8.data, _seed(cfg, generator),
         _fwd_factors(s_q, s_k, s_v, s_s, s_p, sm_scale),
         mask_mode="chunk", window=window, kv_mask=slot_pos,
         chunk_pos=chunk_pos, **_kernel_kwargs(cfg))

@@ -1,18 +1,23 @@
-"""Quantized einsum, forward: the paper's Fig. 1a dataflow in PyTorch.
+"""Quantized einsum: the paper's Fig. 1a dataflow in PyTorch.
 
-Counterpart of the forward of `repro.core.qlinear.qeinsum`:
+Counterpart of `repro.core.qlinear.qeinsum` on its fused path:
 
-    Y = Q_A(a) . Q_W(b)   (fp8 x fp8 -> f32 accumulate)
+    forward:  Y  = Q_A(Q_A(a) . Q_W(b))        GEMM 'nn', Q node in epilogue
+    backward: dA = Q_E(Q_E(dY) . Q_W(b)^T)     GEMM 'nt' (site #da.E)
+              dW = Q_G(Q_A(a)^T . Q_E(dY))     GEMM 'tn' (site #G)
 
 Under a kernel backend ("pallas*" in the reference's QuantConfig) with
-delayed scaling, a '...k,kn->...n' projection takes the FUSED path: the
-output Q node runs in the GEMM epilogue (`_fused_gemm`, kernel
-fused_quant_matmul in layout 'nn'), the GEMM writes fp8 straight from the
-accumulator, and the output amax is observed in the same epilogue. A
-disabled config (the 16-bit logits head) takes `_plain_einsum`.
+delayed scaling, a '...k,kn->...n' projection with a weight operand runs
+all three GEMMs through the fused quantize-in-epilogue kernel
+(`kernels.fused_quant_matmul`): each writes fp8 straight from its f32
+accumulator and observes its output amax in the same epilogue. The fp8
+payloads qa / qb and their host scales are what the autograd Function
+saves for the backward — not the bf16 activations. A disabled config (the
+16-bit logits head) takes `_plain_einsum` through ordinary autograd.
 
-The backward GEMMs (dgrad 'nt', wgrad 'tn') and autograd belong to the
-training slice of the port.
+Stochastic rounding draws its bits from the `generator` the caller passes
+(the training step's), never from torch's global generator; a config
+that asks for SR raises without one.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.fp8_formats import get_format
-from repro_torch.core.precision_policy import (ACT, WEIGHT, PAPER_FP8,
-                                               QuantConfig, dtype_of)
+from repro_torch.core.precision_policy import (ACT, ERROR, GRAD, WEIGHT,
+                                               PAPER_FP8, QuantConfig,
+                                               dtype_of)
 from repro_torch.core.quantize import QTensor, fp8_amax_bits, f32
 from repro_torch.core.quantize import quantize as _quantize
 from repro_torch.scaling import context as scale_ctx
@@ -55,7 +61,7 @@ def _quant_operand(x: torch.Tensor, cls: str, cfg: QuantConfig,
     fmt = get_format(cfg.format_for(cls))
     if cfg.scaling == "jit_amax":
         raise NotImplementedError("jit_amax scaling is not ported yet "
-                                  "(ROADMAP.md, training slice)")
+                                  "(ROADMAP.md, queue 1)")
     if cfg.delayed:
         scale = f32(1.0) if scale is None else scale
     else:
@@ -107,16 +113,69 @@ def _observe(q: QTensor) -> torch.Tensor:
     return fp8_amax_bits(q.data) * float(q.scale)
 
 
-def _qeinsum_fwd(classes, cfg, a, b, scales, observe: bool, generator=None):
-    qa = _quant_operand(a, classes[0], cfg, scales[0], generator)
-    qb = _quant_operand(b, classes[1], cfg, scales[1], generator)
-    a2 = qa.data.reshape((-1, qa.data.shape[-1]))
-    y8, obs_y = _fused_gemm(a2, qb.data, qa.scale, qb.scale, scales[4],
-                            cfg, ACT, "nn", generator)
-    y = _fused_dequant(y8, scales[4], cfg).reshape(
-        qa.data.shape[:-1] + (qb.data.shape[-1],))
-    obs = [_observe(qa), _observe(qb), obs_y] if observe else []
-    return y, obs
+class _QEinsum(torch.autograd.Function):
+    """The fused-path custom gradient (`_qeinsum_fwd` / `_qeinsum_bwd_fused`
+    of the reference). Non-tensor arguments ride in `meta`: (cfg, classes,
+    scales, sctx, keys, fkeys, generator)."""
+
+    @staticmethod
+    def forward(ctx, a, b, meta):
+        cfg, classes, scales, sctx, keys, fkeys, gen = meta
+        qa = _quant_operand(a, classes[0], cfg, scales[0], gen)
+        qb = _quant_operand(b, classes[1], cfg, scales[1], gen)
+        a2 = qa.data.reshape((-1, qa.data.shape[-1]))
+        y8, obs_y = _fused_gemm(a2, qb.data, qa.scale, qb.scale, scales[4],
+                                cfg, ACT, "nn", gen)
+        y = _fused_dequant(y8, scales[4], cfg).reshape(
+            qa.data.shape[:-1] + (qb.data.shape[-1],))
+        if keys is not None and sctx.mode in ("collect", "calibrate"):
+            sctx.record(keys["a"], _observe(qa))
+            sctx.record(keys["b"], _observe(qb))
+            sctx.record(fkeys["y"], obs_y)
+        ctx.save_for_backward(qa.data, qb.data)
+        ctx.meta = meta
+        ctx.qscales = (qa.scale, qb.scale)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        qa_data, qb_data = ctx.saved_tensors
+        cfg, classes, scales, sctx, keys, fkeys, gen = ctx.meta
+        sa, sb = ctx.qscales
+        qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen)
+        dy2 = qdy.data.reshape((-1, qdy.data.shape[-1]))
+        a2 = qa_data.reshape((-1, qa_data.shape[-1]))
+        # The weight operand's gradient is FP8-stored (class G, site #G);
+        # the activation operand receives the error-class dgrad (#da.E).
+        cls_a = GRAD if classes[0] == WEIGHT else ERROR
+        cls_b = GRAD if classes[1] == WEIGHT else ERROR
+        s_da = scales[3] if cls_a == GRAD else scales[5]
+        s_db = scales[3] if cls_b == GRAD else scales[5]
+        # dA = Q(dY . W^T): (M, N) x (K, N) -> (M, K)
+        da8, obs_da = _fused_gemm(dy2, qb_data, qdy.scale, sb, s_da, cfg,
+                                  cls_a, "nt", gen)
+        da = _fused_dequant(da8, s_da, cfg).reshape(qa_data.shape)
+        # dW = Q(A^T . dY): (M, K) x (M, N) -> (K, N)
+        db8, obs_db = _fused_gemm(a2, dy2, sa, qdy.scale, s_db, cfg, cls_b,
+                                  "tn", gen)
+        db = _fused_dequant(db8, s_db, cfg).reshape(qb_data.shape)
+        if keys is not None and sctx.mode == "collect":
+            zero = torch.zeros((), device=dy.device)
+            obs_g, obs_err = zero, zero
+            if cls_a == GRAD:
+                obs_g = torch.maximum(obs_g, obs_da)
+            else:
+                obs_err = obs_da
+            if cls_b == GRAD:
+                obs_g = torch.maximum(obs_g, obs_db)
+            else:
+                obs_err = obs_db
+            sctx.record_bwd(keys["E"], _observe(qdy))
+            sctx.record_bwd(keys["G"], obs_g)
+            if "err" in fkeys:
+                sctx.record_bwd(fkeys["err"], obs_err)
+        return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 
 def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
@@ -124,15 +183,18 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
             classes: Tuple[str, str] = (ACT, WEIGHT),
             site: Optional[str] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Quantized einsum (forward). A disabled config is the 16-bit plain
-    einsum; an enabled one must take the fused path. With an active
-    ScaleContext and a site name, operand and output scales come from the
-    context and (in calibration) the observed amaxes are recorded back;
-    otherwise unit scales. SR bits, where the config asks for SR, come from
-    `generator`."""
+    """Quantized einsum with its custom gradient. A disabled config is the
+    16-bit plain einsum; an enabled one must take the fused path. With an
+    active ScaleContext and a site name, operand and output scales come
+    from the context, forward amaxes are recorded (collect / calibrate) and
+    the backward records the E / G / #da.E observations (collect). SR bits
+    come from `generator`."""
     parse_spec(spec)
     if not cfg.enabled:
         return _plain_einsum(spec, a, b, cfg)
+    if generator is None and cfg.needs_key:
+        raise ValueError(f"QuantConfig uses stochastic rounding; qeinsum("
+                         f"{spec!r}) needs a torch.Generator")
     classes = tuple(classes)
     if not _fused_epilogue(spec, classes, cfg):
         raise NotImplementedError(
@@ -149,12 +211,8 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
         fkeys = scale_ctx.fused_output_keys(skey, classes)
         for key in (*keys.values(), *fkeys.values()):
             ctx.register(key)
+        ctx.register_token_site(skey)
         scales = [ctx.scale_for(keys[n]) for n in ("a", "b", "E", "G")] + [
             ctx.scale_for(fkeys["y"]), ctx.scale_for(fkeys.get("err", ""))]
-    observe = keys is not None and ctx.mode == "calibrate"
-    y, obs = _qeinsum_fwd(classes, cfg, a, b, scales, observe, generator)
-    if observe:
-        ctx.record(keys["a"], obs[0])
-        ctx.record(keys["b"], obs[1])
-        ctx.record(fkeys["y"], obs[2])
-    return y
+    meta = (cfg, classes, scales, ctx, keys, fkeys, generator)
+    return _QEinsum.apply(a, b, meta)

@@ -15,7 +15,8 @@
 // (per-column validity), chunk (slot positions against q positions
 // start + row for rows < n_valid, -1 otherwise). GQA reads kv head
 // h / (H / Hkv) directly — no repeated K/V. SR bits come from the counter
-// hash of (seed, salt 0x51 / 0x52, b*H + h, row, col).
+// hash of (seed, salt 0x51 / 0x52, b*H + h, row, col); the seed is read
+// from device memory, where the caller's generator drew it.
 //
 // Structure: one block per (b, h, 64-row q tile), four warps of 16 rows.
 // The TPU's sequential kv grid axis becomes a loop inside the block over
@@ -57,7 +58,7 @@ struct Args {
   int B, H, Hkv, Q, S, q_len, s_len, mask, window;
   int q_fmt, k_fmt, v_fmt, fmt_s, fmt_p, sr_s, sr_p, sat_s, sat_p;
   float f_s, s_s, f_p, f_o;
-  uint32_t seed;
+  const uint32_t* seed;
 };
 
 struct Smem {
@@ -93,6 +94,7 @@ __global__ void __launch_bounds__(128) attn_fwd_kernel(Args p) {
   const int row0 = iq * BQ;
   const uint32_t bh = (uint32_t)(b * p.H + h);
   const int nk = p.S / LANE;
+  const uint32_t seed = *p.seed;
 
   // Q tile -> shared bf16 (rows past Q read as zeros).
   const uint8_t* qb = p.q + ((long long)(b * p.H + h) * p.Q) * D;
@@ -195,7 +197,7 @@ __global__ void __launch_bounds__(128) attn_fwd_kernel(Args p) {
         const int col = j * LANE + cl, row = rows[hf];
         const int mv = (p.mask == KV || p.mask == CHUNK) ? sm.kvm[cl] : 0;
         const bool ok = is_valid(p, row, qpos[hf], col, mv);
-        uint32_t rnd = p.sr_s ? fp8::hash_bits(p.seed, SALT_S, bh, row, col) : 0u;
+        uint32_t rnd = p.sr_s ? fp8::hash_bits(seed, SALT_S, bh, row, col) : 0u;
         uint8_t q8 = fp8::quant(__fmul_rn(s[nt][e], p.f_s), rnd, p.fmt_s,
                                 p.sr_s, p.sat_s);
         float sv = fp8::to_float(q8, p.fmt_s);
@@ -230,7 +232,7 @@ __global__ void __launch_bounds__(128) attn_fwd_kernel(Args p) {
         const int col = j * LANE + nt * 8 + 2 * t + (e & 1), row = rows[hf];
         float ev = ok ? expf(__fsub_rn(s[nt][e], m[hf])) : 0.f;
         rsum[hf] = __fadd_rn(rsum[hf], ev);
-        uint32_t rnd = p.sr_p ? fp8::hash_bits(p.seed, SALT_P, bh, row, col) : 0u;
+        uint32_t rnd = p.sr_p ? fp8::hash_bits(seed, SALT_P, bh, row, col) : 0u;
         uint8_t p8 = fp8::quant(__fmul_rn(ev, p.f_p), rnd, p.fmt_p, p.sr_p,
                                 p.sat_p);
         pq[e] = fp8::to_float(p8, p.fmt_p);
@@ -330,12 +332,13 @@ extern "C" int attn_fwd_launch(
     int Hkv, int Q, int S, int q_len, int s_len, int mask, int window,
     int q_fmt, int k_fmt, int v_fmt, int fmt_s, int fmt_p, int sr_s, int sr_p,
     int sat_s, int sat_p, float f_s, float s_s, float f_p, float f_o,
-    unsigned int seed, void* stream) {
+    const void* seed, void* stream) {
   Args p{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), kvm, chunk,
          static_cast<__nv_bfloat16*>(o), amax_s, amax_p, B, H, Hkv, Q, S,
          q_len, s_len, mask, window, q_fmt, k_fmt, v_fmt, fmt_s, fmt_p, sr_s,
-         sr_p, sat_s, sat_p, f_s, s_s, f_p, f_o, seed};
+         sr_p, sat_s, sat_p, f_s, s_s, f_p, f_o,
+         static_cast<const uint32_t*>(seed)};
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -6,7 +6,7 @@ $REPRO_TORCH_BUILD_DIR), named by a hash of its source and flags, so a stale
 library is never loaded. Nothing is compiled at import time: this module is
 imported on machines without nvcc, where only the plain versions run.
 
-Both kernels are compiled with `--fmad=false`: the reference computes
+Every kernel is compiled with `--fmad=false`: the reference computes
 `s8 * s_s - m` and `acc * c + pv` as separate roundings, which nvcc would
 otherwise contract into FMAs.
 """
@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("fused_quant_matmul", "fp8_attention_fwd")
+KERNELS = ("fused_quant_matmul", "fp8_attention_fwd", "fp8_attention_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}

@@ -1,13 +1,19 @@
-"""Public wrapper of the fused FP8 flash-attention forward.
+"""Public wrappers of the fused FP8 flash attention, forward and backward.
 
 `fp8_attention_fwd(q8, k8, v8, seed, scal, ...)` is the counterpart of
 `repro.kernels.fp8_attention.ops.fp8_attention_fwd`: fp8 payloads in,
 bf16 output plus the scalar S / P amaxes (grid units, masked to the
 attended region) out.
 
-Dispatch: CPU tensors take the plain version (ref.py); CUDA tensors launch
-the hand-written Hopper kernel (csrc/fp8_attention_fwd.cu) or raise.
-`fp8_attention_fwd.launches` counts kernel launches.
+`fp8_attention_bwd(q8, k8, v8, do8, seed, scal, ...)` is the counterpart
+of `repro.kernels.fp8_attention.ops.fp8_attention_bwd`: dq / dk / dv in
+f32 plus the scalar dP / dS amaxes.
+
+Dispatch: CPU tensors take the plain versions (ref.py); CUDA tensors launch
+the hand-written Hopper kernels (csrc/fp8_attention_fwd.cu,
+csrc/fp8_attention_bwd.cu) or raise. `fp8_attention_fwd.launches`,
+`fp8_attention_bwd_dq.launches` and `fp8_attention_bwd_dkv.launches`
+count the launches of the three kernels.
 
 Padding contract (the reference's): the head dim is zero-padded to 128 and
 the kv length to a multiple of 128 (slot positions pad with -1, validity
@@ -32,7 +38,7 @@ HEAD_DIM = 128
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _MASK_ID = {"causal": 0, "full": 1, "kv": 2, "chunk": 3}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
-             + [ctypes.c_float] * 4 + [ctypes.c_uint, ctypes.c_void_p])
+             + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
 
 
 def _pad_bytes(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
@@ -41,6 +47,20 @@ def _pad_bytes(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
         return x
     widths = [0, 0] * (x.dim() - 1 - dim) + [0, pad]
     return F.pad(x.view(torch.uint8), widths).view(x.dtype)
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The SR hash seed (a python int or an integer tensor, e.g. drawn by
+    the caller's generator on the device) as a (1,) int32 tensor on
+    `device` holding its low 32 bits — the kernels read it from device
+    memory, so a seed drawn on the card never visits the host, and an int
+    seed is filled in on the device (no blocking host-to-device copy)."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(device=device, dtype=torch.int64).reshape(1)
+        return (((s & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    v = int(seed) & 0xFFFFFFFF
+    return torch.full((1,), v - (1 << 32) if v >= 1 << 31 else v,
+                      dtype=torch.int32, device=device)
 
 
 def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
@@ -60,6 +80,7 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     f_s, s_s, f_p, f_o = (float(np.float32(x)) for x in scal)
+    seed_t = seed_tensor(seed, dev)
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(),
              kvm.data_ptr() if kvm is not None else None,
              chunk_pos.data_ptr() if chunk_pos is not None else None,
@@ -70,7 +91,7 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
              _FMT_ID[format_of_dtype(v8.dtype).name], _FMT_ID[fmt_s],
              _FMT_ID[fmt_p], int(rounding_s == "sr"), int(rounding_p == "sr"),
              int(saturate_s), int(saturate_p), f_s, s_s, f_p, f_o,
-             int(seed) & 0xFFFFFFFF, torch.cuda.current_stream(dev).cuda_stream)
+             seed_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_fwd")
     fp8_attention_fwd.launches += 1
     return o, amax_s, amax_p
@@ -84,7 +105,8 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       saturate_s: bool = True, saturate_p: bool = True):
     """Fused FP8 attention forward on logical payloads.
 
-    q8 (B,H,Q,D); k8/v8 (B,Hkv,S,D), any fp8 dtypes; seed: int (SR hash);
+    q8 (B,H,Q,D); k8/v8 (B,Hkv,S,D), any fp8 dtypes; seed: int or integer
+    tensor (SR hash);
     scal: 4 host f32 [f_s, s_s, f_p, f_o]. kv_mask (B,S): validity for
     mask_mode='kv', int slot positions (-1 = hole) for 'chunk', which also
     takes chunk_pos (B,2) int [start, n_valid]. Returns (o (B,H,Q,D) bf16,
@@ -142,3 +164,158 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
 
 fp8_attention_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward: the dQ kernel and the dK/dV kernel (csrc/fp8_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_BWD_DQ_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int),
+                                              ctypes.POINTER(ctypes.c_float),
+                                              ctypes.c_void_p]
+_BWD_DKV_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_int),
+                                               ctypes.POINTER(ctypes.c_float),
+                                               ctypes.c_void_p]
+
+
+def _bwd_args(q8, k8, v8, do8, *, scal, q_len, s_len,
+              mask_mode="causal", window=0, fmt_s="e5m2", fmt_p="e5m2",
+              fmt_e="e5m2", rounding_s="sr", rounding_p="sr",
+              rounding_e="sr", saturate_s=True, saturate_p=True,
+              saturate_e=False):
+    b_, h_, q_rows, d = q8.shape
+    hkv, s_pad = k8.shape[1], k8.shape[2]
+    if d != HEAD_DIM or s_pad % LANE:
+        raise ValueError(f"kernel needs D={HEAD_DIM}, S % {LANE} == 0")
+    fid = [_FMT_ID[format_of_dtype(x.dtype).name] for x in (q8, k8, v8, do8)]
+    iv = (ctypes.c_int * 22)(
+        b_, h_, hkv, q_rows, s_pad, q_len, s_len, int(mask_mode == "causal"),
+        window, *fid, _FMT_ID[fmt_s], _FMT_ID[fmt_p], _FMT_ID[fmt_e],
+        int(rounding_s == "sr"), int(rounding_p == "sr"),
+        int(rounding_e == "sr"), int(saturate_s), int(saturate_p),
+        int(saturate_e))
+    fv = (ctypes.c_float * 10)(*(float(np.float32(x)) for x in scal))
+    return iv, fv
+
+
+def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, **kw):
+    """Kernel 1 of the backward on padded CUDA payloads (D = 128, S a
+    multiple of 128): returns (dq (B,H,Q,D) f32, m, l, rd (B,H,Q) f32,
+    amax_dp, amax_ds (B,H,ceil(Q/64)) f32 per q tile). `kw`: mask_mode,
+    window, q_len, s_len and the S/P/E format, rounding, saturate knobs."""
+    iv, fv = _bwd_args(q8, k8, v8, do8, scal=scal, **kw)
+    b_, h_, q_rows, d = q8.shape
+    dev = q8.device
+    dq = torch.empty((b_, h_, q_rows, d), dtype=torch.float32, device=dev)
+    m, l, rd = (torch.empty((b_, h_, q_rows), dtype=torch.float32,
+                            device=dev) for _ in range(3))
+    nq = -(-q_rows // 64)
+    amax_dp, amax_ds = (torch.empty((b_, h_, nq), dtype=torch.float32,
+                                    device=dev) for _ in range(2))
+    seed_t = seed_tensor(seed, dev)
+    fn = _build.load("fp8_attention_bwd").attn_bwd_dq_launch
+    fn.argtypes = _BWD_DQ_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
+             seed_t.data_ptr(), dq.data_ptr(), m.data_ptr(), l.data_ptr(),
+             rd.data_ptr(), amax_dp.data_ptr(), amax_ds.data_ptr(), iv, fv,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fp8_attention_bwd_dq")
+    fp8_attention_bwd_dq.launches += 1
+    return dq, m, l, rd, amax_dp, amax_ds
+
+
+def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, **kw):
+    """Kernel 2 of the backward on padded CUDA payloads, from kernel 1's
+    row statistics: returns (dk, dv) (B,Hkv,S,D) f32."""
+    iv, fv = _bwd_args(q8, k8, v8, do8, scal=scal, **kw)
+    dev = q8.device
+    dk = torch.empty(k8.shape, dtype=torch.float32, device=dev)
+    dv = torch.empty(k8.shape, dtype=torch.float32, device=dev)
+    seed_t = seed_tensor(seed, dev)
+    fn = _build.load("fp8_attention_bwd").attn_bwd_dkv_launch
+    fn.argtypes = _BWD_DKV_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
+             seed_t.data_ptr(), m.data_ptr(), l.data_ptr(), rd.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), iv, fv,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fp8_attention_bwd_dkv")
+    fp8_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+fp8_attention_bwd_dq.launches = 0
+fp8_attention_bwd_dkv.launches = 0
+
+
+def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                      do8: torch.Tensor, seed, scal, *,
+                      mask_mode: str = "causal", window: int = 0,
+                      fmt_s: str = "e5m2", fmt_p: str = "e5m2",
+                      fmt_e: str = "e5m2", rounding_s: str = "sr",
+                      rounding_p: str = "sr", rounding_e: str = "sr",
+                      saturate_s: bool = True, saturate_p: bool = True,
+                      saturate_e: bool = False):
+    """Fused FP8 attention backward (training masks 'causal' / 'full').
+
+    q8/do8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads (do8: the
+    error-quantized output cotangent); seed: int or integer tensor (the
+    forward's); scal: 10 host f32 [f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds,
+    f_dq, f_dk, f_dv]. Returns (dq (B,H,Q,D), dk, dv (B,Hkv,S,D) f32,
+    amax_dp, amax_ds) with 0-d f32 amaxes in grid units.
+
+    CPU tensors take the plain version (ref.py); CUDA tensors run the dQ
+    kernel, then the dK/dV kernel (each counts its launches), or raise.
+    Padding (the reference's): D to 128 and S to a multiple of 128 with
+    zeros, which contribute exact zeros and are masked out of the
+    observations; Q needs none (the kernels guard ragged rows)."""
+    if mask_mode not in ("causal", "full"):
+        raise ValueError(f"fused attention backward supports causal/full, "
+                         f"not {mask_mode!r}")
+    for x in (q8, k8, v8, do8):
+        if x.dtype not in FP8_DTYPES or x.dim() != 4:
+            raise TypeError(f"fp8 (B,H,S,D) payloads required, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+        if x.device != q8.device:
+            raise ValueError("q8/k8/v8/do8 on different devices")
+    b_, h_, q_rows, d = q8.shape
+    hkv, s_len = k8.shape[1], k8.shape[2]
+    if h_ % hkv or k8.shape != v8.shape or do8.shape != q8.shape \
+            or k8.shape[0] != b_ or k8.shape[3] != d:
+        raise ValueError(f"shape mismatch q{tuple(q8.shape)} "
+                         f"k{tuple(k8.shape)} v{tuple(v8.shape)} "
+                         f"do{tuple(do8.shape)}")
+    kw = dict(mask_mode=mask_mode, window=window, fmt_s=fmt_s, fmt_p=fmt_p,
+              fmt_e=fmt_e, rounding_s=rounding_s, rounding_p=rounding_p,
+              rounding_e=rounding_e, saturate_s=saturate_s,
+              saturate_p=saturate_p, saturate_e=saturate_e)
+    dev = q8.device.type
+    if dev == "cpu":
+        return _ref.fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, **kw)
+    if dev != "cuda":
+        raise ValueError(f"fp8_attention_bwd: unsupported device {q8.device}")
+    if d > HEAD_DIM:
+        raise ValueError(f"head dim {d} > {HEAD_DIM} is not supported")
+    qp = aligned(_pad_bytes(q8.contiguous(), 3, HEAD_DIM))
+    dop = aligned(_pad_bytes(do8.contiguous(), 3, HEAD_DIM))
+    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
+    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, HEAD_DIM), 2, LANE))
+    kw.update(q_len=q_rows, s_len=s_len)
+    dq, m, l, rd, amax_dp, amax_ds = fp8_attention_bwd_dq(
+        qp, kp, vp, dop, seed, scal, **kw)
+    dk, dv = fp8_attention_bwd_dkv(qp, kp, vp, dop, seed, scal, m, l, rd,
+                                   **kw)
+    if d != HEAD_DIM:
+        dq = dq[..., :d].contiguous()
+    if d != HEAD_DIM or kp.shape[2] != s_len:
+        dk = dk[:, :, :s_len, :d].contiguous()
+        dv = dv[:, :, :s_len, :d].contiguous()
+    return dq, dk, dv, torch.amax(amax_dp), torch.amax(amax_ds)
+
+
+def reset_launches():
+    """Set the launch counts of the three attention kernels to 0."""
+    fp8_attention_fwd.launches = 0
+    fp8_attention_bwd_dq.launches = 0
+    fp8_attention_bwd_dkv.launches = 0

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused FP8 flash-attention forward.
+"""Plain PyTorch versions of the fused FP8 flash attention, forward and
+backward.
 
 Counterpart of the forward half of `repro.kernels.fp8_attention.ref`:
 `sr_hash_bits`, `_mask_block` (`mask_block`), `kv_stripe_span`, `_sblocks`
@@ -16,6 +17,32 @@ Semantics per column block j:
     m' = max(m, rowmax x);  c = exp(m - m');  e = valid ? exp(x - m') : 0
     E8 = Q_A(e * f_p);  l = l*c + rowsum e;  acc = acc*c + E8 . v8_j
     O = (acc * f_o) / (l > 0 ? l : 1)  -> bf16
+
+The backward (`fp8_attention_bwd_ref`) is the counterpart of the
+reference's `_pdp_blocks`, `bwd_stripe_rd`, `_ds_block`, `bwd_stripe_dq`,
+`bwd_stripe_dkv`, `bwd_q_tile`, `bwd_tile_dkv_stripe` and
+`fp8_attention_bwd_ref`: the softmax statistics recomputed from the fp8
+residuals (m = row max, then l = sum of exp(x - m), both per column block
+in ascending order), then per block
+    P8  = Q_A(exp(x - m) / l * f_p)             P = P8 * s_p   (normalized)
+    dP8 = Q_E((do8 . v8^T) * f_dp)              dP = dP8 * s_dp
+    rd += rowsum(P * dP)
+and, with the final rd, per block
+    dS8 = Q_E(P * (dP - rd) * f_ds);  dq += dS8 . k8
+    dk[blk] += dS8^T . q8,  dv[blk] += P8^T . do8  per 128-row query tile
+with dq * f_dq, dk * f_dk, dv * f_dv applied once at the end, the dK/dV
+parts added in (GQA member, query tile) order. SR bits: the counter hash
+with SALT_P / SALT_DP / SALT_DS at the same coordinates as the forward's.
+
+Skipped blocks: the kernels skip a (128-row query tile, 128-column kv
+block) pair whose every position the causal (+ window) mask excludes, as
+the reference skips fully masked kv stripes. Here such pairs contribute
+exact zeros: a masked position has P = 0, but its dP is computed, and a
+non-saturating dP that overflows would turn P * dP into NaN — so the
+contributions of skipped pairs are zeroed explicitly (`_live`). The
+reference skips at the granularity of its kv stripe (block_kv columns),
+so it visits more masked blocks; results differ only where a masked,
+visited position's dP overflows (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -28,6 +55,7 @@ from repro_torch.core.fp8_formats import get_format
 from repro_torch.core.quantize import quantize_rne, sr_fp8_via_f16
 
 LANE = 128
+TQ = 128   # query rows per dK/dV contribution (the reference's TQ)
 SALT_S, SALT_P, SALT_DP, SALT_DS = 0x51, 0x52, 0x53, 0x54
 _GOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
@@ -191,3 +219,144 @@ def fp8_attention_fwd_ref(q8, k8, v8, seed, scal, *, mask_mode="causal",
     d_safe = torch.where(l > 0, l, torch.ones_like(l))
     o = ((acc * f_o) / d_safe).to(torch.bfloat16)
     return o.reshape(b_, h_, q_rows, d), amax_s, amax_p
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _live(rows, j: int, mask_mode: str, window: int):
+    """Whether column block j is visited for each row: the kernels' skip
+    set, kv_stripe_span of the row's 128-row query tile at block_kv =
+    LANE. None when every block is visited ('full')."""
+    if mask_mode != "causal":
+        return None
+    t0 = (rows // TQ) * TQ
+    jmin, jmax = 0, (t0 + TQ - 1) // LANE
+    live = j <= jmax
+    if window:
+        jmin = torch.clamp_min(t0 - window + 1, 0) // LANE
+        live = live & (j >= jmin)
+    return live
+
+
+def _keep(live, x):
+    return x if live is None else torch.where(live, x, torch.zeros_like(x))
+
+
+def _ds_block(p_d, dp_d, rd, bits, *, f_ds, fmt_e, rounding_e, saturate_e):
+    """dS8 = Q_E(P * (dP - rd) * f_ds): the softmax VJP of one block,
+    quantized (the reference's `_ds_block`)."""
+    return _quant((p_d * (dp_d - rd)) * f_ds, bits, fmt_e, rounding_e,
+                  saturate_e)
+
+
+def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
+                          mask_mode: str = "causal", window: int = 0,
+                          fmt_s="e5m2", fmt_p="e5m2", fmt_e="e5m2",
+                          rounding_s="sr", rounding_p="sr", rounding_e="sr",
+                          saturate_s=True, saturate_p=True, saturate_e=False,
+                          q_len: Optional[int] = None,
+                          with_stats: bool = False):
+    """q8/do8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads; seed int or
+    integer tensor; scal 10 host f32 [f_s, s_s, f_p, s_p, f_dp, s_dp,
+    f_ds, f_dq, f_dk, f_dv]. Returns (dq (B,H,Q,D) f32, dk, dv (B,Hkv,S,D)
+    f32, amax_dp, amax_ds) — 0-d f32 amaxes of the quantized dP / dS in
+    grid units over the attended region — and, with_stats=True, also the
+    per-row statistics (m, l, rd), each (B,H,Q) f32."""
+    if mask_mode not in ("causal", "full"):
+        raise ValueError(f"the attention backward supports causal/full, not "
+                         f"{mask_mode!r}")
+    b_, h_, q_rows, d = q8.shape
+    hkv, s_len = k8.shape[1], k8.shape[2]
+    g = h_ // hkv
+    dev = q8.device
+    (f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds, f_dq, f_dk, f_dv) = (
+        float(np.float32(x)) for x in scal)
+    qf = q8.float().reshape(b_, hkv, g * q_rows, d)
+    dof = do8.float().reshape(b_, hkv, g * q_rows, d)
+    kf, vf = k8.float(), v8.float()
+    r_idx = torch.arange(g * q_rows, device=dev)
+    rows = (r_idx % q_rows).view(1, 1, -1, 1)
+    heads = (torch.arange(hkv, device=dev).view(1, -1, 1, 1) * g
+             + (r_idx // q_rows).view(1, 1, -1, 1))
+    bh = torch.arange(b_, device=dev).view(-1, 1, 1, 1) * h_ + heads
+    skw = dict(seed=seed, f_s=f_s, s_s=s_s, mask_mode=mask_mode,
+               window=window, q_len=q_rows if q_len is None else q_len,
+               s_len=s_len, fmt_s=fmt_s, rounding_s=rounding_s,
+               saturate_s=saturate_s)
+
+    def bits(salt, cols, rounding):
+        return sr_hash_bits(seed, salt, bh, rows, cols) \
+            if rounding == "sr" else None
+
+    blocks = []
+    for c0 in range(0, s_len, LANE):
+        c1 = min(c0 + LANE, s_len)
+        cols = torch.arange(c0, c1, device=dev).view(1, 1, 1, -1)
+        _, valid, x, obs = sblock(qf, kf[:, :, c0:c1], rows, cols, bh, None,
+                                  None, **skw)
+        blocks.append((c0, c1, cols, valid, x, obs,
+                       _live(rows, c0 // LANE, mask_mode, window)))
+
+    # Softmax statistics, recomputed (the reference's fwd_stripe_m / _l).
+    m = torch.full((b_, hkv, g * q_rows, 1), -1e30, device=dev)
+    for c0, c1, cols, valid, x, obs, live in blocks:
+        m = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+    l = torch.zeros_like(m)
+    for c0, c1, cols, valid, x, obs, live in blocks:
+        e = torch.where(valid, torch.exp(x - m), torch.zeros_like(x))
+        l = l + e.sum(dim=-1, keepdim=True)
+    d_safe = torch.where(l > 0, l, torch.ones_like(l))
+
+    # Pass A: rd = rowsum(P * dP) and the dP observation.
+    zero = torch.zeros((), device=dev)
+    rd = torch.zeros_like(m)
+    amax_dp = zero
+    pdp = []
+    for c0, c1, cols, valid, x, obs, live in blocks:
+        e = torch.where(valid, torch.exp(x - m), torch.zeros_like(x))
+        p8 = _quant((e / d_safe) * f_p, bits(SALT_P, cols, rounding_p),
+                    fmt_p, rounding_p, saturate_p)
+        p_d = p8.float() * s_p
+        dp = dof @ vf[:, :, c0:c1].transpose(-1, -2)
+        dp8 = _quant(dp * f_dp, bits(SALT_DP, cols, rounding_e), fmt_e,
+                     rounding_e, saturate_e)
+        dp_d = dp8.float() * s_dp
+        rd = rd + _keep(live, p_d * dp_d).sum(dim=-1, keepdim=True)
+        amax_dp = torch.maximum(amax_dp, torch.where(
+            obs, dp8.float().abs(), torch.zeros_like(dp_d)).max())
+        pdp.append((p8, p_d, dp_d))
+
+    # Pass B: dS, dq, and the dS observation.
+    dq = torch.zeros_like(qf)
+    amax_ds = zero
+    ds_all, p_all = [], []
+    for (c0, c1, cols, valid, x, obs, live), (p8, p_d, dp_d) in zip(blocks,
+                                                                   pdp):
+        ds8 = _ds_block(p_d, dp_d, rd, bits(SALT_DS, cols, rounding_e),
+                        f_ds=f_ds, fmt_e=fmt_e, rounding_e=rounding_e,
+                        saturate_e=saturate_e)
+        amax_ds = torch.maximum(amax_ds, torch.where(
+            obs, ds8.float().abs(), torch.zeros_like(p_d)).max())
+        dsf = _keep(live, ds8.float())
+        dq = dq + dsf @ kf[:, :, c0:c1]
+        ds_all.append(dsf)
+        p_all.append(_keep(live, p8.float()))
+
+    # dK / dV in raw units, (GQA member, 128-row query tile) order, then
+    # the scale once.
+    ds_all = torch.cat(ds_all, dim=-1)
+    p_all = torch.cat(p_all, dim=-1)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for i in range(g):
+        for t0 in range(0, q_rows, TQ):
+            r = slice(i * q_rows + t0, i * q_rows + min(t0 + TQ, q_rows))
+            dk = dk + ds_all[:, :, r].transpose(-1, -2) @ qf[:, :, r]
+            dv = dv + p_all[:, :, r].transpose(-1, -2) @ dof[:, :, r]
+    out = ((dq * f_dq).reshape(b_, h_, q_rows, d), dk * f_dk, dv * f_dv,
+           amax_dp, amax_ds)
+    if with_stats:
+        out += tuple(t.reshape(b_, h_, q_rows) for t in (m, l, rd))
+    return out

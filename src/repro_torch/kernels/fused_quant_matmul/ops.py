@@ -7,7 +7,8 @@ amax of the quantized output and its saturated/flushed fractions, as
 
 Dispatch: CPU tensors take the plain version (ref.py); CUDA tensors launch
 the hand-written Hopper kernel (csrc/fused_quant_matmul.cu) or raise —
-there is no fallback. `fused_quant_matmul.launches` counts kernel launches.
+there is no fallback. `fused_quant_matmul.launches` counts kernel launches,
+and `fused_quant_matmul.launches_by_dims` counts them per layout.
 
 Padding contract: the kernel takes dims that are multiples of its 64x64x64
 tile; the wrapper zero-pads other shapes (operands and SR bits), the
@@ -76,17 +77,21 @@ def _launch(a, b, rand8, scale, *, dims, out_format, rounding, saturate,
     fn = lib.fqmm_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(a.data_ptr(), b.data_ptr(),
-             rand8.data_ptr() if rand8 is not None else None,
-             out.data_ptr(), amax.data_ptr(), sat.data_ptr(),
-             flush.data_ptr(), m, n, k, sam, sak, sbk, sbn,
-             _FMT_ID[format_of_dtype(a.dtype).name],
-             _FMT_ID[format_of_dtype(b.dtype).name], _FMT_ID[out_format],
-             int(rounding == "sr"), int(saturate), float(np.float32(scale)),
-             lm, ln, int(with_counts),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # The range names the layout in a profiler trace (one kernel serves
+    # all three).
+    with torch.profiler.record_function(f"fused_quant_matmul.{dims}"):
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 rand8.data_ptr() if rand8 is not None else None,
+                 out.data_ptr(), amax.data_ptr(), sat.data_ptr(),
+                 flush.data_ptr(), m, n, k, sam, sak, sbk, sbn,
+                 _FMT_ID[format_of_dtype(a.dtype).name],
+                 _FMT_ID[format_of_dtype(b.dtype).name], _FMT_ID[out_format],
+                 int(rounding == "sr"), int(saturate),
+                 float(np.float32(scale)), lm, ln, int(with_counts),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_quant_matmul")
     fused_quant_matmul.launches += 1
+    fused_quant_matmul.launches_by_dims[dims] += 1
     return out, amax, sat, flush
 
 
@@ -156,3 +161,11 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor, scale=1.0, *,
 
 
 fused_quant_matmul.launches = 0
+fused_quant_matmul.launches_by_dims = {d: 0 for d in _ref.DIMS}
+
+
+def reset_launches():
+    """Set every launch count of the GEMM kernel to 0."""
+    fused_quant_matmul.launches = 0
+    for d in fused_quant_matmul.launches_by_dims:
+        fused_quant_matmul.launches_by_dims[d] = 0

@@ -44,7 +44,7 @@ def init_paged_pool(cfg: ModelConfig, n_slots: int, *, device):
     on the allocator's reserved trash page."""
     if cfg.policy.kv_cache_format is not None:
         raise NotImplementedError(
-            "the FP8 KV cache is not ported yet (ROADMAP.md, next slice)")
+            "the FP8 KV cache is not ported yet (ROADMAP.md, slice 3)")
     shape = (n_slots, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
@@ -53,10 +53,13 @@ def init_paged_pool(cfg: ModelConfig, n_slots: int, *, device):
 def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
               qcfg: QuantConfig, positions: torch.Tensor, mode: str = "train",
               cache_layer=None, window: int = 0,
-              page: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+              page: Optional[dict] = None,
+              qgen: Optional[torch.Generator] = None
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
     """modes: train (causal self-attention, no cache) and chunk (T tokens
     per request against the paged pool `cache_layer`, indirection in
     `page`: write_slots (B,T), read_slots/slot_pos (B,C), chunk_pos (B,2)).
+    qgen: the generator SR bits come from (training), or None.
     Returns (y, cache_layer) — the pool is updated in place in chunk mode."""
     b, sq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -67,9 +70,12 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
             "(kernel backend + delayed scaling); the unfused path is queued "
             "in ROADMAP.md")
 
-    q = qeinsum("bsd,dn->bsn", x, params["wq"], cfg=qcfg, site="wq")
-    k = qeinsum("bsd,dn->bsn", x, params["wk"], cfg=qcfg, site="wk")
-    v = qeinsum("bsd,dn->bsn", x, params["wv"], cfg=qcfg, site="wv")
+    q = qeinsum("bsd,dn->bsn", x, params["wq"], cfg=qcfg, site="wq",
+                generator=qgen)
+    k = qeinsum("bsd,dn->bsn", x, params["wk"], cfg=qcfg, site="wk",
+                generator=qgen)
+    v = qeinsum("bsd,dn->bsn", x, params["wv"], cfg=qcfg, site="wv",
+                generator=qgen)
     if cfg.qkv_bias:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
@@ -82,7 +88,7 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     if mode == "train":
         o = fp8_sdpa(qt, k.transpose(1, 2), v.transpose(1, 2), cfg=qcfg,
                      sm_scale=scale, mask_mode="causal", window=window,
-                     site="sdpa")
+                     site="sdpa", generator=qgen)
     elif mode == "chunk":
         if cache_layer is None or page is None:
             raise ValueError("chunk mode needs cache_layer and page")
@@ -102,10 +108,11 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
         vt = pool_v[page["read_slots"]].transpose(1, 2)
         o = fp8_sdpa_chunk(qt, kt, vt, page["slot_pos"], page["chunk_pos"],
                            cfg=qcfg, sm_scale=scale, window=window,
-                           site="sdpa")
+                           site="sdpa", generator=qgen)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported "
                          "(train, chunk)")
     o = o.transpose(1, 2).reshape(b, sq, h * dh)
-    y = qeinsum("bsn,nd->bsd", o, params["wo"], cfg=qcfg, site="wo")
+    y = qeinsum("bsn,nd->bsd", o, params["wo"], cfg=qcfg, site="wo",
+                generator=qgen)
     return y, cache_layer

@@ -1,7 +1,10 @@
 """Shared layers (counterpart of `repro.models.layers`): plain functions on
 tensors and parameter dicts. GEMM-bearing layers go through qeinsum; norms,
-rope and the embedding run at >= 16 bits as in the reference."""
+rope and the embedding run at >= 16 bits as in the reference, and train
+through ordinary autograd."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -50,15 +53,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(params, x: torch.Tensor, *, act: str, qcfg: QuantConfig
-        ) -> torch.Tensor:
-    """Gated (SiLU) MLP with all three GEMMs in FP8."""
+def mlp(params, x: torch.Tensor, *, act: str, qcfg: QuantConfig,
+        qgen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gated (SiLU) MLP with all three GEMMs in FP8 (SR bits from qgen)."""
     if act != "silu":
         raise NotImplementedError(f"activation {act!r} is not ported (silu)")
-    up = qeinsum("bsd,df->bsf", x, params["up"], cfg=qcfg, site="up")
-    gate = qeinsum("bsd,df->bsf", x, params["gate"], cfg=qcfg, site="gate")
+    up = qeinsum("bsd,df->bsf", x, params["up"], cfg=qcfg, site="up",
+                 generator=qgen)
+    gate = qeinsum("bsd,df->bsf", x, params["gate"], cfg=qcfg, site="gate",
+                   generator=qgen)
     h = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
-    return qeinsum("bsf,fd->bsd", h, params["down"], cfg=qcfg, site="down")
+    return qeinsum("bsf,fd->bsd", h, params["down"], cfg=qcfg, site="down",
+                   generator=qgen)
 
 
 def embed(params, tokens: torch.Tensor, *, dtype=torch.bfloat16

@@ -5,6 +5,14 @@ unscanned tree: {"embed": {"table"}, "final_norm": {"scale"},
 "decoder": {"layer_{i}": {...}}}. Layers run in a plain
 Python loop (the reference's lax.scan), each under the site scope of its
 key, so scale-site keys are the reference's `scan_layers=False` keys.
+
+`lm_loss` is the training objective (the reference's `lm_loss` with its
+sequence-chunked cross-entropy `_chunked_ce`): the 16-bit logits head, a
+mask over the padded vocabulary, the mean NLL over the loss mask, times
+the loss scale. Autograd differentiates it; the FP8 GEMMs and attention
+carry their own custom gradients. Activation recomputation (remat) is not
+ported: autograd keeps what the forward saves (fp8 payloads for the FP8
+nodes) — ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -68,35 +76,27 @@ def init_paged_stack_state(cfg: ModelConfig, n_slots: int, *, device=None):
 
 
 def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
-                positions: torch.Tensor, mode: str, state=None, page=None):
+                positions: torch.Tensor, mode: str, state=None, page=None,
+                qgen: Optional[torch.Generator] = None):
     """One 'attn' decoder layer. Returns (h, new_state)."""
     with scale_ctx.scope("attn"):
         a, cache = attention(
             p["attn"], rmsnorm(p["norm1"], h, eps=cfg.norm_eps), cfg=cfg,
             qcfg=qcfg, positions=positions, mode=mode,
-            cache_layer=None if state is None else state["kv"], page=page)
+            cache_layer=None if state is None else state["kv"], page=page,
+            qgen=qgen)
     h = h + a
     with scale_ctx.scope("mlp"):
         f = mlp(p["mlp"], rmsnorm(p["norm2"], h, eps=cfg.norm_eps),
-                act=cfg.act, qcfg=qcfg)
+                act=cfg.act, qcfg=qcfg, qgen=qgen)
     h = h + f
     return h, (None if cache is None else {"kv": cache})
 
 
-def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
-            mode: str = "train", states=None,
-            positions: Optional[torch.Tensor] = None, page=None,
-            gather_rows: Optional[torch.Tensor] = None,
-            last_only: bool = False):
-    """Backbone forward. Returns (logits, new_states).
-
-    mode 'train' (causal, no cache) or 'chunk' (paged serving: `states`
-    are the pools of init_paged_stack_state, `page` the step's block-table
-    indirection). gather_rows: (B,) row per request at which to compute
-    logits (the chunk's last valid token)."""
-    cfg.check_ported()
+def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
+              positions, page, qgen):
+    """Embedding and decoder layers. Returns (h, new_states)."""
     qcfg = cfg.policy.quant
-    head_cfg = cfg.policy.quant_for_layer(is_head=True)
     h = embed(params["embed"], tokens)
     b, s, _ = h.shape
     if positions is None:
@@ -108,9 +108,32 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
                 h, ns = apply_layer(
                     params["decoder"][name], h, cfg=cfg, qcfg=qcfg,
                     positions=positions, mode=mode,
-                    state=None if states is None else states[name], page=page)
+                    state=None if states is None else states[name],
+                    page=page, qgen=qgen)
             if states is not None:
                 new_states[name] = ns
+    return h, new_states
+
+
+def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
+            mode: str = "train", states=None,
+            positions: Optional[torch.Tensor] = None, page=None,
+            gather_rows: Optional[torch.Tensor] = None,
+            last_only: bool = False,
+            qgen: Optional[torch.Generator] = None):
+    """Backbone forward. Returns (logits, new_states).
+
+    mode 'train' (causal, no cache) or 'chunk' (paged serving: `states`
+    are the pools of init_paged_stack_state, `page` the step's block-table
+    indirection). gather_rows: (B,) row per request at which to compute
+    logits (the chunk's last valid token). qgen: the generator SR bits
+    come from."""
+    cfg.check_ported()
+    head_cfg = cfg.policy.quant_for_layer(is_head=True)
+    h, new_states = _backbone(params, tokens, cfg=cfg, mode=mode,
+                              states=states, positions=positions, page=page,
+                              qgen=qgen)
+    b = h.shape[0]
     if last_only:
         h = h[:, -1:]
     elif gather_rows is not None:
@@ -118,3 +141,56 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
     logits = logits_head(params["embed"], h, qcfg=head_cfg)
     return logits, new_states
+
+
+def _chunked_ce(params, h, labels, mask, *, cfg: ModelConfig,
+                head_cfg: QuantConfig, chunk: int) -> torch.Tensor:
+    """Sum over positions of mask * (logsumexp - gold logit), computed per
+    sequence chunk of `chunk` positions ((B, chunk, V) logits at a time),
+    with the padded vocabulary columns masked to -1e30."""
+    s = h.shape[1]
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        lf = logits_head(params["embed"], h[:, c0:c1], qcfg=head_cfg).float()
+        if cfg.padded_vocab_size != cfg.vocab_size:
+            col = torch.arange(lf.shape[-1], device=lf.device)
+            lf = torch.where(col < cfg.vocab_size, lf,
+                             torch.full_like(lf, -1e30))
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[:, c0:c1, None].long())[..., 0]
+        total = total + torch.sum((logz - gold) * mask[:, c0:c1])
+    return total
+
+
+def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
+            qgen: Optional[torch.Generator] = None,
+            loss_scale: Optional[torch.Tensor] = None):
+    """Causal-LM cross-entropy. batch: {"tokens", "labels"} (B, S) int and
+    an optional "loss_mask" (B, S), tensors on the params' device or numpy.
+    Returns (loss, metrics); with `loss_scale` (a 0-d tensor) the loss is
+    multiplied by it (scale before backprop, unscale in the optimizer)."""
+    cfg.check_ported()
+    head_cfg = cfg.policy.quant_for_layer(is_head=True)
+    dev = params["embed"]["table"].device
+
+    def on_dev(x, dtype):
+        return torch.as_tensor(x).to(device=dev, dtype=dtype)
+
+    tokens = on_dev(batch["tokens"], torch.long)
+    labels = on_dev(batch["labels"], torch.long)
+    mask = batch.get("loss_mask")
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=dev) \
+        if mask is None else on_dev(mask, torch.float32)
+    h, _ = _backbone(params, tokens, cfg=cfg, mode="train", states=None,
+                     positions=None, page=None, qgen=qgen)
+    h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    nll_sum = _chunked_ce(params, h, labels, mask, cfg=cfg,
+                          head_cfg=head_cfg,
+                          chunk=min(h.shape[1], cfg.attn_chunk_size))
+    loss = nll_sum / denom
+    metrics = {"nll": loss.detach()}
+    if loss_scale is not None:
+        loss = loss * loss_scale.to(loss.dtype)
+    return loss, metrics

@@ -42,6 +42,27 @@ def _observe(params, ecfg: ModelConfig, tokens: torch.Tensor,
     return dict(zip(keys, vals.astype(np.float32))), set(ctx.discovered)
 
 
+def discover_lm_sites(cfg: ModelConfig, params, batch) -> SiteRegistry:
+    """Site registry of the training loss (W/A/E/G sites and the token
+    sites with backward observations), in the reference's key order.
+
+    The reference traces `lm_loss` abstractly; eager torch has no abstract
+    trace, so this runs the loss forward once, without gradients, on
+    `batch` ({"tokens", "labels"}; a small one will do — the sites do not
+    depend on its size) under a discovery context (unit scales, nothing
+    recorded), with SR bits from a throwaway generator."""
+    from repro_torch.models.transformer import lm_loss
+    dcfg = cfg.replace(policy=dataclasses.replace(
+        cfg.policy, quant=dataclasses.replace(cfg.policy.quant,
+                                              scaling="delayed")))
+    device = params["embed"]["table"].device
+    gen = torch.Generator(device=device).manual_seed(0)
+    ctx = scale_ctx.discover_context()
+    with torch.no_grad(), scale_ctx.activate(ctx):
+        lm_loss(params, batch, cfg=dcfg, qgen=gen)
+    return SiteRegistry(ctx.discovered, ctx.discovered_token_sites)
+
+
 def calibrate(params, cfg: ModelConfig, batches: Iterable, *,
               scaling_cfg: ScalingConfig = ScalingConfig(),
               registry: Optional[SiteRegistry] = None

@@ -1,10 +1,10 @@
-"""Per-site scale plumbing for delayed per-tensor scaling (forward only).
+"""Per-site scale plumbing for delayed per-tensor scaling.
 
-Counterpart of `repro.scaling.context`, reduced to what frozen serving and
-calibration need. A `ScaleContext` carries per-site scales into the
-quantization call sites (core.qlinear, core.qattention) and collects the
-observed amaxes out of them. PyTorch runs eagerly, so the context is plain
-state for the duration of one forward.
+Counterpart of `repro.scaling.context`. A `ScaleContext` carries per-site
+scales into the quantization call sites (core.qlinear, core.qattention)
+and collects the observed amaxes out of them. PyTorch runs eagerly, so the
+context is plain state for the duration of one forward (and, in training,
+the backward that follows it).
 
 Site keys are the reference's keys for an unscanned stack
 (`scan_layers=False`), e.g.
@@ -17,12 +17,26 @@ Site keys are the reference's keys for an unscanned stack
     decoder/layer_3/attn/sdpa#{E,dp.E,ds.E}     its backward sites
 
 Modes:
-    calibrate — scales are host f32 values from ScaleState; every key the
-                forward touches is registered and every forward amax is
-                recorded (a 0-d device tensor, max-combined per key). The
-                first calibration batch doubles as site discovery (JAX
-                discovers by an abstract trace; eager torch has none).
+    discover  — site discovery: every key a call site touches is
+                registered, with its token site (the site key itself);
+                scales read as 1.0 and nothing is recorded. Eager torch has
+                no abstract trace, so discovery runs a real (small)
+                forward (`scaling.calibrate.discover_lm_sites`).
+    collect   — training: scales are host f32 values from ScaleState; the
+                forward records its amaxes (max-combined per key), and the
+                backward of each autograd Function records the error-class
+                observations (E, G, #da.E, #dp.E, #ds.E) with
+                `record_bwd`. That replaces the reference's token-cotangent
+                channel: backward recordings are SUMMED per key and counted,
+                and `observations()` divides each sum by its count, as
+                `repro.scaling.state.split_observations` divides a token's
+                summed cotangent by the site's use count.
+    calibrate — like collect, forward only (the first calibration batch
+                also registers the sites).
     frozen    — serving: scales are python floats; nothing is recorded.
+
+Recorded values stay 0-d device tensors until `observations()`, which
+brings them all to the host in one device->host read.
 """
 from __future__ import annotations
 
@@ -38,11 +52,16 @@ _CLASS_LETTER = {"weight": "W", "act": "A", "error": "E", "grad": "G"}
 
 @dataclasses.dataclass
 class ScaleContext:
-    mode: str                              # calibrate | frozen
+    mode: str                      # discover | collect | calibrate | frozen
     scales: Mapping[str, Any]              # key -> scale (float / np.float32)
     discovered: Set[str] = dataclasses.field(default_factory=set)
+    discovered_token_sites: Set[str] = dataclasses.field(default_factory=set)
     collected: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    # Backward observations: key -> summed amax, and key -> number of uses.
+    collected_bwd: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    bwd_uses: Dict[str, int] = dataclasses.field(default_factory=dict)
     _scope: List[str] = dataclasses.field(default_factory=list)
 
     def site_key(self, site: str) -> str:
@@ -50,6 +69,10 @@ class ScaleContext:
 
     def register(self, key: str):
         self.discovered.add(key)
+
+    def register_token_site(self, site_key: str):
+        """A site with backward observations (the reference's token)."""
+        self.discovered_token_sites.add(site_key)
 
     def scale_for(self, key: str, default: float = 1.0) -> np.float32:
         """The site's scale as an f32 scalar (the reference's
@@ -61,11 +84,43 @@ class ScaleContext:
         return key in self.scales
 
     def record(self, key: str, amax: torch.Tensor):
+        """A forward observation (max-combined over uses)."""
         self.register(key)
-        if self.mode == "calibrate":
+        if self.mode in ("collect", "calibrate"):
             prev = self.collected.get(key)
             self.collected[key] = amax if prev is None \
                 else torch.maximum(prev, amax)
+
+    def record_bwd(self, key: str, amax: torch.Tensor):
+        """A backward observation (summed over uses, counted)."""
+        if self.mode == "collect":
+            prev = self.collected_bwd.get(key)
+            self.collected_bwd[key] = amax if prev is None else prev + amax
+            self.bwd_uses[key] = self.bwd_uses.get(key, 0) + 1
+
+    def pending(self) -> List[torch.Tensor]:
+        """Every recorded value, forward then backward, in key order —
+        what `observations` reads."""
+        return [self.collected[k] for k in sorted(self.collected)] + [
+            self.collected_bwd[k] for k in sorted(self.collected_bwd)]
+
+    def observations(self, host_values=None) -> Dict[str, np.float32]:
+        """{key: host f32 amax}: forward maxima as recorded, backward sums
+        times 1/uses (the reference's `tok * (1 / uses)`). `host_values`
+        are the values of `pending()` already on the host (a caller that
+        reads them together with other step results); otherwise they are
+        read here, in one device->host transfer."""
+        fk, bk = sorted(self.collected), sorted(self.collected_bwd)
+        if host_values is None:
+            vals = self.pending()
+            host_values = torch.stack([v.float().reshape(()) for v in vals]
+                                      ).cpu().numpy() if vals else []
+        host_values = np.asarray(host_values, np.float32)
+        out = {k: np.float32(v) for k, v in zip(fk, host_values[:len(fk)])}
+        for k, v in zip(bk, host_values[len(fk):]):
+            inv = np.float32(1.0 / max(1, self.bwd_uses[k]))
+            out[k] = np.float32(np.float32(v) * inv)
+        return out
 
 
 _ACTIVE: Optional[ScaleContext] = None
@@ -99,6 +154,14 @@ def scope(name: str):
         yield
     finally:
         ctx._scope.pop()
+
+
+def discover_context() -> ScaleContext:
+    return ScaleContext(mode="discover", scales={})
+
+
+def collect_context(scales: Mapping[str, Any]) -> ScaleContext:
+    return ScaleContext(mode="collect", scales=scales)
 
 
 def calibrate_context(scales: Mapping[str, Any]) -> ScaleContext:

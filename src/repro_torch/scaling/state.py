@@ -1,9 +1,10 @@
 """Delayed-scaling state: per-site amax ring buffers and derived scales.
 
-Counterpart of `repro.scaling.state` for the forward sites (the "max"
-history policy, `DelayedScaling.update` and `freeze`). The state is tiny
-(a few hundred sites) and lives on the host as numpy float32, so every
-derived scale is the same IEEE f32 arithmetic as the reference's.
+Counterpart of `repro.scaling.state` (the "max" history policy,
+`DelayedScaling.collect` / `update` for training and calibration, and
+`freeze`). The state is small (50 sites a layer) and lives on the host as
+numpy float32, so every derived scale is the same IEEE f32 arithmetic as
+the reference's, and the kernels take their scales by value.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 
 from repro_torch.core.fp8_formats import get_format
 from repro_torch.core.precision_policy import QuantConfig
+from repro_torch.scaling import context as scale_ctx
 
 _SAT_TOL = 1.0 - 2.0 ** -8
 
@@ -63,11 +65,14 @@ class ScalingConfig:
 
 class SiteRegistry:
     """Stable key -> row mapping (sorted keys, one row per key: the port's
-    stack is unrolled, so every layer has its own keys)."""
+    stack is unrolled, so every layer has its own keys). `token_sites`
+    are the site keys with backward observations, sorted as in the
+    reference."""
 
-    def __init__(self, keys: Iterable[str]):
+    def __init__(self, keys: Iterable[str], token_sites: Iterable[str] = ()):
         self.keys: Tuple[str, ...] = tuple(sorted(set(keys)))
         self.index: Dict[str, int] = {k: i for i, k in enumerate(self.keys)}
+        self.token_sites: Tuple[str, ...] = tuple(sorted(set(token_sites)))
 
     def __len__(self) -> int:
         return len(self.keys)
@@ -98,6 +103,13 @@ class DelayedScaling:
 
     def scales_dict(self, state: ScaleState) -> Dict[str, np.float32]:
         return self.registry.unpack(state.scale)
+
+    def collect(self, state: ScaleState):
+        """Activate a training (collect-mode) context over `state`'s
+        scales; the forward and backward record into it, and
+        `ctx.observations()` feeds `update`."""
+        return scale_ctx.activate(
+            scale_ctx.collect_context(self.scales_dict(state)))
 
     def update(self, state: ScaleState,
                observed: Mapping[str, float]) -> ScaleState:

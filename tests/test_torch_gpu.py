@@ -155,3 +155,74 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
         attn.fp8_attention_fwd(x, x, x, 0, [1.0] * 4)
     with pytest.raises(ValueError):
         fq.fused_quant_matmul(x[0, 0], x[0, 0].cpu())
+
+
+def _bwd_case(kind, group, fmt_a, fmt_e, gen, s=200, d=64):
+    """The exact backward fixture of tests/test_torch_attn_bwd.py (ragged
+    length, head dim padded by the wrapper): one-hot q and dO rows, k and v
+    rows constant across the head dim; every f32 sum is exact."""
+    b, hkv = 2, 2
+    h = hkv * group
+    dt_a, dt_e = FP8[fmt_a][0], FP8[fmt_e][0]
+    eye = torch.eye(d)
+    q = eye[torch.randint(0, d, (b, h, s), generator=gen)]
+    top = (32.0 * (torch.arange(s) // 128).float() if kind == "stepped"
+           else torch.full((s,), 4.0))
+    hi = torch.rand((b, hkv, s), generator=gen) < 0.5
+    k = torch.where(hi, top, torch.full_like(top, -224.0))[..., None] \
+        * torch.ones(d)
+    v = torch.tensor([-2.0, -1.0, 1.0, 2.0])[
+        torch.randint(0, 4, (b, hkv, s, 1), generator=gen)] * torch.ones(d)
+    do = eye[torch.randint(0, d, (b, h, s), generator=gen)] \
+        * (4 * exact_fp8((b, h, s, 1), fmt_e, gen).float())
+    scal = [1.0, 1.0, 1.0, 1.0, 2.0 ** -6, 64.0, 256.0, 1.0, 1.0, 1.0]
+    return q.to(dt_a), k.to(dt_a), v.to(dt_a), do.to(dt_e), scal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "stepped"])
+@pytest.mark.parametrize("mask", ["causal", "full"])
+@pytest.mark.parametrize("recipe", [("e4m3", "e5m2"), ("e5m2", "e5m2")],
+                         ids=["hybrid", "paper"])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_attention_bwd_kernels_match_plain(card, kind, mask, recipe,
+                                           rounding, group):
+    """The dQ and dK/dV kernels against the plain backward run on the card,
+    bit for bit on the exact fixtures: dq, dk, dv, the amaxes, and the dQ
+    kernel's row statistics; each kernel launches once."""
+    from repro_torch.kernels.fp8_attention import ref
+    gen = torch.Generator().manual_seed(6)
+    fa, fe = recipe
+    q, k, v, do, scal = (x.to(card) if isinstance(x, torch.Tensor) else x
+                         for x in _bwd_case(kind, group, fa, fe, gen))
+    kw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, fmt_e=fe,
+              rounding_s=rounding, rounding_p=rounding, rounding_e=rounding)
+    n_dq = attn.fp8_attention_bwd_dq.launches
+    n_dkv = attn.fp8_attention_bwd_dkv.launches
+    got = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
+    want = ref.fp8_attention_bwd_ref(q, k, v, do, 9, scal, with_stats=True,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert attn.fp8_attention_bwd_dq.launches == n_dq + 1
+    assert attn.fp8_attention_bwd_dkv.launches == n_dkv + 1
+    for x, y in zip(got, want[:5]):
+        assert torch.equal(x, y)
+    pad = torch.nn.functional.pad
+    qp, dop = (pad(x.view(torch.uint8), (0, 64)).view(x.dtype)
+               for x in (q, do))
+    kp, vp = (pad(x.view(torch.uint8), (0, 64, 0, 56)).view(x.dtype)
+              for x in (k, v))
+    stats = attn.fp8_attention_bwd_dq(qp, kp, vp, dop, 9, scal,
+                                      q_len=q.shape[2], s_len=k.shape[2],
+                                      **kw)[1:4]
+    for x, y in zip(stats, want[5:]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_attention_bwd_rejects_other_masks(card):
+    x = torch.zeros((1, 2, 8, 64), dtype=torch.float8_e4m3fn, device=card)
+    with pytest.raises(ValueError, match="causal/full"):
+        attn.fp8_attention_bwd(x, x, x, x.to(torch.float8_e5m2), 0,
+                               [1.0] * 10, mask_mode="chunk")
