@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (there is no CPU fallback):
-  1. build the three CUDA libraries from src/repro_torch/csrc (one nvcc
+  1. build the four CUDA libraries from src/repro_torch/csrc (one nvcc
      each, in parallel) and print ptxas' register / shared-memory report;
   2. hold each kernel against its plain PyTorch version on the card, at
      the serving path's and the training path's shapes: outputs bitwise
@@ -26,14 +26,27 @@ Phases, each of which raises on failure (there is no CPU fallback):
      just before and read just after; profile two more steps;
   7. hold one training step's loss and gradients (full width, 2 layers)
      against the plain versions on the card and, all-RNE, on the CPU, with
-     two planted faults, and check two kernel runs are bitwise identical.
-The line before the last is a JSON object with one entry per kernel (its
-launches are those of the training run); the last line is
+     two planted faults, and check two kernel runs are bitwise identical;
+  8. train qwen2-1.5b at full width and depth for TRAIN_STEPS steps under
+     the paper's own recipe (e5m2 W/A/E/G at unit scales, SR on A/E/G,
+     enhanced loss scaling from 1024) on the unfused kernel path, counts
+     reset just before and read just after; profile two more steps; then
+     SR-quantize the model's projection weights through the stochastic-
+     rounding op (its own path, counts reset around it);
+  9. hold one paper-recipe step (full width, 2 layers) against the plain
+     versions on the card and, all-RNE, on the CPU, with a planted fault
+     in the unfused GEMM kernel.
+Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
+against their plain versions and times them. The line before the last is
+a JSON object with one entry per kernel (launches: the fused GEMM's and
+the attention kernels' from phase 6, the unfused GEMM's from phase 8, the
+stochastic-rounding kernels' from the op's path); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -1021,6 +1034,174 @@ def time_attention_bwd(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the paper recipe's kernels: the unfused fp8 GEMM (kernel 5) and
+# the two stochastic-rounding kernels (6, 7)
+# ---------------------------------------------------------------------------
+
+F32_OPS_PER_S = 67e12              # dense f32 outside the tensor cores
+SR_SHAPE = (TRAIN_B * TRAIN_S, 8960)
+# Values an SR check must meet: inf, NaN, zeros, f32 subnormals, the fp8
+# subnormal ranges, and values past either format's maximum.
+SR_SPECIAL = (float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-40,
+              2.0 ** -17, -3e-6, 2.0 ** -8, -5e-3, 1e6, -7e4, 57344.0,
+              61440.0, 65519.0, 70000.0, 448.0, 464.0, 470.0, 480.0, -500.0)
+
+
+def check_fp8_matmul(dev):
+    """Kernel 5 against its plain version on the card at the forward
+    training shapes (M = B x S rows, the four projection kinds), paper
+    (e5m2 x e5m2) and mixed (e4m3 x e5m2) operands: bitwise on exact inputs
+    for f32 and bf16 output, within rtol 1e-5 / atol 1e-4 (the reference's
+    own tolerance) on general inputs with f32 output."""
+    import torch
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    gen = torch.Generator(device=dev).manual_seed(12)
+    m, n_cases, worst = TRAIN_B * TRAIN_S, 0, 0.0
+    for k, n in PROJ:
+        for fa, fb in (("e5m2", "e5m2"), ("e4m3", "e5m2")):
+            for exact in (True, False):
+                a = fp8_tensor((m, k), fa, gen, dev, exact)
+                b = fp8_tensor((k, n), fb, gen, dev, exact)
+                for out in ((torch.float32, torch.bfloat16) if exact
+                            else (torch.float32,)):
+                    got = mm.fp8_matmul(a, b, out)
+                    want = mm_ref.fp8_matmul_ref(a, b, out)
+                    torch.cuda.synchronize()
+                    tag = f"fp8_matmul m={m} k={k} n={n} {fa}x{fb} {out}"
+                    if exact and not torch.equal(got, want):
+                        raise AssertionError(f"{tag}: not bitwise on exact "
+                                             "inputs")
+                    if not exact:
+                        err = ((got - want).abs() - 1e-5 * want.abs()).max()
+                        worst = max(worst, (got - want).abs().max().item())
+                        if err.item() > 1e-4:
+                            raise AssertionError(f"{tag}: beyond rtol 1e-5 "
+                                                 "atol 1e-4")
+                    n_cases += 1
+    log(f"fp8_matmul: {n_cases} cases match the plain version (bitwise on "
+        f"exact inputs; max abs diff {worst:.3e} on general inputs)")
+
+
+def time_fp8_matmul(dev):
+    """Kernel 5 / plain / torch.matmul on the bf16-upcast operands at the
+    four forward training shapes, paper recipe (e5m2 x e5m2, f32 out),
+    with the bound; torch._scaled_mm takes no e5m2 x e5m2 pair, so it is
+    timed on e4m3 x e5m2 operands of the same shape as a yardstick of the
+    card's fp8 rate only."""
+    import torch
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    gen = torch.Generator(device=dev).manual_seed(13)
+    m, rows = TRAIN_B * TRAIN_S, []
+    for k, n in PROJ:
+        a = fp8_tensor((m, k), "e5m2", gen, dev, False)
+        b = fp8_tensor((k, n), "e5m2", gen, dev, False)
+        ms = cuda_ms(lambda: mm.fp8_matmul(a, b))
+        plain = cuda_ms(lambda: mm_ref.fp8_matmul_ref(a, b), iters=5)
+        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib = cuda_ms(lambda: torch.matmul(ab, bb))
+        a43 = fp8_tensor((m, k), "e4m3", gen, dev, False)
+        one = torch.ones((), device=dev)
+        bcol = b.t().contiguous().t()
+        smm = cuda_ms(lambda: torch._scaled_mm(a43, bcol, one, one,
+                                               out_dtype=torch.bfloat16))
+        err = (mm.fp8_matmul(a, b) - mm_ref.fp8_matmul_ref(a, b)
+               ).abs().max().item()
+        b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * n * k,
+                           FP8_OPS_PER_S)
+        log(f"fp8_matmul time M={m} K={k} N={n} e5m2xe5m2 f32 out: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul(bf16) "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}; "
+            f"_scaled_mm (no e5m2 x e5m2: e4m3 x e5m2 yardstick) {smm:.4f} "
+            f"ms [{CARD}]")
+        rows.append(dict(k=k, n=n, ms=ms, plain_ms=plain, library_ms=lib,
+                         scaled_mm_ms=smm, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err))
+    return rows
+
+
+def sr_input(shape, dtype, gen, dev):
+    import torch
+    x = torch.randn(shape, generator=gen, device=dev) * torch.exp2(
+        torch.randint(-20, 17, shape, generator=gen, device=dev).float())
+    x.view(-1)[:len(SR_SPECIAL)] = torch.tensor(SR_SPECIAL, device=dev)
+    return x.to(dtype)
+
+
+def check_sr(dev):
+    """Kernels 6 and 7 against their plain versions on the card at
+    SR_SHAPE, f32 and bf16 input, both formats, both saturation modes,
+    special values planted: bitwise on every input (NaNs as NaN)."""
+    import torch
+    from repro_torch.kernels.stochastic_round import ops as sr
+    from repro_torch.kernels.stochastic_round import ref as sr_ref
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = sr_input(SR_SHAPE, dtype, gen, dev)
+        rand8 = torch.randint(0, 256, SR_SHAPE, dtype=torch.uint8,
+                              generator=gen, device=dev)
+        for fmt in ("e5m2", "e4m3"):
+            for sat in (True, False):
+                kw = dict(fmt=fmt, saturate=sat)
+                pairs = {
+                    "sr_quantize": (
+                        sr.sr_quantize(x, rand8, 0.37, **kw),
+                        sr_ref.stochastic_round_fp8_ref(x, rand8, 0.37,
+                                                        **kw)),
+                    "sr_quantize_onchip": (
+                        sr.sr_quantize_onchip(x, 4321, 0.37, **kw),
+                        sr_ref.stochastic_round_fp8_onchip_ref(
+                            x, 4321, 0.37, **kw))}
+                torch.cuda.synchronize()
+                for name, (got, want) in pairs.items():
+                    if not torch.equal(canon(got), canon(want)):
+                        raise AssertionError(
+                            f"{name} {dtype} {fmt} saturate={sat}: "
+                            f"{(canon(got) != canon(want)).sum().item()} "
+                            "payloads differ")
+                    n += 1
+    log(f"stochastic rounding: {n} cases at {SR_SHAPE} bitwise equal to the "
+        "plain versions (f32 / bf16 in, e5m2 / e4m3, both saturations)")
+
+
+def time_sr(dev):
+    """Kernels 6 and 7 / their plain versions at SR_SHAPE, f32 in, e5m2 out,
+    with the bound (bytes: the input, kernel 6's bits, the output; one f32
+    multiply per element at the f32 rate). No PyTorch call rounds
+    stochastically; the RNE cast x.to(float8_e5m2), which moves the same
+    bytes as kernel 7, is printed as a yardstick only."""
+    import torch
+    from repro_torch.kernels.stochastic_round import ops as sr
+    from repro_torch.kernels.stochastic_round import ref as sr_ref
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(SR_SHAPE, generator=gen, device=dev)
+    rand8 = torch.randint(0, 256, SR_SHAPE, dtype=torch.uint8, generator=gen,
+                          device=dev)
+    n = x.numel()
+    rows = {}
+    for name, kern, plain, extra in (
+            ("sr_quantize", lambda: sr.sr_quantize(x, rand8),
+             lambda: sr_ref.stochastic_round_fp8_ref(x, rand8), n),
+            ("sr_quantize_onchip", lambda: sr.sr_quantize_onchip(x, 9),
+             lambda: sr_ref.stochastic_round_fp8_onchip_ref(x, 9), 0)):
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=5)
+        err = (kern().float() - plain().float()).abs().nan_to_num().max().item()
+        b_ms, b_by = bound(4 * n + n + extra, n, F32_OPS_PER_S)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log(f"{name} time {SR_SHAPE} f32 -> e5m2: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+            f"{err} [{CARD}]")
+    cast = cuda_ms(lambda: x.to(torch.float8_e5m2))
+    log(f"same-bytes yardstick, not SR: x.to(float8_e5m2) (RNE cast) "
+        f"{cast:.4f} ms [{CARD}]")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # training: the full model, its step against the plain versions, a profile
 # ---------------------------------------------------------------------------
 
@@ -1028,7 +1209,12 @@ def time_attention_bwd(dev):
 # projections per layout; one attention call per layer).
 STEP_LAUNCHES = {"fused_quant_matmul.nn": 196, "fused_quant_matmul.nt": 196,
                  "fused_quant_matmul.tn": 196, "fp8_attention_fwd": 28,
-                 "fp8_attention_bwd_dq": 28, "fp8_attention_bwd_dkv": 28}
+                 "fp8_attention_bwd_dq": 28, "fp8_attention_bwd_dkv": 28,
+                 "fp8_matmul": 0, "sr_quantize": 0, "sr_quantize_onchip": 0}
+# The paper recipe's step (phase 8): every forward projection GEMM through
+# kernel 5; the adjoint GEMMs, attention and the 16-bit head are plain.
+PAPER_STEP_LAUNCHES = {k: 0 for k in STEP_LAUNCHES}
+PAPER_STEP_LAUNCHES["fp8_matmul"] = 196
 # Training-step parity (2 layers at full width, B=2, S=256): rel L2 of the
 # gradients of all leaves together, kernels vs plain versions on the card
 # (same generator seeds, SR recipe) and card vs CPU (all-RNE variant). Read
@@ -1053,20 +1239,27 @@ def train_cfg(n_layers=None, rne=False):
 
 def launch_counts():
     from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_matmul import ops as mm
     from repro_torch.kernels.fused_quant_matmul import ops as fq
+    from repro_torch.kernels.stochastic_round import ops as sr
     out = {f"fused_quant_matmul.{d}": n
            for d, n in fq.fused_quant_matmul.launches_by_dims.items()}
     out.update(fp8_attention_fwd=at.fp8_attention_fwd.launches,
                fp8_attention_bwd_dq=at.fp8_attention_bwd_dq.launches,
-               fp8_attention_bwd_dkv=at.fp8_attention_bwd_dkv.launches)
+               fp8_attention_bwd_dkv=at.fp8_attention_bwd_dkv.launches,
+               fp8_matmul=mm.fp8_matmul.launches,
+               sr_quantize=sr.sr_quantize.launches,
+               sr_quantize_onchip=sr.sr_quantize_onchip.launches)
     return out
 
 
 def reset_launches():
     from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_matmul import ops as mm
     from repro_torch.kernels.fused_quant_matmul import ops as fq
-    fq.reset_launches()
-    at.reset_launches()
+    from repro_torch.kernels.stochastic_round import ops as sr
+    for mod in (fq, at, mm, sr):
+        mod.reset_launches()
 
 
 def train_full(dev):
@@ -1133,15 +1326,21 @@ def train_full(dev):
     want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
-    prof = profile_train(step, state, ss, batches[TRAIN_STEPS:], gen)
+    state_box = [state, ss]
+
+    def one(b):
+        (state_box[0], state_box[1]), _ = step(state_box[0], state_box[1], b,
+                                               gen)
+    prof = profile_train(one, batches[TRAIN_STEPS:])
     return dict(launches=launches, p50_ms=p50, tokens_s=tok_s,
                 peak_gib=peak, losses=losses, profile=prof)
 
 
-def profile_train(step, state, ss, batches, gen):
-    """Device time per kernel over two more training steps, traced by
-    torch.profiler; the GEMM by layout through its launch ranges. A
-    measurement, not a check."""
+def profile_train(one_step, batches):
+    """Device time per kernel over `one_step(batch)` for each of `batches`
+    (training steps), traced by torch.profiler; the fused GEMM by layout
+    and the unfused GEMM (which shares its symbol) through their launch
+    ranges. A measurement, not a check."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -1149,7 +1348,7 @@ def profile_train(step, state, ss, batches, gen):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for b in batches:
-                (state, ss), _ = step(state, ss, b, gen)
+                one_step(b)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
@@ -1167,18 +1366,23 @@ def profile_train(step, state, ss, batches, gen):
     def dev_ms(pred):
         return sum(e.self_device_time_total for e in kernels
                    if pred(e.key)) / 1e3 / n
+
+    def range_ms(name):
+        rng = [e for e in events if e.key == name]
+        return (sum(e.device_time_total for e in rng) / 1e3 / n) if rng \
+            else 0.0
     out = {name: dev_ms(lambda k, s=sym: s in k) for name, sym in (
         ("fp8_attention_fwd", "attn_fwd_kernel"),
         ("fp8_attention_bwd_dq", "attn_bwd_dq_kernel"),
         ("fp8_attention_bwd_dkv", "attn_bwd_dkv_kernel"),
         ("fused_quant_matmul", "fqmm"))}
+    out["fp8_matmul"] = range_ms("fp8_matmul")
+    out["fused_quant_matmul"] -= out["fp8_matmul"]
     for d in ("nn", "nt", "tn"):
-        rng = [e for e in events if e.key == f"fused_quant_matmul.{d}"]
-        out[f"fused_quant_matmul.{d}"] = (
-            sum(e.device_time_total for e in rng) / 1e3 / n) if rng else None
+        out[f"fused_quant_matmul.{d}"] = range_ms(f"fused_quant_matmul.{d}")
     ours = sum(out[k] for k in ("fp8_attention_fwd", "fp8_attention_bwd_dq",
-                                "fp8_attention_bwd_dkv",
-                                "fused_quant_matmul"))
+                                "fp8_attention_bwd_dkv", "fused_quant_matmul",
+                                "fp8_matmul"))
     out["plain_pytorch"] = dev_us / 1e3 / n - ours
     out["device_ms"] = dev_us / 1e3 / n
     out["wall_ms"] = wall * 1e3 / n
@@ -1188,7 +1392,7 @@ def profile_train(step, state, ss, batches, gen):
         f"idle share <= {out['idle_share']:.2f} [{CARD}]")
     log("  per step: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in out.items()
-        if k not in ("device_ms", "wall_ms", "idle_share") and v is not None))
+        if k not in ("device_ms", "wall_ms", "idle_share")))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / n:8.2f} ms/step "
@@ -1335,6 +1539,218 @@ def train_step_parity(dev):
     return dict(kernels_vs_plain=r_kp, card_vs_cpu=r_cpu)
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the paper's own recipe (unit scales, no delayed scaling) on the
+# unfused kernel path
+# ---------------------------------------------------------------------------
+
+def paper_cfg(n_layers=None, rne=False):
+    """qwen2-1.5b under `QuantConfig()` (the paper's recipe: e5m2 W/A/E/G,
+    RNE on W, SR on A/E/G, W/A saturating, unit scales) on the kernel
+    backend, no remat; rne=True rounds every class RNE."""
+    import dataclasses
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.registry import build_config
+    quant = QuantConfig(backend="pallas")
+    if rne:
+        quant = dataclasses.replace(quant, act_rounding="rne",
+                                    error_rounding="rne", grad_rounding="rne")
+    cfg = build_config("qwen2-1.5b").replace(remat=False)
+    cfg = cfg.replace(policy=dataclasses.replace(cfg.policy, quant=quant))
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def paper_optimizer(cfg):
+    from repro_torch.core.loss_scale import LossScaler
+    from repro_torch.train.step import make_optimizer_for
+    return make_optimizer_for(cfg, learning_rate=1e-4, scaler=LossScaler(
+        mode="enhanced", init_scale=1024.0, min_scale_schedule=()))
+
+
+def train_paper(dev):
+    """Phase 8: qwen2-1.5b at full width and depth under the paper's recipe
+    (the reference quickstart's loss scaler: enhanced, from 1024, no
+    minimum schedule), Adam through the fp16-master optimizer, TRAIN_STEPS
+    steps of B x S seeded synthetic tokens with `make_train_step(cfg, opt)`
+    (no scaling). Launch counts are set to 0 just before the steps and read
+    just after: kernel 5 runs every forward projection GEMM."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.step import make_train_step
+    cfg = paper_cfg()
+    data = synthetic_lm_batches(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TRAIN_S,
+                                           batch_size=TRAIN_B, seed=0))
+    batches = [next(data) for _ in range(TRAIN_STEPS + 2)]
+    opt = paper_optimizer(cfg)
+    state = opt.init(init_lm(cfg, seed=0, device=dev))
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times, applied = [], [], 0
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        applied += m["grads_finite"]
+        log(f"paper step {i}: loss {m['loss']:.4f}, loss scale "
+            f"{m['loss_scale']:.0f}, grads_finite {m['grads_finite']}, "
+            f"grad_norm {m['grad_norm']:.4f}, {times[-1] * 1e3:.1f} ms")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50 = float(np.median(times)) * 1e3
+    tok_s = TRAIN_B * TRAIN_S / (p50 / 1e3)
+    log(f"paper train: step p50 {p50:.1f} ms (first {times[0] * 1e3:.1f} ms)"
+        f", {tok_s:.0f} tokens/s, max_memory_allocated {peak:.2f} GiB, "
+        f"{int(applied)} of {TRAIN_STEPS} updates applied [{CARD}]")
+    log(f"paper train: launches per step "
+        f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if applied < 1:
+        raise AssertionError("no update was applied")
+    want = {k: v * TRAIN_STEPS for k, v in PAPER_STEP_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    box = [state]
+
+    def one(b):
+        box[0], _ = step(box[0], b, gen)
+    prof = profile_train(one, batches[TRAIN_STEPS:])
+    sr_path = sr_weights(dev, box[0], opt)
+    return dict(launches=launches, p50_ms=p50, tokens_s=tok_s,
+                peak_gib=peak, losses=losses, profile=prof, sr_path=sr_path)
+
+
+def sr_weights(dev, state, opt):
+    """The stochastic-rounding op's own path (no training step reaches it,
+    in the reference or here): SR-quantize every projection weight of the
+    trained model (its bf16 compute copy) to e5m2 through
+    `stochastic_round_fp8`, once with bits from a generator (kernel 6) and
+    once with the in-kernel hash (kernel 7); counts set to 0 just before
+    and read just after. Each payload must lie on a neighbour of its value:
+    |q - w| below one e5m2 spacing of w (2^-2 relative, or the subnormal
+    step)."""
+    import torch
+    from repro_torch.kernels.stochastic_round import ops as sr
+    params = opt.compute_params(state)
+    weights = [leaf for name, layer in params["decoder"].items()
+               for part in ("attn", "mlp")
+               for key, leaf in layer[part].items() if leaf.dim() == 2]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    reset_launches()
+    worst = 0.0
+    for i, w in enumerate(weights):
+        for q in (sr.stochastic_round_fp8(w, gen),
+                  sr.stochastic_round_fp8(w, i, use_onchip_prng=True)):
+            wf = w.float()
+            step = torch.maximum(wf.abs() * 0.25,
+                                 torch.full_like(wf, 2.0 ** -16))
+            worst = max(worst, ((q.float() - wf).abs() / step).max().item())
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"sr op path: {len(weights)} weights SR-quantized twice, launches "
+        f"sr_quantize {launches['sr_quantize']}, sr_quantize_onchip "
+        f"{launches['sr_quantize_onchip']}, worst |q - w| / spacing "
+        f"{worst:.3f}")
+    if worst > 1.0 or min(launches["sr_quantize"],
+                          launches["sr_quantize_onchip"]) != len(weights):
+        raise AssertionError(f"sr op path: launches {launches}, worst "
+                             f"{worst}")
+    return launches
+
+
+def train_paper_parity(dev):
+    """Phase 9: one paper-recipe training step's loss and gradients at full
+    width, 2 layers, B=2, S=256, run: kernels on the card, twice (bitwise
+    identical); the plain versions on the card with the same generator
+    seed (kernel 5 pointed at its plain version); a planted kernel-5 fault
+    (its last 64-wide K block dropped), which must read above
+    TRAIN_STEP_TOL; and, all-RNE, kernels on the card against the plain
+    versions on the CPU. Kernels vs plain and card vs CPU must read a
+    gradient rel L2 below TRAIN_STEP_TOL."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim.optimizers import tmap
+    cfg = paper_cfg(2)
+    params = init_lm(cfg, seed=0, device=dev)
+    cpu_params = _to_cpu(params)
+    batch = next(synthetic_lm_batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=256, batch_size=2, seed=1)))
+    launch = mm._launch
+
+    def run(c, p, d, *patches):
+        before = launch_counts()
+        with contextlib.ExitStack() as stack:
+            for obj, name, value in patches:
+                stack.enter_context(mock.patch.object(obj, name, value))
+            o = paper_optimizer(c)
+            st = o.init(p)
+            prm = tmap(lambda x: x.requires_grad_(True),
+                       o.compute_params(st))
+            loss, _ = lm_loss(prm, batch, cfg=c, qgen=torch.Generator(
+                device=d).manual_seed(0), loss_scale=st.loss_scale.scale)
+            loss.backward()
+            grads = tmap(lambda x: x.grad.float().cpu(), prm)
+        after = launch_counts()
+        return loss.item(), grads, after["fp8_matmul"] - before["fp8_matmul"]
+
+    def rel(a, b):
+        fa, fb = list(_leaves(a)), list(_leaves(b))
+        num = sum(float((x - y).double().pow(2).sum()) for x, y in zip(fa, fb))
+        den = sum(float(y.double().pow(2).sum()) for y in fb)
+        return (num / den) ** 0.5
+
+    def drop_last_k(a, b, out_dtype):
+        """The kernel launched without its last 64-wide K block."""
+        k = a.shape[1] - 64
+        return launch(a[:, :k].contiguous(), b[:k].contiguous(), out_dtype)
+
+    plain = [(mm, "fp8_matmul", mm_ref.fp8_matmul_ref)]
+    lk, gk, n_k = run(cfg, params, dev)
+    lk2, gk2, _ = run(cfg, params, dev)
+    lp, gp, n_p = run(cfg, params, dev, *plain)
+    lf, gf, n_f = run(cfg, params, dev, (mm, "_launch", drop_last_k))
+    if n_k != 2 * 7 or n_p != 0 or n_f != 2 * 7:
+        raise AssertionError(f"kernel-5 launches: kernels {n_k}, plain "
+                             f"{n_p}, fault {n_f}")
+    if lk != lk2 or not all(torch.equal(x, y) for x, y in
+                            zip(_leaves(gk), _leaves(gk2))):
+        raise AssertionError("two kernel runs of the step differ")
+    rcfg = paper_cfg(2, rne=True)
+    lr_, gr, _ = run(rcfg, params, dev)
+    lc, gc, _ = run(rcfg, cpu_params, "cpu")
+    r_kp, r_cpu, r_f = rel(gk, gp), rel(gr, gc), rel(gf, gp)
+    log(f"paper step parity (2 layers, full width, B=2, S=256), gradient "
+        f"rel L2 (tolerance {TRAIN_STEP_TOL}): kernels vs plain on the card "
+        f"{r_kp:.3e} (loss {lk:.6f} vs {lp:.6f}); two kernel runs bitwise "
+        f"equal; all-RNE card vs CPU {r_cpu:.3e} (loss {lr_:.6f} vs "
+        f"{lc:.6f}); planted fault 'kernel 5 drops its last K block' "
+        f"{r_f:.3e} (loss {lf:.6f})")
+    if not (r_kp < TRAIN_STEP_TOL and abs(lk - lp) <= LOSS_TOL * abs(lp)):
+        raise AssertionError(f"kernels vs plain: rel L2 {r_kp}, loss {lk} "
+                             f"vs {lp}")
+    if not (r_cpu < TRAIN_STEP_TOL and abs(lr_ - lc) <= LOSS_TOL * abs(lc)):
+        raise AssertionError(f"card vs CPU: rel L2 {r_cpu}, loss {lr_} vs "
+                             f"{lc}")
+    if r_f <= TRAIN_STEP_TOL:   # NaN reads as seen
+        raise AssertionError(f"the planted kernel-5 fault reads {r_f:.3e}")
+    return dict(kernels_vs_plain=r_kp, card_vs_cpu=r_cpu, fault=r_f)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -1399,6 +1815,10 @@ def main() -> int:
     phase(time_gemm, dev)
     phase(check_gemm_train, dev)
     gemm_rows = phase(time_gemm_train, dev)
+    phase(check_fp8_matmul, dev)
+    mm_rows = phase(time_fp8_matmul, dev)
+    phase(check_sr, dev)
+    sr_rows = phase(time_sr, dev)
     phase(check_attention_exact, dev)
     phase(check_attention, dev)
     phase(check_attention_bwd, dev)
@@ -1415,6 +1835,12 @@ def main() -> int:
     trained = phase(train_full, dev)
     torch.cuda.empty_cache()
     phase(train_step_parity, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper = phase(train_paper, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(train_paper_parity, dev)
     if failures:
         log(f"{len(failures)} phase(s) failed:\n  " + "\n  ".join(failures))
         return 1
@@ -1438,6 +1864,17 @@ def main() -> int:
         ("fp8_attention_bwd_dkv", src + "fp8_attention_bwd.cu",
          pal + "fp8_attention/kernel.py:571",
          launches["fp8_attention_bwd_dkv"], attn_rows["dkv"]),
+        # The paper recipe's training run (phase 8) and the SR op's path.
+        ("fp8_matmul", src + "fused_quant_matmul.cu",
+         pal + "fp8_matmul/kernel.py:47", paper["launches"]["fp8_matmul"],
+         next(r for r in mm_rows if (r["k"], r["n"]) == (1536, 8960))),
+        ("sr_quantize", src + "stochastic_round.cu",
+         pal + "stochastic_round/kernel.py:58",
+         paper["sr_path"]["sr_quantize"], sr_rows["sr_quantize"]),
+        ("sr_quantize_onchip", src + "stochastic_round.cu",
+         pal + "stochastic_round/kernel.py:81",
+         paper["sr_path"]["sr_quantize_onchip"],
+         sr_rows["sr_quantize_onchip"]),
     ]
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
                     launches=n, max_abs_err=row["max_abs_err"], ms=row["ms"],
@@ -1445,7 +1882,8 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
                for name, source, rep, n, row in entries]
     log(f"total {time.perf_counter() - t_all:.1f} s; training "
-        f"{trained['tokens_s']:.0f} tokens/s on {card}")
+        f"{trained['tokens_s']:.0f} tokens/s (hybrid, delayed scaling), "
+        f"{paper['tokens_s']:.0f} tokens/s (paper recipe) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Quantized einsum: the paper's Fig. 1a dataflow in PyTorch.
 
-Counterpart of `repro.core.qlinear.qeinsum` on its fused path:
+Counterpart of `repro.core.qlinear.qeinsum`. Its fused path:
 
     forward:  Y  = Q_A(Q_A(a) . Q_W(b))        GEMM 'nn', Q node in epilogue
     backward: dA = Q_E(Q_E(dY) . Q_W(b)^T)     GEMM 'nt' (site #da.E)
@@ -14,6 +14,25 @@ accumulator and observes its output amax in the same epilogue. The fp8
 payloads qa / qb and their host scales are what the autograd Function
 saves for the backward — not the bf16 activations. A disabled config (the
 16-bit logits head) takes `_plain_einsum` through ordinary autograd.
+
+Every other enabled call takes the unfused path (`_qeinsum_fwd`'s unfused
+branch and `_qeinsum_bwd` of the reference): the paper's own recipe
+(scaling "none", unit scales), any backend. Its GEMMs return the f32
+accumulator, times the operand scales, cast to the output dtype:
+
+    forward:  Y  = Q_A(a) . Q_W(b)              '...k,kn->...n' under a
+                                                kernel backend: the fp8
+                                                GEMM kernel (kernels.
+                                                fp8_matmul); else plain
+    backward: dA = Q_E(dY) . Q_W(b)^T           plain (adjoint spec)
+              dW = Q_G(Q_A(a)^T . Q_E(dY))      plain, then fake-quant G
+
+The adjoint specs are never '...k,kn->...n'-shaped, so the reference
+computes them in XLA (bf16 operands, `preferred_element_type=f32`), as do
+the 4-D attention contractions. Here they are f32 products of the f32
+upcast fp8 payloads: each fp8 product is exact in f32, so that is the
+reference's f32 accumulation — provided TF32 is off for f32 matmuls on the
+card (`torch.backends.cuda.matmul.allow_tf32`, off by default).
 
 Stochastic rounding draws its bits from the `generator` the caller passes
 (the training step's), never from torch's global generator; a config
@@ -31,6 +50,7 @@ from repro_torch.core.precision_policy import (ACT, ERROR, GRAD, WEIGHT,
                                                PAPER_FP8, QuantConfig,
                                                dtype_of)
 from repro_torch.core.quantize import QTensor, fp8_amax_bits, f32
+from repro_torch.core.quantize import dequantize as _dequantize
 from repro_torch.core.quantize import quantize as _quantize
 from repro_torch.scaling import context as scale_ctx
 
@@ -45,6 +65,21 @@ def parse_spec(spec: str) -> Tuple[str, str, str]:
     if "." in spec:
         raise ValueError(f"qeinsum does not support ellipsis specs: {spec!r}")
     return a, b, out
+
+
+@functools.lru_cache(maxsize=None)
+def adjoint_specs(spec: str) -> Tuple[str, str]:
+    """The einsum specs of dA and dB for Y = einsum('A,B->O', a, b):
+    'O,B->A' and 'A,O->B' (every index of an operand must appear in the
+    output or the other operand)."""
+    a, b, o = parse_spec(spec)
+    for idx in a:
+        if idx not in o and idx not in b:
+            raise ValueError(f"index {idx!r} of lhs is summed-only in {spec!r}")
+    for idx in b:
+        if idx not in o and idx not in a:
+            raise ValueError(f"index {idx!r} of rhs is summed-only in {spec!r}")
+    return f"{o},{b}->{a}", f"{a},{o}->{b}"
 
 
 def kernel_backend(cfg: QuantConfig) -> bool:
@@ -100,6 +135,30 @@ def _fused_gemm(x8, w8, sx, sw, s_out, cfg: QuantConfig, out_cls: str,
 
 def _fused_dequant(out8: torch.Tensor, s_out, cfg: QuantConfig) -> torch.Tensor:
     return (out8.float() * float(f32(s_out))).to(dtype_of(cfg.output_dtype))
+
+
+def _compute(spec: str, qa: QTensor, qb: QTensor,
+             cfg: QuantConfig) -> torch.Tensor:
+    """fp8 x fp8 -> f32 accumulate -> times qa.scale * qb.scale ->
+    output_dtype; a '...k,kn->...n' contraction under a kernel backend runs
+    the fp8 GEMM kernel."""
+    out_scale = f32(qa.scale) * f32(qb.scale)
+    if kernel_backend(cfg) and _pallas_matmul_spec(spec):
+        from repro_torch.kernels.fp8_matmul import ops as mm_ops
+        a2 = qa.data.reshape((-1, qa.data.shape[-1]))
+        y = mm_ops.fp8_matmul(a2, qb.data).reshape(
+            qa.data.shape[:-1] + (qb.data.shape[-1],))
+    else:
+        y = torch.einsum(spec, qa.data.float(), qb.data.float())
+    return (y * float(out_scale)).to(dtype_of(cfg.output_dtype))
+
+
+def _fake_quant_grad(g: torch.Tensor, cfg: QuantConfig,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The weight gradient stored in FP8 (class G) and read back in g's
+    dtype; the optimizer unscales in f32."""
+    q = _quant_operand(g, GRAD, cfg, None, generator)
+    return _dequantize(q, dtype=g.dtype)
 
 
 def _plain_einsum(spec: str, a, b, cfg: QuantConfig) -> torch.Tensor:
@@ -178,17 +237,53 @@ class _QEinsum(torch.autograd.Function):
         return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 
+class _QEinsumUnfused(torch.autograd.Function):
+    """The unfused custom gradient (`_qeinsum_fwd`'s unfused branch and
+    `_qeinsum_bwd` of the reference) at unit scales. `meta`: (spec, cfg,
+    classes, generator). Saves the fp8 payloads qa, qb."""
+
+    @staticmethod
+    def forward(ctx, a, b, meta):
+        spec, cfg, classes, gen = meta
+        qa = _quant_operand(a, classes[0], cfg, None, gen)
+        qb = _quant_operand(b, classes[1], cfg, None, gen)
+        y = _compute(spec, qa, qb, cfg)
+        ctx.save_for_backward(qa.data, qb.data)
+        ctx.meta = meta
+        ctx.qscales = (qa.scale, qb.scale)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        qa_data, qb_data = ctx.saved_tensors
+        spec, cfg, classes, gen = ctx.meta
+        qa = QTensor(qa_data, ctx.qscales[0])
+        qb = QTensor(qb_data, ctx.qscales[1])
+        qdy = _quant_operand(dy, ERROR, cfg, None, gen)
+        da_spec, db_spec = adjoint_specs(spec)
+        da = _compute(da_spec, qdy, qb, cfg)
+        db = _compute(db_spec, qa, qdy, cfg)
+        # Weight gradients are stored in FP8 (class G, paper Fig. 1b).
+        if classes[0] == WEIGHT:
+            da = _fake_quant_grad(da, cfg, gen)
+        if classes[1] == WEIGHT:
+            db = _fake_quant_grad(db, cfg, gen)
+        return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
+
+
 def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
             cfg: QuantConfig = PAPER_FP8,
             classes: Tuple[str, str] = (ACT, WEIGHT),
             site: Optional[str] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Quantized einsum with its custom gradient. A disabled config is the
-    16-bit plain einsum; an enabled one must take the fused path. With an
-    active ScaleContext and a site name, operand and output scales come
-    from the context, forward amaxes are recorded (collect / calibrate) and
-    the backward records the E / G / #da.E observations (collect). SR bits
-    come from `generator`."""
+    16-bit plain einsum. On the fused path, with an active ScaleContext and
+    a site name, operand and output scales come from the context, forward
+    amaxes are recorded (collect / calibrate) and the backward records the
+    E / G / #da.E observations (collect). The unfused path runs at unit
+    scales without a context (the paper's recipe); delayed scaling there
+    is not ported. SR bits come from `generator`."""
     parse_spec(spec)
     if not cfg.enabled:
         return _plain_einsum(spec, a, b, cfg)
@@ -196,13 +291,13 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"QuantConfig uses stochastic rounding; qeinsum("
                          f"{spec!r}) needs a torch.Generator")
     classes = tuple(classes)
-    if not _fused_epilogue(spec, classes, cfg):
-        raise NotImplementedError(
-            "the port runs the fused quantize-in-epilogue qeinsum only (a "
-            "kernel backend, delayed scaling, a '...k,kn->...n' projection "
-            "with a weight operand); the unfused path is queued in "
-            "ROADMAP.md")
     ctx = scale_ctx.current()
+    if not _fused_epilogue(spec, classes, cfg):
+        if cfg.delayed and ctx is not None and site is not None:
+            raise NotImplementedError(
+                "the unfused qeinsum runs at unit scales; delayed scaling "
+                "on it is not ported yet (ROADMAP.md, queue 1)")
+        return _QEinsumUnfused.apply(a, b, (spec, cfg, classes, generator))
     scales = [f32(1.0)] * N_SCALES
     keys = fkeys = None
     if ctx is not None and site is not None:

@@ -18,6 +18,13 @@
 // loads run along whichever dim is contiguous and the tile is transposed on
 // its way into shared memory, so no transposed copy is ever made.
 //
+// The same mainloop with a plain store epilogue (OUT_F32 / OUT_BF16) is the
+// unfused FP8 GEMM, replacing
+//   src/repro/kernels/fp8_matmul/kernel.py::fp8_matmul_kernel
+// (A @ B, fp8 x fp8 -> f32 accumulate -> f32 or bf16, no Q node): layout nn
+// only, launched by fp8mm_launch. At the training shapes (M = 2048 rows)
+// it is bound by operations, like the fused kernel.
+//
 // What bounds it: at serving shapes M = rows x chunk = 128, so each weight
 // byte is used by 128 rows only — 2*128 flops per weight byte, below the
 // H100's ~295 flops/byte ridge for bf16 tensor cores: the kernel is bound by
@@ -31,11 +38,15 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 64;
 constexpr int LDS = BK + 8;  // bf16 row stride of the shared tiles
 
+// Epilogue of the kernel: the Q node to fp8 (kernel 1), or a plain store of
+// the f32 accumulator as f32 or bf16 (the unfused GEMM).
+enum Out { OUT_FP8 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
+
 struct Args {
   const uint8_t* a;
   const uint8_t* b;
   const uint8_t* rand8;
-  uint8_t* out;
+  void* out;
   float* amax;
   float* sat;
   float* flush;
@@ -72,6 +83,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[LDS],
   }
 }
 
+template <int OUT>
 __global__ void __launch_bounds__(128) fqmm_kernel(Args p) {
   __shared__ __align__(16) __nv_bfloat16 As[BM][LDS];
   __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDS];  // n-major, k contig.
@@ -117,7 +129,30 @@ __global__ void __launch_bounds__(128) fqmm_kernel(Args p) {
     __syncthreads();
   }
 
+  if constexpr (OUT != OUT_FP8) {
+    // Plain store of the accumulator: two adjacent columns per fragment.
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = m0 + wm * 32 + mt * 16 + g + hf * 8;
+          const int col = n0 + wn * 32 + nt * 8 + 2 * t;
+          const long long o = (long long)row * p.N + col;
+          const float y0 = acc[mt][nt][hf * 2], y1 = acc[mt][nt][hf * 2 + 1];
+          if constexpr (OUT == OUT_F32)
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+                make_float2(y0, y1);
+          else
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) +
+                                         o) = fp8::pack_bf16(y0, y1);
+        }
+    return;
+  }
+
   // Epilogue: Q node on the accumulator, fp8 bytes out, masked observations.
+  uint8_t* const out8 = static_cast<uint8_t*>(p.out);
   const float inv = __fdiv_rn(1.0f, p.scale);
   const fp8::FmtSpec fo = fp8::spec(p.out_fmt);
   float amax = 0.f, nsat = 0.f, nflush = 0.f;
@@ -146,7 +181,7 @@ __global__ void __launch_bounds__(128) fqmm_kernel(Args p) {
             }
           }
         }
-        *reinterpret_cast<uint16_t*>(p.out + o) =
+        *reinterpret_cast<uint16_t*>(out8 + o) =
             (uint16_t)q[0] | ((uint16_t)q[1] << 8);
       }
 
@@ -193,6 +228,25 @@ extern "C" int fqmm_launch(const void* a, const void* b, const void* rand8,
          amax, sat, flush, M, N, K, sam, sak, sbk, sbn, a_fmt, b_fmt, out_fmt,
          sr, saturate, scale, lm, ln, with_counts};
   dim3 grid(N / BN, M / BM);
-  fqmm_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  fqmm_kernel<OUT_FP8><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The unfused GEMM: out (M, N) = A (M, K) @ B (K, N), both row-major fp8,
+// out f32 (out_bf16 = 0) or bf16 (out_bf16 = 1). M, N, K multiples of 64
+// (the wrapper pads). Returns cudaGetLastError().
+extern "C" int fp8mm_launch(const void* a, const void* b, void* out, int M,
+                            int N, int K, int a_fmt, int b_fmt, int out_bf16,
+                            void* stream) {
+  Args p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+         nullptr, out, nullptr, nullptr, nullptr, M, N, K,
+         (long long)K, 1LL, (long long)N, 1LL, a_fmt, b_fmt, 0, 0, 0, 1.f,
+         M, N, 0};
+  dim3 grid(N / BN, M / BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    fqmm_kernel<OUT_BF16><<<grid, 128, 0, s>>>(p);
+  else
+    fqmm_kernel<OUT_F32><<<grid, 128, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,11 +3,14 @@ port's kernels (counterpart of the repository's `examples/quickstart.py`).
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
-The reference quickstart's model, data and 60 steps, on the kernel path:
-the hybrid recipe (e4m3 W/A, e5m2 E/G, SR for A/E/G) with delayed
-per-tensor scaling and the fused kernels, enhanced loss scaling, fp16
-master weights and Adam. It runs on the CUDA device (the hand-written
-kernels) unless `--device cpu` asks for their plain PyTorch versions.
+The reference quickstart's model, data, 60 steps and recipe: `PAPER_POLICY`
+(e5m2 for weights, activations, errors and gradients at unit scales, RNE
+for weights and stochastic rounding for the rest), enhanced loss scaling,
+fp16 master weights and Adam. The one change is `backend="pallas"`, so
+that every forward projection GEMM runs the hand-written fp8 GEMM kernel;
+the reference's "xla" and "pallas" backends compute the same numbers
+there. It runs on the CUDA device unless `--device cpu` asks for the
+kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -18,13 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.loss_scale import LossScaler
-from repro_torch.core.precision_policy import QuantConfig
 from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_config
 from repro_torch.models.transformer import init_lm
-from repro_torch.scaling.calibrate import discover_lm_sites
-from repro_torch.scaling.state import DelayedScaling
 from repro_torch.train.step import make_optimizer_for, make_train_step
 
 VOCAB = 256
@@ -38,14 +38,14 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    # 1. The reference quickstart's model, on the kernel recipe.
-    quant = QuantConfig(recipe="hybrid", scaling="delayed", backend="pallas")
+    # 1. The reference quickstart's model and recipe, on the kernel backend.
     cfg = build_config("qwen2-1.5b", smoke=True).replace(
         n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
         vocab_size=VOCAB, remat=False)
+    quant = dataclasses.replace(cfg.policy.quant, backend="pallas")
     cfg = cfg.replace(policy=dataclasses.replace(cfg.policy, quant=quant))
-    print(f"arch={cfg.arch} on {dev}  recipe: {quant.fwd_format} W/A, "
-          f"{quant.bwd_format} E/G, delayed scaling, "
+    print(f"arch={cfg.arch} on {dev}  FP8 recipe: {quant.fwd_format} fwd / "
+          f"{quant.bwd_format} bwd, scaling={quant.scaling}, "
           f"master={cfg.policy.master_weight_dtype}")
 
     # 2. Mixed-precision optimizer with the paper's enhanced loss scaling.
@@ -53,25 +53,20 @@ def main(argv=None) -> float:
                              scaler=LossScaler(mode="enhanced",
                                                init_scale=1024.0,
                                                min_scale_schedule=()))
+    step = make_train_step(cfg, opt, device=dev)
 
     # 3. Deterministic synthetic data with learnable bigram structure.
     data = synthetic_lm_batches(DataConfig(vocab_size=VOCAB, seq_len=64,
                                            batch_size=16, seed=0))
-    batch = next(data)
-    params = init_lm(cfg, seed=0, device=dev)
-    ds = DelayedScaling(discover_lm_sites(cfg, params, batch), qcfg=quant)
-    step = make_train_step(cfg, opt, scaling=ds, device=dev)
-    state, scale_state = opt.init(params), ds.init()
+    state = opt.init(init_lm(cfg, seed=0, device=dev))
     gen = torch.Generator(device=dev).manual_seed(1)
-    print(f"{len(ds.registry)} scale sites; unigram entropy (no learning) "
-          f"= {np.log(VOCAB):.3f} nats")
+    print(f"unigram entropy (no learning) = {np.log(VOCAB):.3f} nats")
     for i in range(STEPS):
-        (state, scale_state), m = step(state, scale_state, batch, gen)
+        state, m = step(state, next(data), gen)
         if i % 10 == 0 or i == STEPS - 1:
             print(f"step {i:3d}  loss={m['loss']:.4f}  "
                   f"scale={m['loss_scale']:.0f}  "
                   f"finite={m['grads_finite']}")
-        batch = next(data)
     if not m["loss"] < np.log(VOCAB):
         raise SystemExit("FP8 training failed to learn")
     print("OK: FP8 training learned the synthetic structure.")

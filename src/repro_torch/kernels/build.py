@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("fused_quant_matmul", "fp8_attention_fwd", "fp8_attention_bwd")
+KERNELS = ("fused_quant_matmul", "fp8_attention_fwd", "fp8_attention_bwd",
+           "stochastic_round")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}

@@ -1,9 +1,14 @@
 """GQA attention block with FP8 GEMMs and the fused FP8 flash kernel
 (counterpart of `repro.models.attention`, modes 'train' and 'chunk').
 
-The projections go through qeinsum (fused quantize-in-epilogue GEMMs);
-attention goes through the fused kernel with K/V left unrepeated
-(B, Hkv, S, dh) — GQA grouping happens inside the kernel.
+The projections go through qeinsum. Under a kernel backend with delayed
+scaling, attention goes through the fused kernel with K/V left unrepeated
+(B, Hkv, S, dh) — GQA grouping happens inside the kernel. Otherwise (the
+paper's recipe) training attention is the reference's unfused composition
+`_sdpa`: K/V repeated over the GQA group (so each repeat gets its own SR
+bits), the two 4-D contractions as qeinsum (sites qk / pv), an f32 softmax
+between them; sequences past `attn_chunk_threshold` (or a window) go
+through `chunked_causal_attention`'s static-prefix q chunks.
 
 Paged serving ('chunk'): the layer's KV pool is a flat slot array
 (`init_paged_pool`). The chunk's K/V are written to their slots first —
@@ -18,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.precision_policy import QuantConfig
+from repro_torch.core.precision_policy import ACT, QuantConfig
 from repro_torch.core.qattention import fp8_sdpa, fp8_sdpa_chunk, fuse_attention
 from repro_torch.core.qlinear import qeinsum
 from repro_torch.models.config import ModelConfig
@@ -50,6 +55,68 @@ def init_paged_pool(cfg: ModelConfig, n_slots: int, *, device):
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
+def _qk_scores(q, k, qcfg: QuantConfig, qgen) -> torch.Tensor:
+    """q: (B,H,Q,dh) x k: (B,H,K,dh) -> (B,H,Q,K) f32 (the product in the
+    output dtype, then widened)."""
+    if qcfg.enabled and qcfg.quantize_attention:
+        s = qeinsum("bhqd,bhkd->bhqk", q, k, cfg=qcfg, classes=(ACT, ACT),
+                    site="qk", generator=qgen)
+    else:
+        s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.bfloat16).float(),
+                         k.to(torch.bfloat16).float())
+    return s.float()
+
+
+def _pv(probs, v, qcfg: QuantConfig, qgen) -> torch.Tensor:
+    if qcfg.enabled and qcfg.quantize_attention:
+        return qeinsum("bhqk,bhkd->bhqd", probs.to(torch.bfloat16), v,
+                       cfg=qcfg, classes=(ACT, ACT), site="pv",
+                       generator=qgen)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(torch.bfloat16).float(),
+                        v.to(torch.bfloat16).float()).to(torch.bfloat16)
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B,Hkv,S,dh) -> (B,Hkv*groups,S,dh) for GQA."""
+    if groups == 1:
+        return k
+    b, hkv, s, dh = k.shape
+    return k[:, :, None].expand(b, hkv, groups, s, dh).reshape(
+        b, hkv * groups, s, dh)
+
+
+def _sdpa(q, k, v, mask, scale: float, qcfg: QuantConfig, qgen):
+    """Dense scaled-dot-product attention on (B,H,S,dh); f32 softmax."""
+    s = _qk_scores(q, k, qcfg, qgen) * scale
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    return _pv(torch.softmax(s, dim=-1), v, qcfg, qgen)
+
+
+def chunked_causal_attention(q, k, v, *, chunk: int, scale: float,
+                             qcfg: QuantConfig, qgen, window: int = 0,
+                             remat: bool = False) -> torch.Tensor:
+    """Causal attention over (B,H,S,dh) in q chunks of `chunk` rows, each
+    against its static causal prefix (or window band). Recomputing the
+    chunks in the backward (remat) is not ported."""
+    if remat:
+        raise NotImplementedError("activation recomputation (remat=True) is "
+                                  "not ported (ROADMAP.md, queue 1)")
+    s = q.shape[2]
+    outs = []
+    for q0 in range(0, s, chunk):
+        q1 = min(q0 + chunk, s)
+        k0 = 0 if not window else max(0, q0 - window + 1)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, q1, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        outs.append(_sdpa(q[:, :, q0:q1], k[:, :, k0:q1], v[:, :, k0:q1],
+                          mask[None, None], scale, qcfg, qgen))
+    return torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+
+
 def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
               qcfg: QuantConfig, positions: torch.Tensor, mode: str = "train",
               cache_layer=None, window: int = 0,
@@ -64,11 +131,12 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     b, sq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale = 1.0 / (dh ** 0.5)
-    if not fuse_attention(qcfg):
+    fused = fuse_attention(qcfg)
+    if not fused and mode != "train":
         raise NotImplementedError(
-            "the port runs attention through the fused FP8 kernel only "
-            "(kernel backend + delayed scaling); the unfused path is queued "
-            "in ROADMAP.md")
+            f"attention mode {mode!r} runs through the fused FP8 kernel "
+            "only (kernel backend + delayed scaling); its unfused path is "
+            "queued in ROADMAP.md")
 
     q = qeinsum("bsd,dn->bsn", x, params["wq"], cfg=qcfg, site="wq",
                 generator=qgen)
@@ -85,10 +153,21 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     v = v.reshape(b, sq, hkv, dh)
     qt = q.transpose(1, 2)
 
-    if mode == "train":
+    if mode == "train" and fused:
         o = fp8_sdpa(qt, k.transpose(1, 2), v.transpose(1, 2), cfg=qcfg,
                      sm_scale=scale, mask_mode="causal", window=window,
                      site="sdpa", generator=qgen)
+    elif mode == "train":
+        kt = _repeat_kv(k.transpose(1, 2), h // hkv)
+        vt = _repeat_kv(v.transpose(1, 2), h // hkv)
+        if sq > cfg.attn_chunk_threshold or window:
+            o = chunked_causal_attention(
+                qt, kt, vt, chunk=min(cfg.attn_chunk_size, sq), scale=scale,
+                qcfg=qcfg, qgen=qgen, window=window, remat=cfg.remat)
+        else:
+            pos = torch.arange(sq, device=x.device)
+            mask = (pos[:, None] >= pos[None, :])[None, None]
+            o = _sdpa(qt, kt, vt, mask, scale, qcfg, qgen)
     elif mode == "chunk":
         if cache_layer is None or page is None:
             raise ValueError("chunk mode needs cache_layer and page")

@@ -1,20 +1,21 @@
 """Training and serving steps (counterpart of `repro.train.step`).
 
-`make_train_step` is the reference's `train_step_scaled`: the paper's full
-Fig. 1b pipeline per step —
+`make_train_step` builds the reference's `train_step` (no scaling: the
+paper's recipe at unit scales) or, given a DelayedScaling, its
+`train_step_scaled`: the paper's full Fig. 1b pipeline per step —
 
     fp16 master -> bf16 compute params -> FP8 forward / backward of the
-    loss times the loss scale (every projection GEMM and the attention
-    through the hand-written kernels, SR bits from the step's generator)
-    -> overflow probe -> unscale in f32 -> Adam in f32 -> fp16 master
-    store -> loss-scale update -> delayed-scaling update
+    loss times the loss scale (the GEMMs and the attention through the
+    hand-written kernels where the recipe takes them, SR bits from the
+    step's generator) -> overflow probe -> unscale in f32 -> Adam in f32
+    -> fp16 master store -> loss-scale update [-> delayed-scaling update]
 
-on one device with one microbatch. Forward amaxes and the backward's
-error / gradient amaxes are recorded by the call sites into the step's
-scaling context; they reach the host together with the step's loss, grad
-norm and overflow flag in ONE device->host read, after which the host
-updates ScaleState (numpy f32, the reference's arithmetic) for the next
-step.
+on one device with one microbatch. Under delayed scaling, forward amaxes
+and the backward's error / gradient amaxes are recorded by the call sites
+into the step's scaling context. Either way the step's loss, grad norm and
+overflow flag (and those observations) reach the host in ONE device->host
+read; with scaling the host then updates ScaleState (numpy f32, the
+reference's arithmetic) for the next step.
 """
 from __future__ import annotations
 
@@ -61,10 +62,12 @@ def _not_ported(what: str):
 
 
 def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
-                    *, scaling: DelayedScaling, n_microbatches: int = 1,
-                    amax_sync=None, plan=None, device=None):
-    """Returns train_step(state, scale_state, batch, generator)
-    -> ((state, scale_state), metrics).
+                    *, scaling: Optional[DelayedScaling] = None,
+                    n_microbatches: int = 1, amax_sync=None, plan=None,
+                    device=None):
+    """Returns train_step(state, batch, generator) -> (state, metrics)
+    without `scaling`, and train_step(state, scale_state, batch, generator)
+    -> ((state, scale_state), metrics) with it.
 
     state: MixedPrecisionState on `device` (CUDA unless device="cpu" is
     passed; the CPU runs the kernels' plain versions). batch: {"tokens",
@@ -76,8 +79,7 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
 
     The master weights and optimizer state are updated in place (see
     core.master_weights). Not ported (each raises): n_microbatches > 1, a
-    ParallelPlan / fp8 wire, amax_sync, track_health, remat, a step
-    without delayed scaling (the port has no unfused path)."""
+    ParallelPlan / fp8 wire, amax_sync, track_health, remat."""
     dev = resolve_device(device)
     if n_microbatches != 1:
         raise _not_ported("gradient accumulation (n_microbatches > 1)")
@@ -85,24 +87,25 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         raise _not_ported("a ParallelPlan / fp8-on-the-wire collective")
     if amax_sync is not None:
         raise _not_ported("cross-replica amax sync")
-    if scaling is None:
-        raise _not_ported("a step without delayed scaling (unfused path)")
-    if cfg.policy.quant.track_health or scaling.qcfg.track_health:
+    if cfg.policy.quant.track_health or (
+            scaling is not None and scaling.qcfg.track_health):
         raise _not_ported("precision-health tracking (track_health)")
     if cfg.remat:
         raise _not_ported("activation recomputation (remat=True); pass "
                           "remat=False")
     cfg.check_ported()
 
-    def train_step(state: MixedPrecisionState, scale_state: ScaleState,
-                   batch: Dict, generator: torch.Generator):
+    def run(state: MixedPrecisionState, batch: Dict,
+            generator: torch.Generator, collect):
+        """One step; `collect` is the scaling context's manager (or a null
+        one). Returns (new state, metrics, the context's observations)."""
         if state.loss_scale.scale.device.type != dev.type:
             raise ValueError(f"train state on {state.loss_scale.scale.device}"
                              f", step built for {dev}")
         params = tmap(lambda p: p.requires_grad_(True),
                       optimizer.compute_params(state))
         scale = state.loss_scale.scale
-        with scaling.collect(scale_state) as ctx:
+        with collect as ctx:
             loss, aux = lm_loss(params, batch, cfg=cfg, qgen=generator,
                                 loss_scale=scale)
             loss.backward()
@@ -117,17 +120,33 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         n = len(step_vals)
         # The step's one device->host read: its scalars and every
         # observation of the scaling context.
+        pending = ctx.pending() if ctx is not None else []
         host = torch.stack([v.float().reshape(()) for v in
-                            step_vals + ctx.pending()]).cpu().numpy()
-        new_scale_state = scaling.update(scale_state,
-                                         ctx.observations(host[n:]))
+                            step_vals + pending]).cpu().numpy()
         metrics = {k: float(v) for k, v in zip(
             ("loss", "nll", "grad_norm", "loss_scale", "grads_finite",
              "overflow_count"), host[:n])}
         metrics["grads_finite"] = bool(metrics["grads_finite"])
-        return (new_state, new_scale_state), metrics
+        obs = ctx.observations(host[n:]) if ctx is not None else {}
+        return new_state, metrics, obs
 
-    return train_step
+    if scaling is None:
+        def train_step(state: MixedPrecisionState, batch: Dict,
+                       generator: torch.Generator):
+            new_state, metrics, _ = run(state, batch, generator,
+                                        contextlib.nullcontext())
+            return new_state, metrics
+
+        return train_step
+
+    def train_step_scaled(state: MixedPrecisionState,
+                          scale_state: ScaleState, batch: Dict,
+                          generator: torch.Generator):
+        new_state, metrics, obs = run(state, batch, generator,
+                                      scaling.collect(scale_state))
+        return (new_state, scaling.update(scale_state, obs)), metrics
+
+    return train_step_scaled
 
 
 def _leaves(tree):

@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.fp8_attention import ops as attn
+from repro_torch.kernels.fp8_matmul import ops as mm
 from repro_torch.kernels.fused_quant_matmul import ops as fq
+from repro_torch.kernels.stochastic_round import ops as sr
+from repro_torch.kernels.stochastic_round import ref as sr_ref
 
 FP8 = {"e4m3": (torch.float8_e4m3fn, 3), "e5m2": (torch.float8_e5m2, 2)}
 
@@ -226,3 +229,79 @@ def test_attention_bwd_rejects_other_masks(card):
     with pytest.raises(ValueError, match="causal/full"):
         attn.fp8_attention_bwd(x, x, x, x.to(torch.float8_e5m2), 0,
                                [1.0] * 10, mask_mode="chunk")
+
+
+# (K, N) of the forward projection GEMMs of qwen2-1.5b (wq / wo, wk / wv,
+# up / gate, down) at M = 2048 rows (B=4 x S=512), and a ragged shape that
+# the wrapper pads.
+MM_CASES = [(2048, 1536, 1536), (2048, 1536, 256), (2048, 1536, 8960),
+            (2048, 8960, 1536), (100, 200, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmts", [("e5m2", "e5m2"), ("e4m3", "e5m2")],
+                         ids=["paper", "mixed"])
+@pytest.mark.parametrize("shape", MM_CASES,
+                         ids=["x".join(map(str, c)) for c in MM_CASES])
+def test_fp8_matmul_kernel_matches_plain(card, shape, fmts, out):
+    """Kernel 5 against its plain version on the card, bit for bit on exact
+    inputs (exponents {0, 1}: every f32 sum below 2^24 units, exact in any
+    order); one launch."""
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(10)
+    a = exact_fp8((m, k), fmts[0], gen).to(card)
+    b = exact_fp8((k, n), fmts[1], gen).to(card)
+    launches = mm.fp8_matmul.launches
+    got = mm.fp8_matmul(a, b, out)
+    want = (a.float() @ b.float()).to(out)
+    torch.cuda.synchronize()
+    assert mm.fp8_matmul.launches == launches + 1
+    assert got.dtype == out and torch.equal(got, want)
+
+
+SPECIAL = [float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-40,
+           2.0 ** -17, -3e-6, 2.0 ** -8, -5e-3, 1e6, -7e4, 57344.0, 61440.0,
+           65519.0, 70000.0, 448.0, 464.0, 470.0, 480.0, -500.0]
+
+
+def _sr_input(shape, dtype, gen):
+    x = torch.randn(shape, generator=gen) * torch.exp2(
+        torch.randint(-20, 17, shape, generator=gen).float())
+    x.view(-1)[:len(SPECIAL)] = torch.tensor(SPECIAL)
+    return x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("saturate", [True, False])
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2048, 8960), (37, 51)],
+                         ids=["train", "ragged"])
+def test_sr_kernels_match_plain(card, shape, dtype, fmt, saturate):
+    """Kernels 6 (bits from a uint8 operand) and 7 (bits from the in-kernel
+    hash) against their plain versions on the card, bit for bit on every
+    input (NaNs compared as NaN), inf / NaN / subnormal / overflow values
+    included; the ragged shape runs the kernel's scalar tail, and a view
+    that starts off a 16-byte boundary goes through the wrapper's copy."""
+    gen = torch.Generator().manual_seed(11)
+    x = _sr_input(shape, dtype, gen).to(card)
+    rand8 = torch.randint(0, 256, shape, dtype=torch.uint8,
+                          generator=gen).to(card)
+    kw = dict(fmt=fmt, saturate=saturate)
+    n6, n7 = sr.sr_quantize.launches, sr.sr_quantize_onchip.launches
+    got6 = sr.sr_quantize(x, rand8, 0.37, **kw)
+    want6 = sr_ref.stochastic_round_fp8_ref(x, rand8, 0.37, **kw)
+    got7 = sr.sr_quantize_onchip(x, 12345, 0.37, **kw)
+    want7 = sr_ref.stochastic_round_fp8_onchip_ref(x, 12345, 0.37, **kw)
+    flat = x.reshape(-1)[1:]
+    got_off = sr.sr_quantize_onchip(flat, 7, **kw)
+    want_off = sr_ref.stochastic_round_fp8_onchip_ref(flat, 7, **kw)
+    torch.cuda.synchronize()
+    assert sr.sr_quantize.launches == n6 + 1
+    assert sr.sr_quantize_onchip.launches == n7 + 2
+    assert torch.equal(canon(got6), canon(want6))
+    assert torch.equal(canon(got7), canon(want7))
+    assert torch.equal(canon(got_off), canon(want_off))
