@@ -37,15 +37,21 @@ Phases, each of which raises on failure (there is no CPU fallback):
      versions on the card and, all-RNE, on the CPU, with a planted fault
      in the unfused GEMM kernel.
 Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
-against their plain versions and times them. The line before the last is
-a JSON object with one entry per kernel (launches: the fused GEMM's and
-the attention kernels' from phase 6, the unfused GEMM's from phase 8, the
-stochastic-rounding kernels' from the op's path); the last line is
+against their plain versions and times them, and holds both variants of
+the attention backward's dQ kernel (the stash variant for kv spans of up
+to 512 columns, the four-pass one past them) against the plain version
+and against each other. The start of the run prints the stash variant's
+shared memory, registers, spills and blocks per SM. The line before the
+last is a JSON object with one entry per kernel (kernel 3's with its two
+variants; launches: the fused GEMM's and the attention kernels' from
+phase 6, the unfused GEMM's from phase 8, the stochastic-rounding
+kernels' from the op's path); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -844,7 +850,9 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
     ta, te = get_format(fmt_a).dtype, get_format(fmt_e).dtype
     eye = torch.eye(d, device=dev)
     q = eye[torch.randint(0, d, (b, h, s), generator=gen, device=dev)]
-    top = (32.0 * (torch.arange(s, device=dev) // 128).float()
+    # 'stepped': 32 x the kv block index modulo 8, so that the keys of long
+    # sequences stay inside e4m3's range (at most 224).
+    top = (32.0 * (torch.arange(s, device=dev) // 128 % 8).float()
            if kind == "stepped" else torch.full((s,), 4.0, device=dev))
     hi = torch.rand((b, hkv, s), generator=gen, device=dev) < 0.5
     k = torch.where(hi, top, torch.full_like(top, -224.0))[..., None] \
@@ -862,43 +870,72 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
 BWD_RECIPES = {"hybrid": ("e4m3", "e5m2"), "paper": ("e5m2", "e5m2")}
 
 
+# Shapes of the exact backward checks: (mask, B, S, the dQ kernel's
+# variant). The training shape, the long-span variant past the stash's cap
+# (causal S=2048, full S=1024), and ragged lengths (S not a multiple of 64)
+# on each variant.
+BWD_EXACT_SHAPES = (("causal", TRAIN_B, TRAIN_S, "stash"),
+                    ("causal", 1, 2048, "long"), ("full", 1, 1024, "long"),
+                    ("causal", 1, 456, "stash"), ("full", 1, 968, "long"))
+
+
+def same_bits(a, b):
+    """Equal element for element, NaN where the other is NaN."""
+    import torch
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def check_attention_bwd(dev):
-    """Kernels 3 and 4 against the plain backward on the card, causal, at
-    B=4, H=12, Hkv=2, S=512, D=128: dq / dk / dv, the amaxes and kernel 3's
-    row statistics bitwise on the exact fixtures (both recipes, RNE and
-    SR); on general inputs within ATTN_BWD_REL_L2, which a planted fault
-    (the plain version with dS left unquantized) must exceed."""
+    """Kernels 3 (both variants) and 4 against the plain backward on the
+    card at H=12, Hkv=2, D=128 over BWD_EXACT_SHAPES: dq / dk / dv, the
+    amaxes and kernel 3's row statistics bitwise on the exact fixtures
+    (both recipes, RNE and SR), each launch on the variant the shape
+    selects; at the training shape (causal, B=4, S=512) the two variants
+    of kernel 3 bitwise equal on general inputs, and dq / dk / dv within
+    ATTN_BWD_REL_L2 of the plain version there, which a planted fault (the
+    plain version with dS left unquantized) must exceed."""
     import torch
     from repro_torch.kernels.fp8_attention import ops as at
     from repro_torch.kernels.fp8_attention import ref as at_ref
     gen = torch.Generator(device=dev).manual_seed(8)
     n = 0
     names = ("dq", "dk", "dv", "amax_dp", "amax_ds")
-    for recipe, (fa, fe) in BWD_RECIPES.items():
-        for kind in ("uniform", "stepped"):
-            q, k, v, do, scal = bwd_fixture(kind, fa, fe, gen, dev)
-            for rnd in ("rne", "sr"):
-                kw = dict(mask_mode="causal", fmt_s=fa, fmt_p=fa, fmt_e=fe,
-                          rounding_s=rnd, rounding_p=rnd, rounding_e=rnd,
-                          saturate_e=False)
-                got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
-                want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal,
-                                                    with_stats=True, **kw)
-                stats = at.fp8_attention_bwd_dq(
-                    q, k, v, do, 7, scal, q_len=q.shape[2],
-                    s_len=k.shape[2], **kw)[1:4]
-                torch.cuda.synchronize()
-                bad = [nm for nm, g, w in zip(names + ("m", "l", "rd"),
-                                              tuple(got) + tuple(stats), want)
-                       if not torch.equal(g, w)]
-                if bad:
-                    raise AssertionError(
-                        f"attention bwd {recipe} {kind} {rnd}: {bad} not "
-                        f"bitwise (dq max diff "
-                        f"{(got[0] - want[0]).abs().max().item()})")
-                n += 1
-    log(f"attention bwd: {n} exact-input cases (uniform, stepped) bitwise "
-        "equal to the plain version (dq, dk, dv, amaxes, m, l, rd)")
+    for mask, b, s, variant in BWD_EXACT_SHAPES:
+        for recipe, (fa, fe) in BWD_RECIPES.items():
+            for kind in ("uniform", "stepped"):
+                q, k, v, do, scal = bwd_fixture(kind, fa, fe, gen, dev, b=b,
+                                                s=s)
+                kp, vp = (at._pad_bytes(x, 2, 128) for x in (k, v))
+                for rnd in ("rne", "sr"):
+                    kw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, fmt_e=fe,
+                              rounding_s=rnd, rounding_p=rnd, rounding_e=rnd,
+                              saturate_e=False)
+                    before = dict(at.fp8_attention_bwd_dq.launches_by_variant)
+                    got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
+                    after = dict(at.fp8_attention_bwd_dq.launches_by_variant)
+                    want = at_ref.fp8_attention_bwd_ref(
+                        q, k, v, do, 7, scal, with_stats=True, **kw)
+                    stats = at.fp8_attention_bwd_dq(
+                        q, kp, vp, do, 7, scal, q_len=s, s_len=s, **kw)[1:4]
+                    torch.cuda.synchronize()
+                    tag = (f"attention bwd {mask} B={b} S={s} {recipe} {kind}"
+                           f" {rnd}")
+                    if after[variant] != before[variant] + 1:
+                        raise AssertionError(f"{tag}: the dQ kernel's "
+                                             f"{variant} variant not launched")
+                    bad = [nm for nm, g, w in zip(names + ("m", "l", "rd"),
+                                                  tuple(got) + tuple(stats),
+                                                  want)
+                           if not torch.equal(g, w)]
+                    if bad:
+                        raise AssertionError(
+                            f"{tag}: {bad} not bitwise (dq max diff "
+                            f"{(got[0] - want[0]).abs().max().item()})")
+                    n += 1
+    log(f"attention bwd: {n} exact-input cases (uniform, stepped; shapes "
+        f"{list(BWD_EXACT_SHAPES)}) "
+        "bitwise equal to the plain version (dq, dk, dv, amaxes, m, l, rd)")
     worst, fault = 0.0, float("inf")
     orig = at_ref._ds_block
     for recipe, (fa, fe) in BWD_RECIPES.items():
@@ -913,6 +950,14 @@ def check_attention_bwd(dev):
                       saturate_e=False)
             got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
             want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal, **kw)
+            lens = dict(q_len=q.shape[2], s_len=k.shape[2])
+            stash, long_ = (at.fp8_attention_bwd_dq(
+                q, k, v, do, 7, scal, variant=var, **lens, **kw)
+                for var in ("stash", "long"))
+            if not all(same_bits(x, y) for x, y in zip(stash, long_)):
+                raise AssertionError(
+                    f"attention bwd general {recipe} {rnd}: the dQ kernel's "
+                    "stash and long variants differ")
             at_ref._ds_block = lambda p_d, dp_d, rd, bits, *, f_ds, **_: \
                 (p_d * (dp_d - rd)) * f_ds
             try:
@@ -929,7 +974,8 @@ def check_attention_bwd(dev):
                                                                want[4])
             log(f"attention bwd general {recipe} {rnd}: rel L2 {rel:.3e} "
                 f"(planted unquantized dS {rel_f:.3e}), amaxes "
-                f"{'equal' if same else 'DIFFER'}")
+                f"{'equal' if same else 'DIFFER'}; dQ stash and long "
+                "variants bitwise equal")
             if rel > ATTN_BWD_REL_L2 or not same:
                 raise AssertionError(f"attention bwd general {recipe} {rnd}:"
                                      f" rel L2 {rel}, amaxes equal {same}")
@@ -958,10 +1004,27 @@ def causal_pairs(b, h, q, s):
     return b * h * sum(min(r + 1, s) for r in range(q))
 
 
+def bwd_bounds(q, k, do):
+    """(kernel 3's, kernel 4's) bound of a causal backward: fp8 q, dO, k, v
+    read once; f32 dq, m, l, rd (kernel 3) or dk, dv (kernel 4) written;
+    fp8 products over the attended pairs, three for kernel 3 (S, dP, dQ)
+    and two for kernel 4 (dK, dV)."""
+    b, h, s, d = q.shape
+    pairs = causal_pairs(b, h, s, s)
+    fp8 = q.numel() + do.numel() + 2 * k.numel()
+    return (bound(fp8 + 4 * q.numel() + 3 * 4 * b * h * s,
+                  3 * 2.0 * d * pairs, FP8_OPS_PER_S),
+            bound(fp8 + 3 * 4 * b * h * s + 2 * 4 * k.numel(),
+                  2 * 2.0 * d * pairs, FP8_OPS_PER_S))
+
+
 def time_attention_bwd(dev):
-    """Kernel 3, kernel 4, the plain backward and the library yardstick
+    """Kernel 3 (its stash variant, and the long-span variant at the same
+    shape), kernel 4, the plain backward and the library yardstick
     (autograd backward of scaled_dot_product_attention on dequantized bf16)
-    at the training shape, hybrid recipe, SR; with each kernel's bound."""
+    at the training shape, hybrid recipe, SR; kernel 3's long-span variant
+    where it runs (causal, B=1, S=2048) with the same yardsticks; with each
+    kernel's bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fp8_attention import ops as at
@@ -977,8 +1040,13 @@ def time_attention_bwd(dev):
     lens = dict(q_len=q.shape[2], s_len=k.shape[2])
     dq, m, l, rd, _, _ = at.fp8_attention_bwd_dq(q, k, v, do, 7, scal,
                                                  **lens, **kw)
-    ms_dq = cuda_ms(lambda: at.fp8_attention_bwd_dq(q, k, v, do, 7, scal,
-                                                    **lens, **kw))
+    # The two variants in turns (stash, long, long, stash) on one card.
+    t_dq = {"stash": [], "long": []}
+    for var in ("stash", "long", "long", "stash"):
+        t_dq[var].append(cuda_ms(lambda: at.fp8_attention_bwd_dq(
+            q, k, v, do, 7, scal, variant=var, **lens, **kw)))
+    ms_dq = min(t_dq["stash"])
+    ms_dq_long = min(t_dq["long"])
     ms_dkv = cuda_ms(lambda: at.fp8_attention_bwd_dkv(
         q, k, v, do, 7, scal, m, l, rd, **lens, **kw))
     plain = cuda_ms(lambda: at_ref.fp8_attention_bwd_ref(
@@ -997,15 +1065,14 @@ def time_attention_bwd(dev):
     b, h, s, d = q.shape
     hkv = k.shape[1]
     pairs = causal_pairs(b, h, s, s)
-    fp8 = q.numel() + do.numel() + 2 * k.numel()
-    b_dq = bound(fp8 + 4 * q.numel() + 3 * 4 * b * h * s,
-                 3 * 2.0 * d * pairs, FP8_OPS_PER_S)
-    b_dkv = bound(fp8 + 3 * 4 * b * h * s + 2 * 4 * k.numel(),
-                  2 * 2.0 * d * pairs, FP8_OPS_PER_S)
+    b_dq, b_dkv = bwd_bounds(q, k, do)
     log(f"attention bwd time causal B={b} H={h} Hkv={hkv} S={s}: dQ kernel "
-        f"{ms_dq:.4f} ms (bound {b_dq[0]:.4f} ms, {b_dq[1]}), dK/dV kernel "
+        f"{ms_dq:.4f} ms (stash variant; runs {t_dq['stash']}; the long-"
+        f"span variant at this shape {ms_dq_long:.4f} ms, runs "
+        f"{t_dq['long']}; bound {b_dq[0]:.4f} ms, {b_dq[1]}), dK/dV kernel "
         f"{ms_dkv:.4f} ms (bound {b_dkv[0]:.4f} ms, {b_dkv[1]}), plain "
         f"{plain:.4f} ms, sdpa backward (bf16) {lib:.4f} ms [{CARD}]")
+    long_row = time_attention_bwd_long(dev, gen)
     # The forward kernel at the same shape (the training path's).
     fscal = [0.088388, 1.0, 1.0, 1.0]
     fkw = dict(mask_mode="causal", fmt_s="e4m3", fmt_p="e4m3",
@@ -1029,8 +1096,55 @@ def time_attention_bwd(dev):
                         bound_ms=b_f[0], bound_by=b_f[1], max_abs_err=err_f),
             "dq": dict(ms=ms_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
                        max_abs_err=err_dq, **common),
+            "dq_long": long_row,
             "dkv": dict(ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1],
                         max_abs_err=err_dkv, **common)}
+
+
+def time_attention_bwd_long(dev, gen):
+    """Kernel 3's long-span variant where the host selects it (causal, B=1,
+    H=12, Hkv=2, S=2048, hybrid recipe, SR): its time, bound, max abs error
+    against the plain version, the plain backward's and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_attention import ref as at_ref
+    b, h, hkv, s, d = 1, 12, 2, 2048, 128
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(
+        torch.float8_e4m3fn)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(
+        torch.float8_e4m3fn) for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device=dev).to(
+        torch.float8_e5m2)
+    scal = [0.088388, 1.0, 1.0, 1.0, 1.0, 1.0, 0.088388, 1.0, 1.0, 1.0]
+    kw = dict(mask_mode="causal", fmt_s="e4m3", fmt_p="e4m3", fmt_e="e5m2",
+              rounding_s="sr", rounding_p="sr", rounding_e="sr",
+              saturate_e=False)
+    variant = at.dq_variant(s, s, "causal")
+    if variant != "long":
+        raise AssertionError(f"S={s} causal selects {variant}, not long")
+    ms = cuda_ms(lambda: at.fp8_attention_bwd_dq(
+        q, k, v, do, 7, scal, q_len=s, s_len=s, **kw), iters=5)
+    plain = cuda_ms(lambda: at_ref.fp8_attention_bwd_ref(
+        q, k, v, do, 7, scal, **kw), iters=2)
+    got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
+    want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal, **kw)
+    err = (got[0] - want[0]).abs().max().item()
+    qd, kd, vd = (x.to(torch.bfloat16).requires_grad_(True)
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True,
+                                       enable_gqa=True)
+    dod = do.to(torch.bfloat16)
+    lib = cuda_ms(lambda: torch.autograd.grad(o, (qd, kd, vd), dod,
+                                              retain_graph=True))
+    bnd = bwd_bounds(q, k, do)[0]
+    log(f"attention bwd time causal B={b} H={h} Hkv={hkv} S={s}: dQ kernel "
+        f"{ms:.4f} ms (long-span variant; bound {bnd[0]:.4f} ms, {bnd[1]}),"
+        f" plain {plain:.4f} ms, sdpa backward (bf16) {lib:.4f} ms, dq "
+        f"max_abs_err {err} [{CARD}]")
+    return dict(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
+                plain_ms=plain, library_ms=lib, shape=f"causal B={b} H={h} "
+                f"Hkv={hkv} S={s} D={d}")
 
 
 # ---------------------------------------------------------------------------
@@ -1272,6 +1386,7 @@ def train_full(dev):
     import torch
     from repro_torch.core.loss_scale import LossScaler
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels.fp8_attention import ops as at
     from repro_torch.models.transformer import init_lm
     from repro_torch.scaling.calibrate import discover_lm_sites
     from repro_torch.scaling.state import DelayedScaling
@@ -1326,6 +1441,11 @@ def train_full(dev):
     want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    # S=512 causal: every dQ launch takes the stash variant.
+    variants = dict(at.fp8_attention_bwd_dq.launches_by_variant)
+    log(f"train: dQ kernel launches by variant {variants}")
+    if variants["stash"] != launches["fp8_attention_bwd_dq"]:
+        raise AssertionError(f"dQ launches by variant {variants}")
     state_box = [state, ss]
 
     def one(b):
@@ -1333,7 +1453,8 @@ def train_full(dev):
                                                gen)
     prof = profile_train(one, batches[TRAIN_STEPS:])
     return dict(launches=launches, p50_ms=p50, tokens_s=tok_s,
-                peak_gib=peak, losses=losses, profile=prof)
+                peak_gib=peak, losses=losses, profile=prof,
+                dq_variants=variants)
 
 
 def profile_train(one_step, batches):
@@ -1770,6 +1891,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.kernels import build as kbuild
+        from repro_torch.kernels.fp8_attention import ops as at
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -1792,13 +1914,24 @@ def main() -> int:
     smem = kbuild.load("fp8_attention_fwd").attn_fwd_smem_bytes()
     bwd = kbuild.load("fp8_attention_bwd")
     log(f"dynamic shared memory per block: fp8_attention_fwd {smem} bytes, "
-        f"fp8_attention_bwd dQ {bwd.attn_bwd_dq_smem_bytes()} bytes, dK/dV "
+        f"fp8_attention_bwd dQ (long-span variant) "
+        f"{bwd.attn_bwd_dq_smem_bytes()} bytes, dK/dV "
         f"{bwd.attn_bwd_dkv_smem_bytes()} bytes")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     # Every phase runs even if an earlier one failed (one call to the card
     # then reports every fault); any failure fails the script at the end.
     failures = []
+    info = (ctypes.c_int * 4)()
+    cap = at.STASH_BLOCKS
+    err = bwd.attn_bwd_dq_stash_info(cap, info)
+    log(f"fp8_attention_bwd dQ stash variant at its cap of {cap} kv blocks: "
+        f"{info[0]} bytes of dynamic shared memory, {info[1]} registers and "
+        f"{info[2]} local (spill) bytes a thread, {info[3]} blocks per SM "
+        f"(cudaError {err})")
+    if err or info[3] < 2:
+        failures.append(f"dQ stash variant: cudaError {err}, {info[3]} "
+                        "blocks per SM (2 expected)")
 
     def phase(fn, *args):
         t_p = time.perf_counter()
@@ -1876,11 +2009,22 @@ def main() -> int:
          paper["sr_path"]["sr_quantize_onchip"],
          sr_rows["sr_quantize_onchip"]),
     ]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
-                    launches=n, max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row["library_ms"])
+                    launches=n, **{k: row[k] for k in keys})
                for name, source, rep, n, row in entries]
+    # Kernel 3's two variants: the stash one at the training shape (phase
+    # 6's launches), the long-span one where the host selects it.
+    kernels[2]["variants"] = [
+        dict(name="stash", symbol="attn_bwd_dq_kernel_stash",
+             launches=trained["dq_variants"]["stash"],
+             shape="causal B=4 H=12 Hkv=2 S=512 D=128",
+             **{k: attn_rows["dq"][k] for k in keys}),
+        dict(name="long", symbol="attn_bwd_dq_kernel",
+             launches=trained["dq_variants"]["long"],
+             shape=attn_rows["dq_long"]["shape"],
+             **{k: attn_rows["dq_long"][k] for k in keys})]
     log(f"total {time.perf_counter() - t_all:.1f} s; training "
         f"{trained['tokens_s']:.0f} tokens/s (hybrid, delayed scaling), "
         f"{paper['tokens_s']:.0f} tokens/s (paper recipe) on {card}")

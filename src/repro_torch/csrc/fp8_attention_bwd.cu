@@ -22,15 +22,53 @@
 // are recomputed from the fp8 residuals with the forward's bits. The seed
 // is read from device memory (drawn there by the caller's generator).
 //
-// Kernel 1 (dQ + statistics): one block per (b, h, 64-row q tile), four
-// warps of 16 rows. The TPU's sequential 4*nk grid axis (phases m -> l ->
-// rd -> dQ over kv stripes) becomes four in-block loops over the 128-column
-// kv blocks of the tile's kv_stripe_span (taken at the 128-row q tile that
-// holds this 64-row tile, the granularity the dK/dV kernel skips at). S and
-// dP are mma.sync m16n8k16 products of bf16 tiles in shared memory (fp8 ->
-// bf16 is exact); dS feeds the dQ product from registers. dQ accumulates
-// per kv block (acc + block product) in shared memory. It writes dQ * f_dq
-// and the per-row m, l, rd in f32 for kernel 2.
+// Kernel 1 (dQ + statistics), two variants, both one block per (b, h,
+// 64-row q tile) of four warps of 16 rows, over the 128-column kv blocks
+// of the tile's kv_stripe_span (taken at the 128-row q tile that holds
+// this 64-row tile, the granularity the dK/dV kernel skips at). The host
+// picks the variant from the shape, mask and window (ops.dq_variant).
+//
+// The stash variant (attn_bwd_dq_kernel_stash), for spans of up to
+// STASH_BLOCKS = 4 kv blocks (512 columns: every causal tile at S = 512):
+//   A  over the span, S = q.K^T -> S8 (salt 0x51) into a byte stash and
+//      the row max m; then dP = dO.V^T -> dP8 (salt 0x53) into a second
+//      stash and the dP amax (two halves, so that only one operand's A
+//      fragments are live at a time);
+//   B  no products: l = sum exp(S8 * s_s - m) from the S8 stash; then
+//      P8 = Q_A(exp(.) / d_safe * f_p) (salt 0x52) written over its S8
+//      byte, and rd = sum P * dP from the two stashes;
+//   C  dS8 = Q_E(P * (dP - rd) * f_ds) (salt 0x54) from the stashes, the
+//      dS amax, and dq += dS8 . K with dq in registers (64 f32 a thread).
+// So each product, SR hash and quantization runs once per score and
+// `exp` twice; K is loaded twice and V once. A stash word holds the four
+// bytes of one accumulator fragment of one thread, laid out [kv block]
+// [fragment][thread]: each thread reads back only what it wrote, without
+// bank conflicts or barriers. K and V go through one bf16 tile in shared
+// memory (fp8 -> f16 by the hardware conversion, exact), fetched into
+// registers one tile ahead; q and dO are staged through it once into A
+// fragments; the S / dP B fragments come from ldmatrix, dQ's from
+// ldmatrix.trans on the same row-major K tile (no transposed copy). The
+// loops walk a kv block's 16 fragments at run time, a few at a time (the
+// products per fragment pair, each accumulator's k steps in order), so
+// that the code of a pass fits the instruction cache; the quantizers are
+// the fp8_common ones rewritten without branches (their constants
+// precomputed per Q node, the SR-or-RNE choice made outside the loops),
+// so ptxas can interleave the scores of a fragment. Shared memory:
+// 34,848 bytes of tile and scratch + 16 KB per kv block of span, 100,384
+// bytes at 4 blocks, so two blocks (8 warps) share an SM under
+// __launch_bounds__(128, 2). Every product and sum is taken in the same
+// order as in the long-span variant, so the two agree bit for bit.
+//
+// The long-span variant (attn_bwd_dq_kernel), for longer spans: the
+// TPU's sequential 4*nk grid axis (phases m -> l -> rd -> dQ over kv
+// stripes) as four in-block loops over the span, recomputing S in each
+// and dP in two. S and dP are mma.sync m16n8k16 products of bf16 tiles in
+// shared memory (fp8 -> bf16 is exact); dS feeds the dQ product from
+// registers, with K^T from a transposed bf16 copy. dQ accumulates per kv
+// block (acc + block product) in shared memory (173 KB a block, one block
+// an SM).
+//
+// Both write dQ * f_dq and the per-row m, l, rd in f32 for kernel 2.
 //
 // Kernel 2 (dK/dV): one block per (b, hkv, 64 kv rows), four warps of 16
 // kv rows. It loops over the GQA members in head order, then the 128-row q
@@ -45,12 +83,22 @@
 // __fmul_rn / __fadd_rn / __fdiv_rn, so every product and sum is rounded
 // on its own, as in the reference.
 //
-// What bounds it: at the training shape (B=4, H=12, Hkv=2, S=512, D=128,
-// causal) each kernel moves ~1-7 MB and does ~10 GFLOP of matrix products,
-// a few microseconds at the card's rates; this first version is instead
-// limited by its per-element quantize / exp / hash epilogue work, by the
-// repeated K/V loads of the four passes, and by the dK/dV grid's 64 blocks
-// on 132 SMs. fp8 wgmma, TMA and a wider dK/dV grid are later work.
+// What bounds them (H100 SXM at 700 W; chip_smoke.py and the probe,
+// kernels/fp8_attention/probe.py): at the training shape (B=4, H=12,
+// Hkv=2, S=512, D=128, causal) each kernel moves ~1-7 MB and does ~10
+// GFLOP of matrix products, a few microseconds at the card's rates (bounds
+// 6.0 and 3.5 us). Kernel 1's stash variant reads 0.18 ms: the products
+// are a few percent of it; the rest is the per-score epilogue (4 SR hashes,
+// 4 quantizations, 2 exp, an IEEE division and 8 fp8 conversions on each
+// of ~7.9 M scores; P8 and rd are the largest pass, 35% of a longest-span
+// tile) and the grid's tail (84% of the block slots busy). The long-span
+// variant (4.1 ms at the same shape) and kernel 2 (3.9 ms) are bound by
+// their recomputation, their shared-memory accumulators and one block an
+// SM, and kernel 2 by its 64 blocks on 132 SMs. fp8 wgmma, TMA and a wider
+// dK/dV grid are later work.
+#include <algorithm>
+#include <type_traits>
+
 #include "fp8_common.cuh"
 
 namespace {
@@ -410,6 +458,589 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
 }
 
 // ---------------------------------------------------------------------------
+// kernel 1, stash variant: each product, SR hash and quantization once
+// ---------------------------------------------------------------------------
+
+constexpr int STASH_BLOCKS = 4;   // kv blocks a stash-variant span may cover
+constexpr int TILE_BYTES = LANE * KS * 2;
+constexpr int STASH_WORDS = 16 * 128;   // words per stash per kv block
+
+// One Q node's constants, precomputed on the host and read from the
+// kernel's parameter space, so that the per-element quantizers below run
+// without a branch (fp8::quant_rne / quant_sr, bit for bit).
+struct QConst {
+  float pre;          // SR: prescale into fp16 (2^-8 e4m3, 1 e5m2)
+  float maxn;         // max normal
+  float thresh;       // RNE: smallest |x| that rounds past max normal
+  float sub_mul;      // RNE: subnormal encode multiplier (2^9 / 2^16)
+  uint32_t mask, keep, max_bits, ovf_bits;  // SR on the fp16 pattern
+  int man, min_exp, bias, shift;  // shift: fp16 pattern -> byte (7 / 8)
+  int sat, e4m3;
+};
+
+struct QConsts {
+  QConst s, p, e;
+};
+
+QConst make_qconst(int fmt, int sat) {
+  QConst c;
+  const bool e4 = fmt == fp8::E4M3;
+  c.pre = e4 ? 0.00390625f : 1.f;
+  c.maxn = e4 ? 448.f : 57344.f;
+  c.thresh = e4 ? 480.f : 61440.f;
+  c.sub_mul = e4 ? 512.f : 65536.f;
+  c.mask = e4 ? 0x7Fu : 0xFFu;
+  c.keep = 0xFFFFu ^ c.mask;
+  c.max_bits = e4 ? 0x3F00u : 0x7B00u;
+  c.ovf_bits = e4 ? 0x7E00u : 0x7C00u;
+  c.man = e4 ? 3 : 2;
+  c.min_exp = e4 ? -6 : -14;
+  c.bias = e4 ? 7 : 15;
+  c.shift = e4 ? 7 : 8;
+  c.sat = sat;
+  c.e4m3 = e4;
+  return c;
+}
+
+// fp8::quant_sr without branches: an e4m3 byte is the fp16 pattern of the
+// prescaled value shifted by 7 (normals and subnormals alike), an e5m2
+// byte its top byte; inf / NaN patterns give e4m3's NaN.
+__device__ __forceinline__ uint32_t quant_sr_bf(float y, uint32_t rnd,
+                                                const QConst& c) {
+  const float yc = fminf(fmaxf(y, -c.maxn), c.maxn);
+  y = (c.sat && !isnan(y)) ? yc : y;
+  y = __fmul_rn(y, c.pre);
+  const uint32_t hb = __half_as_ushort(__float2half_rn(y));
+  const uint32_t sgn = hb & 0x8000u, mag = hb & 0x7FFFu;
+  uint32_t trunc = ((mag + (rnd & c.mask)) & 0xFFFFu) & c.keep;
+  trunc = c.sat ? min(trunc, c.max_bits)
+                : (trunc > c.max_bits ? c.ovf_bits : trunc);
+  const uint32_t om = mag < 0x7C00u ? trunc
+                                    : ((mag & c.keep) | (mag & 0x0200u));
+  const uint32_t mb = (c.e4m3 && om >= 0x7C00u) ? 0x7Fu : (om >> c.shift);
+  return (sgn >> 8) | mb;
+}
+
+// fp8::quant_rne without branches (the division by the power-of-two ulp is
+// the exact multiplication by its inverse).
+__device__ __forceinline__ uint32_t quant_rne_bf(float y, const QConst& c) {
+  const uint32_t yb = __float_as_uint(y);
+  const uint32_t sgn = (yb >> 24) & 0x80u;
+  const float ax = fabsf(y);
+  const int e = max((int)((yb >> 23) & 0xFFu) - 127, c.min_exp);
+  const float ulp = __uint_as_float((uint32_t)(e - c.man + 127) << 23);
+  const float inv = __uint_as_float((uint32_t)(127 - e + c.man) << 23);
+  float r = __fmul_rn(rintf(__fmul_rn(ax, inv)), ulp);
+  const bool ovf = !c.sat && (ax >= c.thresh || r > c.maxn);
+  r = c.sat ? fminf(r, c.maxn) : r;
+  const uint32_t rb = __float_as_uint(r);
+  const int er = (int)(rb >> 23) - 127;
+  const uint32_t nor = ((uint32_t)(er + c.bias) << c.man) |
+                       ((rb >> (23 - c.man)) & ((1u << c.man) - 1u));
+  const uint32_t sub = __float2uint_rz(__fmul_rn(r, c.sub_mul));
+  uint32_t out = sgn | (er < c.min_exp ? sub : nor);
+  const uint32_t big = c.e4m3 ? (sgn | 0x7Fu) : (sgn | 0x7Cu);
+  out = ovf ? (c.e4m3 ? 0x7Fu : big) : out;
+  out = isinf(y) ? big : out;
+  return isnan(y) ? (sgn | 0x7Fu) : out;
+}
+
+template <bool SR>
+__device__ __forceinline__ uint32_t quant_bf(float y, uint32_t rnd,
+                                             const QConst& c) {
+  if constexpr (SR) return quant_sr_bf(y, rnd, c);
+  return quant_rne_bf(y, c);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a) : "memory");
+}
+
+// Two fp8 bytes (low byte first) -> f16x2 by the hardware conversion
+// (exact: every e4m3 / e5m2 value is an f16 value).
+__device__ __forceinline__ __half2 fp8x2_to_half2(uint32_t two, int fmt) {
+  const unsigned short in = static_cast<unsigned short>(two & 0xFFFFu);
+  uint32_t out;
+  if (fmt == fp8::E4M3)
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(out) : "h"(in));
+  else
+    asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(out) : "h"(in));
+  return *reinterpret_cast<__half2*>(&out);
+}
+
+// One fp8 byte as f32 (fp8::to_float by the hardware conversion).
+__device__ __forceinline__ float byte_to_f32(uint32_t b, int fmt) {
+  return __low2float(fp8x2_to_half2(b, fmt));
+}
+
+// The four fp8 bytes of a word (byte e -> v[e]) as f32.
+__device__ __forceinline__ void word_to_f32(uint32_t w, int fmt, float v[4]) {
+  const float2 lo = __half22float2(fp8x2_to_half2(w, fmt));
+  const float2 hi = __half22float2(fp8x2_to_half2(w >> 16, fmt));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+// 16 fp8 bytes -> 8 packed bf16 pairs.
+__device__ __forceinline__ void bytes_to_bf16_hw(const uint4& x, int fmt,
+                                                 uint32_t w[8]) {
+  const uint32_t b[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v[4];
+    word_to_f32(b[i], fmt, v);
+    w[2 * i] = fp8::pack_bf16(v[0], v[1]);
+    w[2 * i + 1] = fp8::pack_bf16(v[2], v[3]);
+  }
+}
+
+// ROWS x D fp8 rows from device memory into registers (16 bytes per
+// thread and step; rows at or past `limit` read as zeros) ...
+template <int ROWS>
+__device__ __forceinline__ void fetch_rows(uint4 (&x)[ROWS / 16],
+                                           const uint8_t* src, int row0,
+                                           int limit) {
+#pragma unroll
+  for (int i = 0; i < ROWS / 16; ++i) {
+    const int v = threadIdx.x + 128 * i, r = v >> 3, c = (v & 7) * 16;
+    x[i] = row0 + r < limit
+               ? __ldg(reinterpret_cast<const uint4*>(
+                     src + (long long)(row0 + r) * D + c))
+               : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// ... and from registers into a bf16 shared-memory tile of row stride KS.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const uint4 (&x)[ROWS / 16],
+                                           int fmt) {
+#pragma unroll
+  for (int i = 0; i < ROWS / 16; ++i) {
+    const int v = threadIdx.x + 128 * i, r = v >> 3, c = (v & 7) * 16;
+    uint32_t w[8];
+    bytes_to_bf16_hw(x[i], fmt, w);
+    uint4* d = reinterpret_cast<uint4*>(dst + r * KS + c);
+    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// The A fragments of 16 rows x D of a bf16 tile (stride KS), per 16-wide
+// k step: {a[g][c], a[g+8][c], a[g][c+8], a[g+8][c+8]}, c = kk + 2t.
+__device__ __forceinline__ void load_afrag(uint32_t af[8][4],
+                                           const __nv_bfloat16* rows16) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    ldsm_x4(af[kk], rows16 + ((i & 1) * 8 + r) * KS + kk * 16 + (i >> 1) * 8);
+}
+
+// acc[2][4] = the n tiles 2np, 2np+1 (kv columns 16np .. 16np+15) of
+// A . tile^T over the head dim: A from registers (16 rows), tile = 128 kv
+// rows of stride KS; the k steps in ascending order, as tile_abt.
+__device__ __forceinline__ void frag_abt_pair(float acc[2][4],
+                                              const uint32_t af[8][4],
+                                              const __nv_bfloat16* tile,
+                                              int np) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* rowp = tile + ((2 * np + (i >> 1)) * 8 + r) * KS +
+                              (i & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t bf[4];
+    ldsm_x4(bf, rowp + kk * 16);
+    fp8::mma_bf16(acc[0], af[kk], bf[0], bf[1]);
+    fp8::mma_bf16(acc[1], af[kk], bf[2], bf[3]);
+  }
+}
+
+// The SR hash split at the row: the (seed, salt, bh, row) prefix once per
+// row, the column step per element; fp8::hash_bits bit for bit.
+__device__ __forceinline__ uint32_t hash_row(uint32_t seed, uint32_t salt,
+                                             uint32_t bh, uint32_t row) {
+  const uint32_t gold = 0x9E3779B9u;
+  uint32_t s = fp8::fmix32(seed + salt * gold);
+  s = fp8::fmix32(s + bh * gold);
+  return fp8::fmix32(s + row * gold);
+}
+
+__device__ __forceinline__ uint32_t hash_col(uint32_t pre, uint32_t col) {
+  return fp8::fmix32(pre ^ (col * 0x9E3779B9u)) & 0xFFu;
+}
+
+// Built with -DDQ_PROBE (kernels/fp8_attention/probe.py), the stash
+// kernel records the SM clock at its pass boundaries in two blocks (the
+// grid's first, which holds a longest span, and its last, a shortest),
+// and each block's start, end (global timer, ns), SM and clock count.
+#ifdef DQ_PROBE
+constexpr int PROBE_BLOCKS = 8192;
+__device__ unsigned long long dq_probe_marks[2][8];
+__device__ unsigned long long dq_probe_blocks[PROBE_BLOCKS][4];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define DQ_PROBE_MARK(k)                                                  \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&           \
+      (blockIdx.z == 0 || blockIdx.z == gridDim.z - 1))                   \
+    dq_probe_marks[blockIdx.z == 0 ? 0 : 1][k] = clock64();
+#else
+#define DQ_PROBE_MARK(k)
+#endif
+
+// Runs f(std::bool_constant<SR>) with SR the (uniform) rounding flag, so
+// that a loop's per-element quantizer is chosen once, outside the loop.
+template <class F>
+__device__ __forceinline__ void with_sr(int sr, F&& f) {
+  if (sr)
+    f(std::true_type{});
+  else
+    f(std::false_type{});
+}
+
+__global__ void __launch_bounds__(128, 2)
+    attn_bwd_dq_kernel_stash(Args p, QConsts qc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float(*red)[4] = reinterpret_cast<float(*)[4]>(smem_raw + TILE_BYTES);
+  uint32_t* stash = reinterpret_cast<uint32_t*>(smem_raw + TILE_BYTES + 32);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Longest spans first: the z axis walks the q tiles from the last.
+  const int h = blockIdx.x, b = blockIdx.y, iq = gridDim.z - 1 - blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const int row0 = iq * BQ;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const uint32_t seed = *p.seed;
+  const long long qoff = (long long)(b * p.H + h) * p.Q * D;
+  const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
+  const uint8_t* kg = p.k + kvoff;
+  const uint8_t* vg = p.v + kvoff;
+
+  // Per row of this thread: the SR hash prefixes, and the valid columns
+  // [lo, hi] (is_valid) with the observed ones (row < q_len) a subset.
+  int rows[2], lo[2], hi[2], hi_obs[2];
+  uint32_t hs[2], hp[2], hdp[2], hds[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + warp * 16 + g + 8 * i;
+    rows[i] = row;
+    hs[i] = hash_row(seed, SALT_S, bh, row);
+    hp[i] = hash_row(seed, SALT_P, bh, row);
+    hdp[i] = hash_row(seed, SALT_DP, bh, row);
+    hds[i] = hash_row(seed, SALT_DS, bh, row);
+    hi[i] = p.causal ? min(row, p.s_len - 1) : p.s_len - 1;
+    lo[i] = (p.causal && p.window) ? row - p.window + 1 : 0;
+    hi_obs[i] = row < p.q_len ? hi[i] : -1;
+  }
+  int jmin, jmax;
+  kv_span(p, row0 / TQ * TQ, jmin, jmax);
+  // Stashes, thread-private words [kv block][nt][thread]: S8 (then P8)
+  // and dP8, byte e of word nt = accumulator element (nt, e).
+  uint32_t* s8w = stash;
+  uint32_t* dp8w = stash + (jmax - jmin + 1) * STASH_WORDS;
+
+#ifdef DQ_PROBE
+  const unsigned long long probe_ns = global_ns();
+  const long long probe_clk = clock64();
+#endif
+  DQ_PROBE_MARK(0)
+  // Pass A, in two halves that each hold one operand's A fragments:
+  // S8 per kv block into its stash and the row max m; then dP8 and its
+  // amax. q and dO are staged through the tile once; K and V are
+  // fetched into registers one tile ahead.
+  uint32_t af[8][4];
+  uint4 nx[LANE / 16], xdo[BQ / 16];
+  {
+    uint4 x[BQ / 16];
+    fetch_rows<BQ>(x, p.q + qoff, row0, p.Q);
+    fetch_rows<BQ>(xdo, p.dO + qoff, row0, p.Q);
+    fetch_rows<LANE>(nx, kg, jmin * LANE, p.S);
+    stage_rows<BQ>(tile, x, p.q_fmt);
+    __syncthreads();
+    load_afrag(af, tile + warp * 16 * KS);
+  }
+  DQ_PROBE_MARK(1)
+  // The loops below walk a kv block's 16 accumulator fragments (8 kv
+  // columns each) at run time, a pair or two at a time: the unrolled
+  // epilogue of all 64 scores a thread holds would not fit the
+  // instruction cache.
+  float m[2] = {-1e30f, -1e30f};
+  float amax_dp = 0.f, amax_ds = 0.f;
+  for (int j = jmin; j <= jmax; ++j) {
+    const int jl = j - jmin;
+    __syncthreads();  // the tile's previous contents consumed
+    stage_rows<LANE>(tile, nx, p.k_fmt);
+    __syncthreads();
+    // The next K block, or the span's first V block.
+    if (j < jmax)
+      fetch_rows<LANE>(nx, kg, (j + 1) * LANE, p.S);
+    else
+      fetch_rows<LANE>(nx, vg, jmin * LANE, p.S);
+    float mx[2] = {-1e30f, -1e30f};
+    with_sr(p.sr_s, [&](auto sr) {
+#pragma unroll 2
+      for (int np = 0; np < 8; ++np) {
+        float acc[2][4];
+        frag_abt_pair(acc, af, tile, np);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int nt = 2 * np + n;
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
+            const uint32_t q8 = quant_bf<decltype(sr)::value>(
+                __fmul_rn(acc[n][e], p.f_s),
+                decltype(sr)::value ? hash_col(hs[hf], col) : 0u, qc.s);
+            word |= q8 << (8 * e);
+            const float x = (col >= lo[hf] && col <= hi[hf])
+                                ? __fmul_rn(byte_to_f32(q8, p.fmt_s), p.s_s)
+                                : -1e30f;
+            mx[hf] = fp8::nanmax(mx[hf], x);
+          }
+          s8w[(jl * 16 + nt) * 128 + tid] = word;
+        }
+      }
+    });
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) m[hf] = fp8::nanmax(m[hf], warp_max4(mx[hf]));
+  }
+  DQ_PROBE_MARK(2)
+  __syncthreads();  // the last K block consumed
+  stage_rows<BQ>(tile, xdo, p.do_fmt);
+  __syncthreads();
+  load_afrag(af, tile + warp * 16 * KS);
+  for (int j = jmin; j <= jmax; ++j) {
+    const int jl = j - jmin;
+    __syncthreads();  // the tile's previous contents consumed
+    stage_rows<LANE>(tile, nx, p.v_fmt);
+    __syncthreads();
+    // The next V block, or the span's first K block for pass C.
+    fetch_rows<LANE>(nx, j < jmax ? vg : kg, (j < jmax ? j + 1 : jmin) * LANE,
+                     p.S);
+    with_sr(p.sr_e, [&](auto sr) {
+#pragma unroll 2
+      for (int np = 0; np < 8; ++np) {
+        float acc[2][4];
+        frag_abt_pair(acc, af, tile, np);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int nt = 2 * np + n;
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
+            const uint32_t q8 = quant_bf<decltype(sr)::value>(
+                __fmul_rn(acc[n][e], p.f_dp),
+                decltype(sr)::value ? hash_col(hdp[hf], col) : 0u, qc.e);
+            word |= q8 << (8 * e);
+            const bool obs = col >= lo[hf] && col <= hi_obs[hf];
+            amax_dp = obs ? fp8::nanmax(amax_dp,
+                                        fabsf(byte_to_f32(q8, p.fmt_e)))
+                          : amax_dp;
+          }
+          dp8w[(jl * 16 + nt) * 128 + tid] = word;
+        }
+      }
+    });
+  }
+
+  DQ_PROBE_MARK(3)
+  // Pass B, no products: l from the S8 stash; then P8 over S8, and rd.
+  float l[2] = {0.f, 0.f};
+  for (int j = jmin; j <= jmax; ++j) {
+    const int jl = j - jmin;
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll 4
+    for (int nt = 0; nt < 16; ++nt) {
+      float sv[4];
+      word_to_f32(s8w[(jl * 16 + nt) * 128 + tid], p.fmt_s, sv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
+        const float ev = (col >= lo[hf] && col <= hi[hf])
+            ? expf(__fsub_rn(__fmul_rn(sv[e], p.s_s), m[hf])) : 0.f;
+        rsum[hf] = __fadd_rn(rsum[hf], ev);
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l[hf] = __fadd_rn(l[hf], warp_sum4(rsum[hf]));
+  }
+  DQ_PROBE_MARK(4)
+  float dsafe[2], rd[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) dsafe[hf] = l[hf] > 0.f ? l[hf] : 1.f;
+  with_sr(p.sr_p, [&](auto sr) {
+    for (int j = jmin; j <= jmax; ++j) {
+      const int jl = j - jmin;
+      float rsum[2] = {0.f, 0.f};
+#pragma unroll 2
+      for (int nt = 0; nt < 16; ++nt) {
+        const int w = (jl * 16 + nt) * 128 + tid;
+        float sv[4], dpv[4];
+        word_to_f32(s8w[w], p.fmt_s, sv);
+        word_to_f32(dp8w[w], p.fmt_e, dpv);
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
+          const float ev = (col >= lo[hf] && col <= hi[hf])
+              ? expf(__fsub_rn(__fmul_rn(sv[e], p.s_s), m[hf])) : 0.f;
+          const uint32_t p8 = quant_bf<decltype(sr)::value>(
+              __fmul_rn(__fdiv_rn(ev, dsafe[hf]), p.f_p),
+              decltype(sr)::value ? hash_col(hp[hf], col) : 0u, qc.p);
+          word |= p8 << (8 * e);
+          const float pd = __fmul_rn(byte_to_f32(p8, p.fmt_p), p.s_p);
+          rsum[hf] = __fadd_rn(rsum[hf],
+                               __fmul_rn(pd, __fmul_rn(dpv[e], p.s_dp)));
+        }
+        s8w[w] = word;
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) rd[hf] = __fadd_rn(rd[hf], warp_sum4(rsum[hf]));
+    }
+  });
+
+  DQ_PROBE_MARK(5)
+  // Pass C: dS8 from the stashes, its amax, dq += dS8 . K in registers:
+  // per 16 kv columns (one k step), the two fragments' dS8 as the A
+  // operand against all 16 n tiles of the head dim (K's B fragments from
+  // the row-major tile through ldmatrix.trans); the block's product is
+  // then added to dq (the reference's per-block order).
+  float dq[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  const int li = lane >> 3, lr = lane & 7;
+  for (int j = jmin; j <= jmax; ++j) {
+    const int jl = j - jmin;
+    __syncthreads();  // the tile's previous contents consumed
+    stage_rows<LANE>(tile, nx, p.k_fmt);
+    __syncthreads();
+    if (j < jmax) fetch_rows<LANE>(nx, kg, (j + 1) * LANE, p.S);
+    float part[16][4];
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+    with_sr(p.sr_e, [&](auto sr) {
+#pragma unroll 1
+      for (int ks = 0; ks < 8; ++ks) {
+        float dsq[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int nt = 2 * ks + n;
+          const int w = (jl * 16 + nt) * 128 + tid;
+          float pv[4], dpv[4];
+          word_to_f32(s8w[w], p.fmt_p, pv);
+          word_to_f32(dp8w[w], p.fmt_e, dpv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
+            const float ds = __fmul_rn(
+                __fmul_rn(pv[e], p.s_p),
+                __fsub_rn(__fmul_rn(dpv[e], p.s_dp), rd[hf]));
+            dsq[n][e] = byte_to_f32(
+                quant_bf<decltype(sr)::value>(
+                    __fmul_rn(ds, p.f_ds),
+                    decltype(sr)::value ? hash_col(hds[hf], col) : 0u, qc.e),
+                p.fmt_e);
+            const bool obs = col >= lo[hf] && col <= hi_obs[hf];
+            amax_ds = obs ? fp8::nanmax(amax_ds, fabsf(dsq[n][e])) : amax_ds;
+          }
+        }
+        const uint32_t a[4] = {fp8::pack_bf16(dsq[0][0], dsq[0][1]),
+                               fp8::pack_bf16(dsq[0][2], dsq[0][3]),
+                               fp8::pack_bf16(dsq[1][0], dsq[1][1]),
+                               fp8::pack_bf16(dsq[1][2], dsq[1][3])};
+        const __nv_bfloat16* rowp = tile + (ks * 16 + (li & 1) * 8 + lr) * KS +
+                                    (li >> 1) * 8;
+#pragma unroll
+        for (int dp = 0; dp < 8; ++dp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, rowp + dp * 16);
+          fp8::mma_bf16(part[2 * dp], a, bf[0], bf[1]);
+          fp8::mma_bf16(part[2 * dp + 1], a, bf[2], bf[3]);
+        }
+      }
+    });
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[n][e] = __fadd_rn(dq[n][e], part[n][e]);
+  }
+
+  DQ_PROBE_MARK(6)
+  // Write dq * f_dq and the row statistics (rows of this thread).
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = rows[hf];
+    if (row >= p.Q) continue;
+    const long long r = (long long)(b * p.H + h) * p.Q + row;
+    float* dqr = p.dq + r * D;
+#pragma unroll
+    for (int dt = 0; dt < 16; ++dt)
+      *reinterpret_cast<float2*>(dqr + dt * 8 + 2 * t) =
+          make_float2(__fmul_rn(dq[dt][2 * hf], p.f_dq),
+                      __fmul_rn(dq[dt][2 * hf + 1], p.f_dq));
+    if (t == 0) {
+      p.m[r] = m[hf];
+      p.l[r] = l[hf];
+      p.rd[r] = rd[hf];
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    amax_dp = fp8::nanmax(amax_dp, __shfl_xor_sync(0xffffffffu, amax_dp, off));
+    amax_ds = fp8::nanmax(amax_ds, __shfl_xor_sync(0xffffffffu, amax_ds, off));
+  }
+  if (lane == 0) {
+    red[0][warp] = amax_dp;
+    red[1][warp] = amax_ds;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a = red[0][0], c = red[1][0];
+    for (int w = 1; w < 4; ++w) {
+      a = fp8::nanmax(a, red[0][w]);
+      c = fp8::nanmax(c, red[1][w]);
+    }
+    const long long idx = (long long)(b * p.H + h) * gridDim.z + iq;
+    p.amax_dp[idx] = a;
+    p.amax_ds[idx] = c;
+  }
+#ifdef DQ_PROBE
+  const unsigned bid = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (tid == 0 && bid < PROBE_BLOCKS) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    dq_probe_blocks[bid][0] = probe_ns;
+    dq_probe_blocks[bid][1] = global_ns();
+    dq_probe_blocks[bid][2] = sm;
+    dq_probe_blocks[bid][3] = clock64() - probe_clk;
+  }
+#endif
+}
+
+// ---------------------------------------------------------------------------
 // kernel 2: dK / dV
 // ---------------------------------------------------------------------------
 
@@ -619,6 +1250,32 @@ Args make_args(const void* q, const void* k, const void* v, const void* dO,
   return p;
 }
 
+// The most kv blocks any q tile's span covers (kv_span over the 128-row
+// q tiles), on the host: the stash variant sizes its stashes by it.
+int span_blocks(const Args& p) {
+  const int nk = p.S / LANE;
+  if (!p.causal) return nk;
+  int most = 0;
+  for (int t0 = 0; t0 < p.Q; t0 += TQ) {
+    const int jmax = std::min((t0 + TQ - 1) / LANE, nk - 1);
+    const int jmin = p.window ? std::max(t0 - p.window + 1, 0) / LANE : 0;
+    most = std::max(most, jmax - jmin + 1);
+  }
+  return most;
+}
+
+int stash_smem_bytes(int blocks) { return TILE_BYTES + 32 + blocks * 2 * STASH_WORDS * 4; }
+
+cudaError_t stash_prepare(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_kernel_stash, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(attn_bwd_dq_kernel_stash,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 extern "C" int attn_bwd_dq_smem_bytes() { return static_cast<int>(sizeof(SmemDQ)); }
@@ -630,7 +1287,8 @@ extern "C" int attn_bwd_dkv_smem_bytes() { return static_cast<int>(sizeof(SmemDK
 // f_ds, f_dq, f_dk, f_dv. Both arrays are read on the host. D must be 128
 // and S a multiple of 128 (the wrapper pads). Return cudaGetLastError().
 
-// Kernel 1: grid (ceil(Q/64), H, B). Writes dq, m, l, rd, amax_dp/ds.
+// Kernel 1, long-span variant: grid (ceil(Q/64), H, B). Writes dq, m, l,
+// rd, amax_dp/ds.
 extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dO, const void* seed, void* dq,
                                   void* m, void* l, void* rd, void* amax_dp,
@@ -665,3 +1323,61 @@ extern "C" int attn_bwd_dkv_launch(const void* q, const void* k,
   attn_bwd_dkv_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Kernel 1, stash variant: grid (H, B, ceil(Q/64)), for launches whose
+// every q tile spans at most STASH_BLOCKS kv blocks (cudaErrorInvalidValue
+// otherwise). Same arguments and outputs as attn_bwd_dq_launch.
+extern "C" int attn_bwd_dq_stash_launch(const void* q, const void* k,
+                                        const void* v, const void* dO,
+                                        const void* seed, void* dq, void* m,
+                                        void* l, void* rd, void* amax_dp,
+                                        void* amax_ds, const int* iv,
+                                        const float* fv, void* stream) {
+  Args p = make_args(q, k, v, dO, seed, dq, m, l, rd, amax_dp, amax_ds,
+                     nullptr, nullptr, iv, fv);
+  const int blocks = span_blocks(p);
+  if (blocks < 1 || blocks > STASH_BLOCKS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = stash_smem_bytes(blocks);
+  cudaError_t err = stash_prepare(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const QConsts qc{make_qconst(p.fmt_s, p.sat_s), make_qconst(p.fmt_p, p.sat_p),
+                   make_qconst(p.fmt_e, p.sat_e)};
+  dim3 grid(p.H, p.B, (p.Q + BQ - 1) / BQ);
+  attn_bwd_dq_kernel_stash<<<grid, 128, smem,
+                             static_cast<cudaStream_t>(stream)>>>(p, qc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stash variant at a span of `blocks` kv blocks: out = {dynamic shared
+// memory bytes, registers a thread, local (spill) bytes a thread, blocks
+// resident per SM}. Returns a cudaError_t.
+extern "C" int attn_bwd_dq_stash_info(int blocks, int* out) {
+  const int smem = stash_smem_bytes(blocks);
+  cudaError_t err = stash_prepare(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, attn_bwd_dq_kernel_stash);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, attn_bwd_dq_kernel_stash, 128, smem);
+  out[0] = smem;
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = resident;
+  return static_cast<int>(err);
+}
+
+#ifdef DQ_PROBE
+// The probe's records (marks: 2 x 8, blocks: n x 4) after a launch.
+extern "C" int attn_bwd_dq_probe_read(unsigned long long* marks,
+                                      unsigned long long* blocks, int n) {
+  cudaError_t err = cudaMemcpyFromSymbol(marks, dq_probe_marks,
+                                         sizeof(dq_probe_marks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      blocks, dq_probe_blocks,
+      sizeof(unsigned long long) * 4 * std::min(n, PROBE_BLOCKS)));
+}
+#endif

@@ -13,7 +13,9 @@ Dispatch: CPU tensors take the plain versions (ref.py); CUDA tensors launch
 the hand-written Hopper kernels (csrc/fp8_attention_fwd.cu,
 csrc/fp8_attention_bwd.cu) or raise. `fp8_attention_fwd.launches`,
 `fp8_attention_bwd_dq.launches` and `fp8_attention_bwd_dkv.launches`
-count the launches of the three kernels.
+count the launches of the three kernels (the dQ kernel's also by variant,
+`launches_by_variant`: 'stash' for spans of up to STASH_BLOCKS kv blocks,
+'long' past them, chosen by `dq_variant`).
 
 Padding contract (the reference's): the head dim is zero-padded to 128 and
 the kv length to a multiple of 128 (slot positions pad with -1, validity
@@ -198,13 +200,50 @@ def _bwd_args(q8, k8, v8, do8, *, scal, q_len, s_len,
     return iv, fv
 
 
-def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, **kw):
+# The dQ kernel's stash variant keeps a q tile's S8 / P8 and dP8 bytes for
+# its whole kv span in shared memory: spans of up to STASH_BLOCKS kv blocks
+# (LANE columns each) fit a budget of two blocks an SM. The kernel file
+# has the same constant; its launch refuses a longer span.
+STASH_BLOCKS = 4
+
+
+def dq_span_blocks(q_rows: int, s_pad: int, mask_mode: str,
+                   window: int = 0) -> int:
+    """The most kv blocks the span of any q tile of the dQ kernel covers:
+    `kv_stripe_span` at the tile's 128-row query tile and block_kv = LANE
+    (the skip set of both backward kernels); every block for 'full'."""
+    nk = s_pad // LANE
+    if mask_mode != "causal":
+        return nk
+    return max(hi - lo + 1 for lo, hi in (
+        _ref.kv_stripe_span(t0, _ref.TQ, block_kv=LANE, n_kv=nk,
+                            mask_mode=mask_mode, window=window)
+        for t0 in range(0, q_rows, _ref.TQ)))
+
+
+def dq_variant(q_rows: int, s_pad: int, mask_mode: str,
+               window: int = 0) -> str:
+    """Which dQ kernel a launch takes, from its shape, mask and window
+    alone: 'stash' (each product, SR hash and quantization once per score)
+    when every span fits the stash, else 'long' (four passes that
+    recompute the scores, for any span)."""
+    return "stash" if dq_span_blocks(q_rows, s_pad, mask_mode, window) \
+        <= STASH_BLOCKS else "long"
+
+
+def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None, **kw):
     """Kernel 1 of the backward on padded CUDA payloads (D = 128, S a
     multiple of 128): returns (dq (B,H,Q,D) f32, m, l, rd (B,H,Q) f32,
     amax_dp, amax_ds (B,H,ceil(Q/64)) f32 per q tile). `kw`: mask_mode,
-    window, q_len, s_len and the S/P/E format, rounding, saturate knobs."""
+    window, q_len, s_len and the S/P/E format, rounding, saturate knobs.
+    `variant` ('stash' / 'long') overrides `dq_variant`, for holding the
+    two variants against each other; both compute the same function."""
     iv, fv = _bwd_args(q8, k8, v8, do8, scal=scal, **kw)
     b_, h_, q_rows, d = q8.shape
+    if variant is None:
+        variant = dq_variant(q_rows, k8.shape[2],
+                             kw.get("mask_mode", "causal"),
+                             kw.get("window", 0))
     dev = q8.device
     dq = torch.empty((b_, h_, q_rows, d), dtype=torch.float32, device=dev)
     m, l, rd = (torch.empty((b_, h_, q_rows), dtype=torch.float32,
@@ -213,15 +252,18 @@ def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, **kw):
     amax_dp, amax_ds = (torch.empty((b_, h_, nq), dtype=torch.float32,
                                     device=dev) for _ in range(2))
     seed_t = seed_tensor(seed, dev)
-    fn = _build.load("fp8_attention_bwd").attn_bwd_dq_launch
+    lib = _build.load("fp8_attention_bwd")
+    fn = {"stash": lib.attn_bwd_dq_stash_launch,
+          "long": lib.attn_bwd_dq_launch}[variant]
     fn.argtypes = _BWD_DQ_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
              seed_t.data_ptr(), dq.data_ptr(), m.data_ptr(), l.data_ptr(),
              rd.data_ptr(), amax_dp.data_ptr(), amax_ds.data_ptr(), iv, fv,
              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fp8_attention_bwd_dq")
+    _build.check(err, f"fp8_attention_bwd_dq ({variant})")
     fp8_attention_bwd_dq.launches += 1
+    fp8_attention_bwd_dq.launches_by_variant[variant] += 1
     return dq, m, l, rd, amax_dp, amax_ds
 
 
@@ -246,6 +288,7 @@ def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, **kw):
 
 
 fp8_attention_bwd_dq.launches = 0
+fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
 fp8_attention_bwd_dkv.launches = 0
 
 
@@ -318,4 +361,5 @@ def reset_launches():
     """Set the launch counts of the three attention kernels to 0."""
     fp8_attention_fwd.launches = 0
     fp8_attention_bwd_dq.launches = 0
+    fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
     fp8_attention_bwd_dkv.launches = 0

@@ -183,3 +183,37 @@ def test_rejects_other_masks():
     do = q.to(torch.float8_e5m2)
     with pytest.raises(ValueError, match="causal/full"):
         tattn.fp8_attention_bwd(q, q, q, do, 0, [1.0] * 10, mask_mode="kv")
+
+
+# (Q = S padded to 128, mask, window, the most kv blocks a q tile spans,
+# the dQ kernel's variant): the stash holds STASH_BLOCKS = 4 blocks.
+VARIANT_CASES = [
+    (256, "causal", 0, 2, "stash"),
+    (512, "causal", 0, 4, "stash"),     # the training shape: at the cap
+    (640, "causal", 0, 5, "long"),      # one block past it
+    (2048, "causal", 0, 16, "long"),
+    (512, "full", 0, 4, "stash"),
+    (640, "full", 0, 5, "long"),
+    (1024, "full", 0, 8, "long"),
+    (2048, "full", 256, 16, "long"),    # the window binds causal only
+    (2048, "causal", 256, 3, "stash"),  # a window bounds the span
+    (2048, "causal", 385, 4, "stash"),
+    (2048, "causal", 386, 5, "long"),
+]
+
+
+@pytest.mark.parametrize("s,mask,window,blocks,variant", VARIANT_CASES,
+                         ids=[f"{m}-S{s}-w{w}" for s, m, w, _, _ in
+                              VARIANT_CASES])
+def test_dq_variant_from_shape_mask_and_window(s, mask, window, blocks,
+                                               variant):
+    """The host picks the dQ kernel's variant from the shape, mask and
+    window alone: the span is the reference's kv_stripe_span at the 128-row
+    query tiles (the backward's skip set), the stash variant up to its
+    cap."""
+    spans = [jattn_ref.kv_stripe_span(t0, 128, block_kv=128, n_kv=s // 128,
+                                      mask_mode=mask, window=window)
+             for t0 in range(0, s, 128)]
+    assert max(hi - lo + 1 for lo, hi in spans) == blocks
+    assert tattn.dq_span_blocks(s, s, mask, window) == blocks
+    assert tattn.dq_variant(s, s, mask, window) == variant

@@ -189,32 +189,38 @@ def _bwd_case(kind, group, fmt_a, fmt_e, gen, s=200, d=64):
                          ids=["hybrid", "paper"])
 @pytest.mark.parametrize("rounding", ["rne", "sr"])
 @pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("s, variant", [(200, "stash"), (700, "long")],
+                         ids=["stash", "long"])
 def test_attention_bwd_kernels_match_plain(card, kind, mask, recipe,
-                                           rounding, group):
+                                           rounding, group, s, variant):
     """The dQ and dK/dV kernels against the plain backward run on the card,
     bit for bit on the exact fixtures: dq, dk, dv, the amaxes, and the dQ
-    kernel's row statistics; each kernel launches once."""
+    kernel's row statistics; each kernel launches once, the dQ kernel on
+    the variant the span selects (ragged lengths: 200 pads to 2 kv blocks,
+    within the stash's cap; 700 to 6, past it)."""
     from repro_torch.kernels.fp8_attention import ref
     gen = torch.Generator().manual_seed(6)
     fa, fe = recipe
     q, k, v, do, scal = (x.to(card) if isinstance(x, torch.Tensor) else x
-                         for x in _bwd_case(kind, group, fa, fe, gen))
+                         for x in _bwd_case(kind, group, fa, fe, gen, s=s))
     kw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, fmt_e=fe,
               rounding_s=rounding, rounding_p=rounding, rounding_e=rounding)
     n_dq = attn.fp8_attention_bwd_dq.launches
+    n_var = attn.fp8_attention_bwd_dq.launches_by_variant[variant]
     n_dkv = attn.fp8_attention_bwd_dkv.launches
     got = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
     want = ref.fp8_attention_bwd_ref(q, k, v, do, 9, scal, with_stats=True,
                                      **kw)
     torch.cuda.synchronize()
     assert attn.fp8_attention_bwd_dq.launches == n_dq + 1
+    assert attn.fp8_attention_bwd_dq.launches_by_variant[variant] == n_var + 1
     assert attn.fp8_attention_bwd_dkv.launches == n_dkv + 1
     for x, y in zip(got, want[:5]):
         assert torch.equal(x, y)
     pad = torch.nn.functional.pad
     qp, dop = (pad(x.view(torch.uint8), (0, 64)).view(x.dtype)
                for x in (q, do))
-    kp, vp = (pad(x.view(torch.uint8), (0, 64, 0, 56)).view(x.dtype)
+    kp, vp = (pad(x.view(torch.uint8), (0, 64, 0, -s % 128)).view(x.dtype)
               for x in (k, v))
     stats = attn.fp8_attention_bwd_dq(qp, kp, vp, dop, 9, scal,
                                       q_len=q.shape[2], s_len=k.shape[2],
