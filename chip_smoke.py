@@ -37,15 +37,18 @@ Phases, each of which raises on failure (there is no CPU fallback):
      versions on the card and, all-RNE, on the CPU, with a planted fault
      in the unfused GEMM kernel.
 Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
-against their plain versions and times them, and holds both variants of
+against their plain versions and times them, holds the GEMM in every
+layout at ragged shapes that take each of its two tile widths (128x128,
+128x256; the host picks one from the shape), and holds both variants of
 the attention backward's dQ kernel (the stash variant for kv spans of up
 to 512 columns, the four-pass one past them) against the plain version
-and against each other. The start of the run prints the stash variant's
-shared memory, registers, spills and blocks per SM. The line before the
-last is a JSON object with one entry per kernel (kernel 3's with its two
-variants; launches: the fused GEMM's and the attention kernels' from
-phase 6, the unfused GEMM's from phase 8, the stochastic-rounding
-kernels' from the op's path); the last line is
+and against each other. The start of the run prints the shared memory,
+registers, spills and blocks per SM of the dQ stash variant and of every
+GEMM variant. The line before the last is a JSON object with one entry
+per kernel (kernel 3's with its two variants, the GEMM's and kernel 5's
+with their tile widths; launches: the fused GEMM's and the attention
+kernels' from phase 6, the unfused GEMM's from phase 8, the
+stochastic-rounding kernels' from the op's path); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
@@ -158,6 +161,21 @@ def neighbour_flips(a, b, fmt):
     zeros = (a.float().abs() <= tiny) & (b.float().abs() <= tiny)
     ok = ~diff | near | zeros
     return diff.float().mean().item(), bool(ok.all())
+
+
+def gemm_variant_info(lib):
+    """Each GEMM variant's dynamic shared memory, registers, local (spill)
+    bytes a thread and resident blocks per SM (fqmm_variant_info), beside
+    the blocks per SM its tile is built for."""
+    from repro_torch.kernels.fused_quant_matmul import ops as fq
+    info, out = (ctypes.c_int * 4)(), []
+    for v, (epi, dims, bn) in enumerate(fq.GEMM_VARIANTS):
+        err = lib.fqmm_variant_info(v, info)
+        out.append(dict(name=f"{epi} {dims} 128x{bn}", out=epi, dims=dims,
+                        bn=bn, smem=info[0], registers=info[1],
+                        spill_bytes=info[2], blocks_per_sm=info[3],
+                        blocks_wanted=2 if bn == 128 else 1, error=err))
+    return out
 
 
 def check_gemm(dev):
@@ -537,6 +555,13 @@ def serve_full(dev, cfg, params, frozen):
     return launches, st, n_tok / wall
 
 
+# The GEMM wrappers' profiler ranges. A trace also holds them as device
+# events (user annotations spanning the ranges' kernels), which the
+# profiles keep out of their kernel lists and device totals.
+WRAPPER_RANGES = ("fp8_matmul", "fused_quant_matmul.nn",
+                  "fused_quant_matmul.nt", "fused_quant_matmul.tn")
+
+
 def profile_serving(eng, cfg):
     """Device time against wall time over the serving steps of 4 more
     requests (64-token prompts, 4 new tokens), traced by torch.profiler
@@ -560,7 +585,8 @@ def profile_serving(eng, cfg):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.key not in WRAPPER_RANGES]
     except Exception as e:  # noqa: BLE001 — a measurement, reported
         log(f"profile: not measured ({type(e).__name__}: {e})")
         return
@@ -748,50 +774,115 @@ def train_gemm_cases():
     return out
 
 
+def check_gemm_case(fq, fq_ref, a, b, dims, out_fmt, saturate, exact, gen,
+                    dev, roundings=("rne", "sr")):
+    """One GEMM case against the plain version on the card, RNE and SR, at a
+    power-of-two scale that puts the largest outputs just past the output
+    format's ceiling (saturating) or just below it (not saturating): payload
+    bitwise and amax and counts equal on exact inputs; on general inputs at
+    most 1e-3 of the payloads flipped, each to a grid neighbour, and the
+    amax equal. Returns (cases, worst flip rate, tile widths launched)."""
+    import torch
+    from repro_torch.core.fp8_formats import get_format
+    m, n, k = fq_ref.gemm_shape(a.shape, b.shape, dims)
+    rand8 = torch.randint(0, 256, (m, n), dtype=torch.uint8, generator=gen,
+                          device=dev)
+    acc = fq_ref.dot_f32(a, b, dims).abs().max().item()
+    top = get_format(out_fmt).max_normal * (1.3 if saturate else 0.7)
+    scale = 2.0 ** round(math.log2(max(acc, 1e-30) / top))
+    worst, tiles = 0.0, set()
+    for rounding in roundings:
+        kw = dict(dims=dims, out_format=out_fmt, rounding=rounding,
+                  saturate=saturate, rand8=rand8, with_amax=True,
+                  with_counts=True)
+        before = dict(fq.fused_quant_matmul.launches_by_tile)
+        qk, ak, hk = fq.fused_quant_matmul(a, b, scale, **kw)
+        qp, ap, cp = fq_ref.fused_quant_matmul_ref(
+            a, b, rand8 if rounding == "sr" else None, scale, dims=dims,
+            out_format=out_fmt, rounding=rounding, saturate=saturate)
+        torch.cuda.synchronize()
+        tiles |= {bn for bn, v in fq.fused_quant_matmul.launches_by_tile.items()
+                  if v != before[bn]}
+        tag = (f"gemm {dims} m={m} n={n} k={k} {out_fmt} {rounding} "
+               f"sat={saturate} exact={exact}")
+        same_amax = torch.equal(ak, ap) or (
+            ak.isnan().item() and ap.isnan().item())
+        if exact:
+            counts = cp / torch.tensor(float(m * n), device=dev)
+            if not (torch.equal(canon(qk), canon(qp)) and same_amax
+                    and torch.equal(hk, counts)):
+                raise AssertionError(f"{tag}: not bitwise")
+        else:
+            rate, near = neighbour_flips(qk, qp, out_fmt)
+            worst = max(worst, rate)
+            if rate > 1e-3 or not near or not same_amax:
+                raise AssertionError(f"{tag}: flip rate {rate:.2e} "
+                                     f"neighbours={near} amax {ak.item()} "
+                                     f"vs {ap.item()}")
+    return len(roundings), worst, tiles
+
+
 def check_gemm_train(dev):
-    """The dgrad ('nt') and wgrad ('tn') GEMMs at the training shapes with
-    the recipe's formats (e5m2 output, not saturating), RNE and SR: bitwise
-    on exact inputs, the flip-rate bound on general ones."""
+    """Every GEMM of the training step at its training shape with the
+    recipe's formats (forward 'nn': e4m3 output, saturating; dgrad 'nt'
+    and wgrad 'tn': e5m2, not saturating), RNE and SR: bitwise on exact
+    inputs, the flip-rate bound on general ones."""
     import torch
     from repro_torch.kernels.fused_quant_matmul import ops as fq
     from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
     gen = torch.Generator(device=dev).manual_seed(4)
     n_cases = worst = 0
+    tiles = {d: set() for d in fq_ref.DIMS}
     for dims, sa, sb, fa, fb in train_gemm_cases():
-        if dims == "nn":
-            continue
         for exact in (True, False):
             a = fp8_tensor(sa, fa, gen, dev, exact)
             b = fp8_tensor(sb, fb, gen, dev, exact)
-            m, n, _ = fq_ref.gemm_shape(a.shape, b.shape, dims)
-            rand8 = torch.randint(0, 256, (m, n), dtype=torch.uint8,
-                                  generator=gen, device=dev)
-            acc = fq_ref.dot_f32(a, b, dims).abs().max().item()
-            scale = 2.0 ** round(math.log2(max(acc, 1e-30) / 40000.0))
-            for rounding in ("rne", "sr"):
-                kw = dict(dims=dims, out_format="e5m2", rounding=rounding,
-                          saturate=False, rand8=rand8, with_amax=True)
-                qk, ak = fq.fused_quant_matmul(a, b, scale, **kw)
-                qp, ap, _ = fq_ref.fused_quant_matmul_ref(
-                    a, b, rand8 if rounding == "sr" else None, scale,
-                    dims=dims, out_format="e5m2", rounding=rounding,
-                    saturate=False)
-                torch.cuda.synchronize()
-                tag = f"gemm {dims} a{sa} b{sb} {rounding} exact={exact}"
-                same_amax = torch.equal(ak, ap) or (
-                    ak.isnan().item() and ap.isnan().item())
-                if exact:
-                    if not (torch.equal(canon(qk), canon(qp)) and same_amax):
-                        raise AssertionError(f"{tag}: not bitwise")
-                else:
-                    rate, near = neighbour_flips(qk, qp, "e5m2")
-                    worst = max(worst, rate)
-                    if rate > 1e-3 or not near or not same_amax:
-                        raise AssertionError(f"{tag}: flip rate {rate:.2e} "
-                                             f"neighbours={near}")
-                n_cases += 1
-    log(f"gemm (training shapes, nt/tn): {n_cases} cases match the plain "
-        f"version (bitwise on exact inputs; worst flip rate {worst:.2e})")
+            nn = dims == "nn"
+            c, w, t = check_gemm_case(fq, fq_ref, a, b, dims,
+                                      "e4m3" if nn else "e5m2", nn, exact,
+                                      gen, dev)
+            n_cases, worst = n_cases + c, max(worst, w)
+            tiles[dims] |= t
+    log(f"gemm (training shapes, nn/nt/tn): {n_cases} cases match the plain "
+        f"version (bitwise on exact inputs; worst flip rate {worst:.2e}); "
+        f"tile widths launched by layout {tiles}")
+
+
+# Ragged shapes (M, N, K; none a multiple of 128), one for each tile width
+# the host picks: gemm_tile(1000, 1400, 1000) = 128, gemm_tile(2000, 1500,
+# 4100) = 256.
+GEMM_RAGGED = ((1000, 1400, 1000), (2000, 1500, 4100))
+
+
+def check_gemm_ragged(dev):
+    """Each layout at each ragged shape of GEMM_RAGGED, both formats: exact
+    inputs with RNE and SR, saturating and not, bitwise; general inputs
+    within the flip-rate bound. Every layout must have launched both tile
+    widths."""
+    import torch
+    from repro_torch.kernels.fused_quant_matmul import ops as fq
+    from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n_cases = worst = 0
+    tiles = {d: set() for d in fq_ref.DIMS}
+    for m, n, k in GEMM_RAGGED:
+        for fmt in ("e4m3", "e5m2"):
+            for exact in (True, False):
+                x = fp8_tensor((m, k), fmt, gen, dev, exact)
+                w = fp8_tensor((k, n), fmt, gen, dev, exact)
+                operands = {"nn": (x, w), "nt": (x, w.t().contiguous()),
+                            "tn": (x.t().contiguous(), w)}
+                for dims, (a, b) in operands.items():
+                    for sat in ((True, False) if exact else (fmt == "e4m3",)):
+                        c, wr, t = check_gemm_case(fq, fq_ref, a, b, dims, fmt,
+                                                   sat, exact, gen, dev)
+                        n_cases, worst = n_cases + c, max(worst, wr)
+                        tiles[dims] |= t
+    if any(t != set(fq.TILE_WIDTHS) for t in tiles.values()):
+        raise AssertionError(f"tile widths launched by layout {tiles}")
+    log(f"gemm (ragged shapes {GEMM_RAGGED}): {n_cases} cases match the "
+        f"plain version (bitwise on exact inputs; worst flip rate "
+        f"{worst:.2e}); tile widths launched by layout {tiles}")
 
 
 def time_gemm_train(dev):
@@ -829,12 +920,13 @@ def time_gemm_train(dev):
         err = (qk.float() - qp.float()).abs().max().item()
         b_ms, b_by = bound(m * c + c * n + 2 * m * n, 2.0 * m * n * c,
                            FP8_OPS_PER_S)
-        log(f"gemm time {dims} M={m} C={c} N={n}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, _scaled_mm {lib:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), max_abs_err {err} [{CARD}]")
-        rows.append(dict(dims=dims, m=m, c=c, n=n, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=err))
+        tile = fq.gemm_tile(m, n, c)
+        log(f"gemm time {dims} M={m} C={c} N={n} (128x{tile} tiles): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, _scaled_mm {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err} [{CARD}]")
+        rows.append(dict(dims=dims, m=m, c=c, n=n, tile=tile, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err))
     return rows
 
 
@@ -1163,16 +1255,20 @@ SR_SPECIAL = (float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-40,
 
 def check_fp8_matmul(dev):
     """Kernel 5 against its plain version on the card at the forward
-    training shapes (M = B x S rows, the four projection kinds), paper
-    (e5m2 x e5m2) and mixed (e4m3 x e5m2) operands: bitwise on exact inputs
-    for f32 and bf16 output, within rtol 1e-5 / atol 1e-4 (the reference's
-    own tolerance) on general inputs with f32 output."""
+    training shapes (M = B x S rows, the four projection kinds) and the
+    ragged shapes of GEMM_RAGGED (both tile widths), paper (e5m2 x e5m2)
+    and mixed (e4m3 x e5m2) operands: bitwise on exact inputs for f32 and
+    bf16 output, within rtol 1e-5 / atol 1e-4 (the reference's own
+    tolerance) on general inputs with f32 output."""
     import torch
     from repro_torch.kernels.fp8_matmul import ops as mm
     from repro_torch.kernels.fp8_matmul import ref as mm_ref
     gen = torch.Generator(device=dev).manual_seed(12)
-    m, n_cases, worst = TRAIN_B * TRAIN_S, 0, 0.0
-    for k, n in PROJ:
+    n_cases, worst = 0, 0.0
+    shapes = ([(TRAIN_B * TRAIN_S, k, n) for k, n in PROJ]
+              + [(m, k, n) for m, n, k in GEMM_RAGGED])
+    before = dict(mm.fp8_matmul.launches_by_tile)
+    for m, k, n in shapes:
         for fa, fb in (("e5m2", "e5m2"), ("e4m3", "e5m2")):
             for exact in (True, False):
                 a = fp8_tensor((m, k), fa, gen, dev, exact)
@@ -1193,8 +1289,13 @@ def check_fp8_matmul(dev):
                             raise AssertionError(f"{tag}: beyond rtol 1e-5 "
                                                  "atol 1e-4")
                     n_cases += 1
+    tiles = {bn: v - before[bn]
+             for bn, v in mm.fp8_matmul.launches_by_tile.items()}
+    if not all(tiles.values()):
+        raise AssertionError(f"fp8_matmul launches by tile width {tiles}")
     log(f"fp8_matmul: {n_cases} cases match the plain version (bitwise on "
-        f"exact inputs; max abs diff {worst:.3e} on general inputs)")
+        f"exact inputs; max abs diff {worst:.3e} on general inputs); "
+        f"launches by tile width {tiles}")
 
 
 def time_fp8_matmul(dev):
@@ -1206,6 +1307,7 @@ def time_fp8_matmul(dev):
     import torch
     from repro_torch.kernels.fp8_matmul import ops as mm
     from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    from repro_torch.kernels.fused_quant_matmul import ops as fq
     gen = torch.Generator(device=dev).manual_seed(13)
     m, rows = TRAIN_B * TRAIN_S, []
     for k, n in PROJ:
@@ -1224,14 +1326,16 @@ def time_fp8_matmul(dev):
                ).abs().max().item()
         b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * n * k,
                            FP8_OPS_PER_S)
-        log(f"fp8_matmul time M={m} K={k} N={n} e5m2xe5m2 f32 out: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul(bf16) "
+        tile = fq.gemm_tile(m, n, k)
+        log(f"fp8_matmul time M={m} K={k} N={n} (128x{tile} tiles) e5m2xe5m2 "
+            f"f32 out: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"torch.matmul(bf16) "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}; "
             f"_scaled_mm (no e5m2 x e5m2: e4m3 x e5m2 yardstick) {smm:.4f} "
             f"ms [{CARD}]")
-        rows.append(dict(k=k, n=n, ms=ms, plain_ms=plain, library_ms=lib,
-                         scaled_mm_ms=smm, bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=err))
+        rows.append(dict(k=k, n=n, tile=tile, ms=ms, plain_ms=plain,
+                         library_ms=lib, scaled_mm_ms=smm, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err))
     return rows
 
 
@@ -1329,6 +1433,12 @@ STEP_LAUNCHES = {"fused_quant_matmul.nn": 196, "fused_quant_matmul.nt": 196,
 # kernel 5; the adjoint GEMMs, attention and the 16-bit head are plain.
 PAPER_STEP_LAUNCHES = {k: 0 for k in STEP_LAUNCHES}
 PAPER_STEP_LAUNCHES["fp8_matmul"] = 196
+# The GEMM's launches per step by tile width (gemm_tile): per layer the
+# forward 'down' GEMM (M=2048, N=1536, K=8960) and the 'up' / 'gate' dgrad
+# (N=1536, K=8960) take 128x256 tiles, the other 18 GEMMs 128x128; the
+# paper step's kernel 5 runs the forward ones only.
+STEP_TILE_LAUNCHES = {128: 18 * 28, 256: 3 * 28}
+PAPER_STEP_TILE_LAUNCHES = {128: 6 * 28, 256: 1 * 28}
 # Training-step parity (2 layers at full width, B=2, S=256): rel L2 of the
 # gradients of all leaves together, kernels vs plain versions on the card
 # (same generator seeds, SR recipe) and card vs CPU (all-RNE variant). Read
@@ -1387,6 +1497,7 @@ def train_full(dev):
     from repro_torch.core.loss_scale import LossScaler
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
     from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fused_quant_matmul import ops as fq
     from repro_torch.models.transformer import init_lm
     from repro_torch.scaling.calibrate import discover_lm_sites
     from repro_torch.scaling.state import DelayedScaling
@@ -1441,6 +1552,10 @@ def train_full(dev):
     want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    tiles = dict(fq.fused_quant_matmul.launches_by_tile)
+    log(f"train: GEMM launches by tile width {tiles}")
+    if tiles != {k: v * TRAIN_STEPS for k, v in STEP_TILE_LAUNCHES.items()}:
+        raise AssertionError(f"GEMM launches by tile width {tiles}")
     # S=512 causal: every dQ launch takes the stash variant.
     variants = dict(at.fp8_attention_bwd_dq.launches_by_variant)
     log(f"train: dQ kernel launches by variant {variants}")
@@ -1454,7 +1569,7 @@ def train_full(dev):
     prof = profile_train(one, batches[TRAIN_STEPS:])
     return dict(launches=launches, p50_ms=p50, tokens_s=tok_s,
                 peak_gib=peak, losses=losses, profile=prof,
-                dq_variants=variants)
+                dq_variants=variants, gemm_tiles=tiles)
 
 
 def profile_train(one_step, batches):
@@ -1478,7 +1593,8 @@ def profile_train(one_step, batches):
         return None
     n = len(batches)
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in WRAPPER_RANGES]
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us <= 0:
         log("train profile: not measured (the trace holds no device time)")
@@ -1698,6 +1814,7 @@ def train_paper(dev):
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels.fp8_matmul import ops as mm
     from repro_torch.models.transformer import init_lm
     from repro_torch.train.step import make_train_step
     cfg = paper_cfg()
@@ -1740,6 +1857,11 @@ def train_paper(dev):
     want = {k: v * TRAIN_STEPS for k, v in PAPER_STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    tiles = dict(mm.fp8_matmul.launches_by_tile)
+    log(f"paper train: kernel-5 launches by tile width {tiles}")
+    if tiles != {k: v * TRAIN_STEPS
+                 for k, v in PAPER_STEP_TILE_LAUNCHES.items()}:
+        raise AssertionError(f"kernel-5 launches by tile width {tiles}")
     box = [state]
 
     def one(b):
@@ -1747,7 +1869,8 @@ def train_paper(dev):
     prof = profile_train(one, batches[TRAIN_STEPS:])
     sr_path = sr_weights(dev, box[0], opt)
     return dict(launches=launches, p50_ms=p50, tokens_s=tok_s,
-                peak_gib=peak, losses=losses, profile=prof, sr_path=sr_path)
+                peak_gib=peak, losses=losses, profile=prof, sr_path=sr_path,
+                gemm_tiles=tiles)
 
 
 def sr_weights(dev, state, opt):
@@ -1932,6 +2055,16 @@ def main() -> int:
     if err or info[3] < 2:
         failures.append(f"dQ stash variant: cudaError {err}, {info[3]} "
                         "blocks per SM (2 expected)")
+    gemm_info = gemm_variant_info(kbuild.load("fused_quant_matmul"))
+    for v in gemm_info:
+        log(f"fused_quant_matmul variant {v['name']}: {v['smem']} bytes of "
+            f"dynamic shared memory, {v['registers']} registers and "
+            f"{v['spill_bytes']} local (spill) bytes a thread, "
+            f"{v['blocks_per_sm']} blocks per SM (cudaError {v['error']})")
+        if v["error"] or v["blocks_per_sm"] < v["blocks_wanted"]:
+            failures.append(f"GEMM variant {v['name']}: cudaError "
+                            f"{v['error']}, {v['blocks_per_sm']} blocks per "
+                            f"SM ({v['blocks_wanted']} expected)")
 
     def phase(fn, *args):
         t_p = time.perf_counter()
@@ -1947,6 +2080,7 @@ def main() -> int:
     phase(check_gemm, dev)
     phase(time_gemm, dev)
     phase(check_gemm_train, dev)
+    phase(check_gemm_ragged, dev)
     gemm_rows = phase(time_gemm_train, dev)
     phase(check_fp8_matmul, dev)
     mm_rows = phase(time_fp8_matmul, dev)
@@ -2016,6 +2150,28 @@ def main() -> int:
                for name, source, rep, n, row in entries]
     # Kernel 3's two variants: the stash one at the training shape (phase
     # 6's launches), the long-span one where the host selects it.
+    # The GEMM's tile widths: launches from phase 6 (kernel 1) and phase 8
+    # (kernel 5); times at the largest forward ('nn') training shape that
+    # takes each width; each layout's build of it.
+    for i, trn, rows, out in ((0, trained, gemm_rows, "fp8"),
+                              (4, paper, mm_rows, "f32")):
+        kernels[i]["variants"] = []
+        for bn in (128, 256):
+            row = max((r for r in rows
+                       if r["tile"] == bn and r.get("dims", "nn") == "nn"),
+                      key=lambda r: r["n"] * r.get("c", r.get("k")))
+            kernels[i]["variants"].append(dict(
+                name=f"128x{bn}", symbol=f"fqmm_kernel<*, *, *, {bn}>",
+                launches=trn["gemm_tiles"][bn],
+                shape=f"nn M={TRAIN_B * TRAIN_S} "
+                      f"K={row['c'] if 'c' in row else row['k']} N={row['n']}",
+                builds=[dict(layout=v["dims"], smem=v["smem"],
+                             registers=v["registers"],
+                             spill_bytes=v["spill_bytes"],
+                             blocks_per_sm=v["blocks_per_sm"])
+                        for v in gemm_info if v["out"] == out
+                        and v["bn"] == bn],
+                **{k: row[k] for k in keys}))
     kernels[2]["variants"] = [
         dict(name="stash", symbol="attn_bwd_dq_kernel_stash",
              launches=trained["dq_variants"]["stash"],

@@ -9,8 +9,10 @@ csrc/fused_quant_matmul.cu, entry `fp8mm_launch`) or raise — there is no
 fallback. `fp8_matmul.launches` counts kernel launches.
 
 Like the reference's `_pad_to`, the wrapper zero-pads the operands to the
-kernel's 64x64x64 tile (zero padding is exact for a matmul) and slices the
-result back.
+kernel's tile (M to 128, K to 64, N to the tile width that
+`fused_quant_matmul.ops.gemm_tile` picks from the shape; zero padding is
+exact for a matmul) and slices the result back.
+`fp8_matmul.launches_by_tile` counts launches per tile width.
 """
 from __future__ import annotations
 
@@ -21,18 +23,21 @@ import torch
 from repro_torch.core.fp8_formats import FP8_DTYPES, format_of_dtype
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fp8_matmul import ref as _ref
-from repro_torch.kernels.fused_quant_matmul.ops import TILE, _pad2, aligned
+from repro_torch.kernels.fused_quant_matmul.ops import (
+    BK, BM, TILE_WIDTHS, _pad2, aligned, gemm_tile, operand_pads)
 
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[1]
-    if m % TILE or n % TILE or k % TILE:
-        raise ValueError(f"kernel dims must be multiples of {TILE}: {m, k, n}")
+    bn = gemm_tile(m, n, k)
+    if m % BM or n % bn or k % BK:
+        raise ValueError(f"kernel dims must be multiples of ({BM}, {BK}, "
+                         f"{bn}): {m, k, n}")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     fn = _build.load("fused_quant_matmul").fp8mm_launch
     fn.argtypes = _ARGTYPES
@@ -43,10 +48,11 @@ def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
                  _FMT_ID[format_of_dtype(a.dtype).name],
                  _FMT_ID[format_of_dtype(b.dtype).name],
-                 int(out_dtype == torch.bfloat16),
+                 int(out_dtype == torch.bfloat16), bn,
                  torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "fp8_matmul")
     fp8_matmul.launches += 1
+    fp8_matmul.launches_by_tile[bn] += 1
     return out
 
 
@@ -66,14 +72,17 @@ def fp8_matmul(a: torch.Tensor, b: torch.Tensor,
         return _ref.fp8_matmul_ref(a, b, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"fp8_matmul: unsupported device {a.device}")
-    m, n = a.shape[0], b.shape[1]
-    out = _launch(aligned(_pad2(a, TILE, TILE)), aligned(_pad2(b, TILE, TILE)),
-                  out_dtype)
+    (m, k), n = a.shape, b.shape[1]
+    pa, pb, _ = operand_pads("nn", gemm_tile(m, n, k))
+    out = _launch(aligned(_pad2(a, *pa)), aligned(_pad2(b, *pb)), out_dtype)
     return out if out.shape == (m, n) else out[:m, :n].contiguous()
 
 
 fp8_matmul.launches = 0
+fp8_matmul.launches_by_tile = {bn: 0 for bn in TILE_WIDTHS}
 
 
 def reset_launches():
     fp8_matmul.launches = 0
+    for bn in fp8_matmul.launches_by_tile:
+        fp8_matmul.launches_by_tile[bn] = 0

@@ -10,10 +10,12 @@ the hand-written Hopper kernel (csrc/fused_quant_matmul.cu) or raise —
 there is no fallback. `fused_quant_matmul.launches` counts kernel launches,
 and `fused_quant_matmul.launches_by_dims` counts them per layout.
 
-Padding contract: the kernel takes dims that are multiples of its 64x64x64
-tile; the wrapper zero-pads other shapes (operands and SR bits), the
-epilogue masks the amax / counts to the logical (m, n), and the padded
-region is sliced off — so results are invariant to the padding.
+Padding contract: the kernel takes M a multiple of 128, N a multiple of
+its tile width (128 or 256, picked by `gemm_tile` from the shape alone) and
+K a multiple of 64; the wrapper zero-pads other shapes (operands and SR
+bits), the epilogue masks the amax / counts to the logical (m, n), and the
+padded region is sliced off — so results are invariant to the padding.
+`fused_quant_matmul.launches_by_tile` counts launches per tile width.
 """
 from __future__ import annotations
 
@@ -28,11 +30,41 @@ from repro_torch.core.fp8_formats import FP8_DTYPES, format_of_dtype, get_format
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fused_quant_matmul import ref as _ref
 
-TILE = 64
+BM, BK = 128, 64          # the kernel's tile rows and k-step
+TILE_WIDTHS = (128, 256)  # its tile widths (columns), one variant each
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+# The kernel's variants, in the order of csrc's fqmm_variant_info:
+# (epilogue, layout, tile width).
+GEMM_VARIANTS = tuple((out, dims, bn)
+                      for out, layouts in (("fp8", ("nn", "nt", "tn")),
+                                           ("f32", ("nn",)), ("bf16", ("nn",)))
+                      for dims in layouts for bn in TILE_WIDTHS)
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def gemm_tile(m: int, n: int, k: int) -> int:
+    """Tile width of the GEMM kernel for an (m, n) output and depth k.
+
+    128x128 tiles run two to an SM, so one tile's epilogue overlaps the
+    other's mainloop; 128x256 tiles run one to an SM and move fewer bytes a
+    product. 256 wins only where its grid fits the SMs in one wave while
+    the 128-wide grid overloads them, and k is deep enough (4096 or more)
+    that the epilogue is a small share. Unchanged by the padding it implies.
+    """
+    rows, kp = -(-m // BM), -(-k // BK) * BK
+    one_wave = rows * -(-n // 256) <= SMS < rows * -(-n // 128)
+    return 256 if one_wave and kp >= 4096 else 128
+
+
+def operand_pads(dims: str, bn: int):
+    """(rows, cols) multiples that A, B and the (m, n) SR bits are padded
+    to, for layout `dims` and tile width `bn`."""
+    a = (BK, BM) if dims == "tn" else (BM, BK)
+    b = (bn, BK) if dims == "nt" else (BK, bn)
+    return a, b, (BM, bn)
 
 
 def _pad2(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
@@ -56,11 +88,13 @@ def _launch(a, b, rand8, scale, *, dims, out_format, rounding, saturate,
     """Run the CUDA kernel on tile-aligned operands; returns (out, per-tile
     amax, per-tile saturated counts, per-tile flushed counts)."""
     m, n, k = _ref.gemm_shape(a.shape, b.shape, dims)
-    if m % TILE or n % TILE or k % TILE:
-        raise ValueError(f"kernel dims must be multiples of {TILE}: {m, n, k}")
+    bn = gemm_tile(m, n, k)
+    if m % BM or n % bn or k % BK:
+        raise ValueError(f"kernel dims must be multiples of ({BM}, {bn}, "
+                         f"{BK}): {m, n, k}")
     dev = a.device
     out = torch.empty((m, n), dtype=get_format(out_format).dtype, device=dev)
-    gm, gn = m // TILE, n // TILE
+    gm, gn = m // BM, n // bn
     amax = torch.empty((gm, gn), dtype=torch.float32, device=dev)
     sat = torch.empty((gm, gn), dtype=torch.float32, device=dev)
     flush = torch.empty((gm, gn), dtype=torch.float32, device=dev)
@@ -87,11 +121,12 @@ def _launch(a, b, rand8, scale, *, dims, out_format, rounding, saturate,
                  _FMT_ID[format_of_dtype(a.dtype).name],
                  _FMT_ID[format_of_dtype(b.dtype).name], _FMT_ID[out_format],
                  int(rounding == "sr"), int(saturate),
-                 float(np.float32(scale)), lm, ln, int(with_counts),
+                 float(np.float32(scale)), lm, ln, int(with_counts), bn,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_quant_matmul")
     fused_quant_matmul.launches += 1
     fused_quant_matmul.launches_by_dims[dims] += 1
+    fused_quant_matmul.launches_by_tile[bn] += 1
     return out, amax, sat, flush
 
 
@@ -118,7 +153,7 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor, scale=1.0, *,
         raise ValueError(f"operands on {a.device} and {b.device}")
     if with_counts and not with_amax:
         raise ValueError("with_counts requires with_amax")
-    m, n, _ = _ref.gemm_shape(a.shape, b.shape, dims)
+    m, n, k = _ref.gemm_shape(a.shape, b.shape, dims)
     if rounding == "sr":
         if rand8 is None:
             rand8 = torch.randint(0, 256, (m, n), dtype=torch.uint8,
@@ -135,9 +170,10 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor, scale=1.0, *,
             a, b, rand8, scale, dims=dims, out_format=out_format,
             rounding=rounding, saturate=saturate)
     elif dev == "cuda":
-        ap = aligned(_pad2(a, TILE, TILE))
-        bp = aligned(_pad2(b, TILE, TILE))
-        rp = None if rand8 is None else aligned(_pad2(rand8, TILE, TILE))
+        pa, pb, pr = operand_pads(dims, gemm_tile(m, n, k))
+        ap = aligned(_pad2(a, *pa))
+        bp = aligned(_pad2(b, *pb))
+        rp = None if rand8 is None else aligned(_pad2(rand8, *pr))
         out, t_amax, t_sat, t_flush = _launch(
             ap, bp, rp, scale, dims=dims, out_format=out_format,
             rounding=rounding, saturate=saturate, lm=m, ln=n,
@@ -162,10 +198,13 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor, scale=1.0, *,
 
 fused_quant_matmul.launches = 0
 fused_quant_matmul.launches_by_dims = {d: 0 for d in _ref.DIMS}
+fused_quant_matmul.launches_by_tile = {bn: 0 for bn in TILE_WIDTHS}
 
 
 def reset_launches():
     """Set every launch count of the GEMM kernel to 0."""
     fused_quant_matmul.launches = 0
-    for d in fused_quant_matmul.launches_by_dims:
-        fused_quant_matmul.launches_by_dims[d] = 0
+    for counts in (fused_quant_matmul.launches_by_dims,
+                   fused_quant_matmul.launches_by_tile):
+        for key in counts:
+            counts[key] = 0

@@ -48,12 +48,21 @@ def canon(q):
     return u
 
 
+# (M, K, N) of the GEMM kernel's cases: ragged shapes the wrapper pads
+# (128x128 tiles; 128x256 tiles for the last), and the serving path's M=128.
+GEMM_CASES = [(100, 200, 72), (128, 1536, 1536), (2000, 4100, 1500)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", GEMM_CASES,
+                         ids=["x".join(map(str, c)) for c in GEMM_CASES])
 @pytest.mark.parametrize("dims", ["nn", "nt", "tn"])
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
-def test_gemm_kernel_matches_plain(card, dims, fmt):
+def test_gemm_kernel_matches_plain(card, dims, fmt, shape):
     gen = torch.Generator().manual_seed(7)
-    m, k, n = 100, 200, 72          # padded to the 64-tiles by the wrapper
+    m, k, n = shape
+    scale = 0.125 if k <= 256 else 8.0   # keeps most outputs in range
+    tile = fq.gemm_tile(m, n, k)
     a, w = exact_fp8((m, k), fmt, gen), exact_fp8((k, n), fmt, gen)
     if dims == "nt":
         w = w.t().contiguous()
@@ -64,12 +73,14 @@ def test_gemm_kernel_matches_plain(card, dims, fmt):
                                ("sr", False)):
         kw = dict(dims=dims, out_format=fmt, rounding=rounding,
                   saturate=saturate, with_amax=True, with_counts=True)
-        cpu = fq.fused_quant_matmul(a, w, 0.125, rand8=rand8, **kw)
+        cpu = fq.fused_quant_matmul(a, w, scale, rand8=rand8, **kw)
         launches = fq.fused_quant_matmul.launches
-        gpu = fq.fused_quant_matmul(a.to(card), w.to(card), 0.125,
+        by_tile = fq.fused_quant_matmul.launches_by_tile[tile]
+        gpu = fq.fused_quant_matmul(a.to(card), w.to(card), scale,
                                     rand8=rand8.to(card), **kw)
         torch.cuda.synchronize()
         assert fq.fused_quant_matmul.launches == launches + 1
+        assert fq.fused_quant_matmul.launches_by_tile[tile] == by_tile + 1
         assert torch.equal(canon(cpu[0]), canon(gpu[0].cpu()))
         assert torch.equal(cpu[1], gpu[1].cpu()) or (
             cpu[1].isnan() and gpu[1].isnan().cpu())
@@ -238,10 +249,12 @@ def test_attention_bwd_rejects_other_masks(card):
 
 
 # (K, N) of the forward projection GEMMs of qwen2-1.5b (wq / wo, wk / wv,
-# up / gate, down) at M = 2048 rows (B=4 x S=512), and a ragged shape that
-# the wrapper pads.
+# up / gate, down) at M = 2048 rows (B=4 x S=512; 'down' takes 128x256
+# tiles, the others 128x128), the largest at the serving path's M = 128,
+# and ragged shapes that the wrapper pads (128x128 and 128x256 tiles).
 MM_CASES = [(2048, 1536, 1536), (2048, 1536, 256), (2048, 1536, 8960),
-            (2048, 8960, 1536), (100, 200, 72)]
+            (2048, 8960, 1536), (100, 200, 72), (128, 1536, 8960),
+            (2000, 4100, 1500)]
 
 
 @pytest.mark.gpu
@@ -259,11 +272,14 @@ def test_fp8_matmul_kernel_matches_plain(card, shape, fmts, out):
     gen = torch.Generator().manual_seed(10)
     a = exact_fp8((m, k), fmts[0], gen).to(card)
     b = exact_fp8((k, n), fmts[1], gen).to(card)
+    tile = fq.gemm_tile(m, n, k)
     launches = mm.fp8_matmul.launches
+    by_tile = mm.fp8_matmul.launches_by_tile[tile]
     got = mm.fp8_matmul(a, b, out)
     want = (a.float() @ b.float()).to(out)
     torch.cuda.synchronize()
     assert mm.fp8_matmul.launches == launches + 1
+    assert mm.fp8_matmul.launches_by_tile[tile] == by_tile + 1
     assert got.dtype == out and torch.equal(got, want)
 
 

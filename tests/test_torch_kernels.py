@@ -170,6 +170,37 @@ class TestFusedQuantMatmulParity:
                                       .astype(np.float32))
         assert amax.item() == np.abs(out.float().numpy()).max()
 
+    @pytest.mark.parametrize("m,n,k,tile", [
+        # training (B=4 x S=512): forward, dgrad and wgrad of each kind
+        (2048, 1536, 1536, 128), (2048, 256, 1536, 128),
+        (2048, 8960, 1536, 128), (2048, 1536, 8960, 256),
+        (2048, 1536, 256, 128), (1536, 1536, 2048, 128),
+        (1536, 256, 2048, 128), (1536, 8960, 2048, 128),
+        (8960, 1536, 2048, 128),
+        # serving (M = 4 rows x 32 chunk tokens)
+        (128, 1536, 1536, 128), (128, 8960, 1536, 128),
+        (128, 1536, 8960, 128),
+        # ragged: the choice holds for the padded shape
+        (100, 72, 200, 128), (1000, 1400, 1000, 128),
+        (2000, 1500, 4100, 256), (2000, 1500, 4033, 256),
+        (2000, 1500, 4032, 128)])
+    def test_tile_choice(self, m, n, k, tile):
+        """The GEMM's tile width comes from the shape alone: 128x256 only
+        where its grid fills one wave while 128x128's overloads the SMs and
+        K >= 4096; the padded shape picks the same width, and the pads
+        match the layout."""
+        assert tfq.gemm_tile(m, n, k) == tile
+        bm, bk = tfq.BM, tfq.BK
+        padded = (-(-m // bm) * bm, -(-n // tile) * tile, -(-k // bk) * bk)
+        assert tfq.gemm_tile(*padded) == tile
+        for dims in ("nn", "nt", "tn"):
+            pa, pb, pr = tfq.operand_pads(dims, tile)
+            a_pad = dict(zip("km" if dims == "tn" else "mk", pa))
+            b_pad = dict(zip("nk" if dims == "nt" else "kn", pb))
+            assert a_pad == {"m": bm, "k": bk}
+            assert b_pad == {"k": bk, "n": tile}
+            assert pr == (bm, tile)
+
     def test_rejects_bad_inputs(self):
         a = torch.zeros((4, 4), dtype=torch.float8_e4m3fn)
         with pytest.raises(TypeError):
