@@ -5,12 +5,18 @@
 
 Phases, each of which raises on failure (there is no CPU fallback):
   1. build the four CUDA libraries from src/repro_torch/csrc (one nvcc
-     each, in parallel) and print ptxas' register / shared-memory report;
+     each, in parallel, beside a probe build of the attention forward
+     that records the schedule it ran) and print ptxas' register /
+     shared-memory report;
   2. hold each kernel against its plain PyTorch version on the card, at
      the serving path's and the training path's shapes: outputs bitwise
      on exact-accumulation inputs, a grid-neighbour flip-rate bound (GEMM),
-     a bf16-ulp bound (attention forward) or a rel-L2 bound that a planted
-     fault exceeds (attention backward) on general inputs, amaxes equal;
+     a bf16-ulp bound (attention forward, every mask it takes, hole blocks
+     and dead warps, and the training shape) or a rel-L2 bound that a
+     planted fault exceeds (attention backward) on general inputs, amaxes
+     equal; hold the attention forward's schedule (the q tile of each
+     block, the kv blocks it visits, the warps that skip their epilogue,
+     read from the probe build) to the rule the wrapper states;
      and time kernel, plain version, a library yardstick and the bound;
   3. calibrate qwen2-1.5b at full width and depth (random weights from a
      seed) on 2 seeded batches, and freeze the scales;
@@ -43,8 +49,8 @@ layout at ragged shapes that take each of its two tile widths (128x128,
 the attention backward's dQ kernel (the stash variant for kv spans of up
 to 512 columns, the four-pass one past them) against the plain version
 and against each other. The start of the run prints the shared memory,
-registers, spills and blocks per SM of the dQ stash variant and of every
-GEMM variant. The line before the last is a JSON object with one entry
+registers, spills and blocks per SM of the attention forward, of the dQ
+stash variant and of every GEMM variant (a forward that spills fails). The line before the last is a JSON object with one entry
 per kernel (kernel 3's with its two variants, the GEMM's and kernel 5's
 with their tile widths; launches: the fused GEMM's and the attention
 kernels' from phase 6, the unfused GEMM's from phase 8, the
@@ -54,6 +60,7 @@ there is no CUDA device or the package is missing.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import gc
 import json
@@ -272,11 +279,45 @@ def time_gemm(dev):
     return rows
 
 
+def holes_layout(dev, c):
+    """Slot positions and [start, n_valid] of 4 chunk rows whose kv blocks
+    the forward kernel skips or whose warps are dead: no live row (every
+    warp dead); one live row whose later slots hold positions past it;
+    150 live rows (the second 128-row tile keeps 22) over two kv blocks of
+    holes; 20 live rows over one block of slots."""
+    import torch
+    cols = torch.arange(c, device=dev)
+    blk = cols // 128
+    none = torch.full_like(cols, -1)
+    slot_pos = torch.stack([
+        torch.where((cols < 300) & (blk != 1), cols, none),
+        cols,
+        torch.where((blk == 0) | (blk == 2), cols, none),
+        torch.where(cols < 20, cols, none)]).int()
+    chunk_pos = torch.tensor([[0, 0], [299, 1], [200, 150], [0, 20]],
+                             device=dev).int()
+    return slot_pos, chunk_pos
+
+
 def attn_inputs(dev, gen, mode, fmt):
+    """q, k, v and the mask arguments of a phase-2 attention case: 'chunk'
+    (the serving shape), 'chunk_window' (the same with a 24-slot window),
+    'holes' (holes_layout), or a 256-token batch under 'causal', 'window'
+    (causal, window 100), 'full' or 'kv' (random column validity, one
+    128-column block fully masked)."""
     import torch
     from repro_torch.core.fp8_formats import get_format
     dt = get_format(fmt).dtype
-    if mode == "chunk":
+    if mode == "holes":
+        b, h, hkv, t, c = 4, 12, 2, 160, 640
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((b, h, t, 128), (b, hkv, c, 128),
+                                 (b, hkv, c, 128)))
+        slot_pos, chunk_pos = holes_layout(dev, c)
+        return q, k, v, dict(mask_mode="chunk", kv_mask=slot_pos,
+                             chunk_pos=chunk_pos)
+    if mode in ("chunk", "chunk_window"):
+        window = 24 if mode == "chunk_window" else 0
         b, h, hkv, t, c = 4, 12, 2, 32, 512
         q = (torch.randn((b, h, t, 128), generator=gen, device=dev)).to(dt)
         k = (torch.randn((b, hkv, c, 128), generator=gen, device=dev)).to(dt)
@@ -291,12 +332,24 @@ def attn_inputs(dev, gen, mode, fmt):
                                torch.full_like(cols, -1)).int()
         chunk_pos = torch.stack([start, n_valid], 1).int()
         return q, k, v, dict(mask_mode="chunk", kv_mask=slot_pos,
-                             chunk_pos=chunk_pos)
+                             chunk_pos=chunk_pos, window=window)
     b, h, hkv, s = 2, 12, 2, 256
     q = torch.randn((b, h, s, 128), generator=gen, device=dev).to(dt)
     k = torch.randn((b, hkv, s, 128), generator=gen, device=dev).to(dt)
     v = torch.randn((b, hkv, s, 128), generator=gen, device=dev).to(dt)
+    if mode == "window":
+        return q, k, v, dict(mask_mode="causal", window=100)
+    if mode == "kv":
+        kvm = (torch.rand((b, s), generator=gen, device=dev) < 0.7).int()
+        kvm[1, 128:] = 0
+        return q, k, v, dict(mask_mode="kv", kv_mask=kvm)
     return q, k, v, dict(mask_mode=mode)
+
+
+# Every mask kernel 2 takes, and the chunk layout with skipped kv blocks and
+# dead warps.
+ATTN_MODES = ("chunk", "chunk_window", "holes", "causal", "window", "full",
+              "kv")
 
 
 def stepped_keys(k, gen):
@@ -316,19 +369,26 @@ def stepped_keys(k, gen):
 def check_attention_exact(dev):
     """Exact-accumulation fixtures at the serving shapes, on which the bf16
     output and both amaxes must match the plain version (run on the card,
-    so both use the card's exp) bit for bit, for every mask the serving
-    path and calibration use:
+    so both use the card's exp) bit for bit, for every mask kernel 2 takes
+    (ATTN_MODES: chunk, causal, window, full, kv, and a chunk layout with
+    hole blocks and dead warps):
       constant keys — every score of a row is equal, every exp is 1;
       stepped scores (stepped_keys) — the online softmax's running max
         rises across kv blocks, l and acc are rescaled, and P is quantized
-        off the grid (f_p = 0.3), with RNE and with SR."""
+        off the grid (f_p = 0.3), with RNE and with SR;
+      overflow — stepped scores with f_s so large (64 e4m3, 512 e5m2) that
+        the -224 scores pass the format's max normal, unsaturated: NaN (their
+        rows and the S amax turn NaN) or -inf (masked in effect, S amax
+        inf); the block steps of 64 / 512 have an exp negligible beside 1,
+        so the sums stay exact; with RNE and with SR."""
     import torch
     from repro_torch.core.fp8_formats import get_format
     from repro_torch.kernels.fp8_attention import ops as at
     from repro_torch.kernels.fp8_attention import ref as at_ref
     gen = torch.Generator(device=dev).manual_seed(5)
     n = 0
-    for mode in ("chunk", "causal", "full"):
+    failed = []
+    for mode in ATTN_MODES:
         for fmt in ("e4m3", "e5m2"):
             q, k, v, kw = attn_inputs(dev, gen, mode, fmt)
             dt = get_format(fmt).dtype
@@ -340,26 +400,58 @@ def check_attention_exact(dev):
             qs = torch.zeros(q.shape, device=dev)
             qs[..., 0] = 1
             ks = stepped_keys(fp8_tensor(k.shape, fmt, gen, dev, True), gen)
-            cases = [("constant", qc, kc, [0.088388, 1, 1, 1], "rne")] + [
-                ("stepped", qs.to(dt), ks, [1.0, 1.0, 0.3, 1.5], r)
-                for r in ("rne", "sr")]
-            for name, qq, kk_, scal, rnd in cases:
+            f_big = 64.0 if fmt == "e4m3" else 512.0
+            cases = [("constant", qc, kc, [0.088388, 1, 1, 1], "rne", True)]
+            cases += [("stepped", qs.to(dt), ks, [1.0, 1.0, 0.3, 1.5], r, True)
+                      for r in ("rne", "sr")]
+            cases += [("overflow", qs.to(dt), ks, [f_big, 1.0, 0.3, 1.5], r,
+                       False) for r in ("rne", "sr")]
+            for name, qq, kk_, scal, rnd, sat in cases:
                 kk = dict(fmt_s=fmt, fmt_p=fmt, rounding_s=rnd,
-                          rounding_p=rnd, **kw)
+                          rounding_p=rnd, saturate_s=sat, saturate_p=sat,
+                          **kw)
                 got = at.fp8_attention_fwd(qq, kk_, v, 7, scal, **kk)
                 want = at_ref.fp8_attention_fwd_ref(qq, kk_, v, 7, scal, **kk)
                 torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                    ulps = bf16_ulps(got[0], want[0])
-                    raise AssertionError(
+                if not all(same_bits(x, y) for x, y in zip(got, want)):
+                    diff = ~((got[0] == want[0])
+                             | (torch.isnan(got[0]) & torch.isnan(want[0])))
+                    failed.append(
                         f"attention {mode} {fmt} {name} {rnd}: exact-input "
-                        f"output or amaxes not bitwise (max {ulps.max().item()}"
-                        f" ulps, {(ulps > 0).sum().item()} elements differ; "
-                        f"amax_s {got[1].item()} vs {want[1].item()}, amax_p "
-                        f"{got[2].item()} vs {want[2].item()})")
+                        f"output or amaxes not bitwise ({diff.sum().item()} "
+                        f"elements differ; amax_s {got[1].item()} vs "
+                        f"{want[1].item()}, amax_p {got[2].item()} vs "
+                        f"{want[2].item()})")
                 n += 1
-    log(f"attention: {n} exact-input cases (constant keys, stepped scores) "
-        "bitwise equal to the plain version (output and amaxes)")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"attention: {n} exact-input cases (constant keys, stepped scores, "
+        "unsaturated overflow) bitwise equal to the plain version (output "
+        "and amaxes, NaN where NaN)")
+
+
+def check_attention_schedule(dev, probe_lib):
+    """The schedule the attention forward ran (its probe build's records:
+    each block's q tile, visited kv blocks and live warps) against the rule
+    ops.fwd_tile_order / fwd_live_blocks / fwd_dead_warps state, for every
+    mask of ATTN_MODES and the training shape (causal B=4, S=512)."""
+    import torch
+    from repro_torch.kernels.fp8_attention import probe
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [(m, attn_inputs(dev, gen, m, "e4m3")) for m in ATTN_MODES]
+    cases.append(("training", (*attn_train_inputs(dev, gen, "e4m3"),
+                               dict(mask_mode="causal"))))
+    failed, n = [], 0
+    for mode, (q, k, v, kw) in cases:
+        faults = probe.fwd_schedule_faults(probe_lib, q, k, v, kw)
+        n += q.shape[0] * q.shape[1] * -(-q.shape[2] // 128)
+        failed += [f"{mode}: {f}" for f in faults[:3]]
+    if failed:
+        raise AssertionError("attention forward schedule differs from "
+                             "ops.fwd_*: " + "; ".join(failed))
+    log(f"attention forward schedule: {n} blocks over {len(cases)} layouts "
+        "ran the q tile, kv blocks and live warps that ops.fwd_tile_order / "
+        "fwd_live_blocks / fwd_dead_warps state")
 
 
 def attended_pairs(q, k, kw):
@@ -393,7 +485,7 @@ def check_attention(dev):
     scal = [0.088388, 1.0, 1.0, 1.0]
     rows = {}
     failed = []
-    for mode in ("chunk", "causal", "full"):
+    for mode in ATTN_MODES:
         for fmt in ("e4m3", "e5m2"):
             for rounding in ("rne", "sr"):
                 q, k, v, kw = attn_inputs(dev, gen, mode, fmt)
@@ -420,7 +512,8 @@ def check_attention(dev):
                         f"{tag}: {max_ulps} ulps, fraction {frac:.2e}, amax_s "
                         f"{as_k.item()} vs {as_p.item()}, amax_p "
                         f"{ap_k.item()} vs {ap_p.item()}")
-                if fmt == "e4m3" and rounding == "rne" and mode != "full":
+                if fmt == "e4m3" and rounding == "rne" and mode in (
+                        "chunk", "causal"):
                     b, h, t, d = q.shape
                     hkv, s = k.shape[1], k.shape[2]
                     ms = cuda_ms(lambda: at.fp8_attention_fwd(
@@ -599,6 +692,14 @@ def profile_serving(eng, cfg):
         f"{dev_us / 1e3 / n:.1f} ms per step, wall {wall * 1e3 / n:.1f} ms "
         f"per step, device idle share <= {1 - dev_us / 1e6 / wall:.2f} "
         f"[{CARD}]")
+    ours = []
+    for name, sym in (("fp8_attention_fwd", "attn_fwd_kernel"),
+                      ("fused_quant_matmul", "fqmm")):
+        mine = [e for e in events if sym in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / n
+        ours.append(f"{name} {ms:.2f} ms "
+                    f"({sum(e.count for e in mine) // n} calls)")
+    log("  per step: " + ", ".join(ours))
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / n:8.2f} ms/step "
             f"{e.count // n:6d} calls/step  {e.key[:90]}")
@@ -1175,14 +1276,27 @@ def time_attention_bwd(dev):
     with torch.no_grad():
         lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, is_causal=True, enable_gqa=True))
-    err_f = (at.fp8_attention_fwd(q, k, v, 7, fscal, **fkw)[0].float()
-             - at_ref.fp8_attention_fwd_ref(q, k, v, 7, fscal, **fkw)[0]
-             .float()).abs().max().item()
+    # Held like check_attention: bf16 ulps, the share of elements that
+    # differ, equal amaxes.
+    o_k, as_k, ap_k = at.fp8_attention_fwd(q, k, v, 7, fscal, **fkw)
+    o_p, as_p, ap_p = at_ref.fp8_attention_fwd_ref(q, k, v, 7, fscal, **fkw)
+    err_f = (o_k.float() - o_p.float()).abs().max().item()
+    ulps = bf16_ulps(o_k, o_p)
+    max_ulps, frac = ulps.max().item(), (ulps > 0).float().mean().item()
+    same_amax = torch.equal(as_k, as_p) and torch.equal(ap_k, ap_p)
     b_f = bound(q.numel() + 2 * k.numel() + 2 * q.numel(),
                 2 * 2.0 * d * pairs, FP8_OPS_PER_S)
     log(f"attention fwd time causal B={b} H={h} Hkv={hkv} S={s}: kernel "
         f"{ms_f:.4f} ms, plain {plain_f:.4f} ms, sdpa(bf16) {lib_f:.4f} ms, "
-        f"bound {b_f[0]:.4f} ms ({b_f[1]}) [{CARD}]")
+        f"bound {b_f[0]:.4f} ms ({b_f[1]}); max {max_ulps} bf16 ulps, "
+        f"{frac:.2e} of elements differ, amaxes "
+        f"{'equal' if same_amax else 'DIFFER'} [{CARD}]")
+    if not (max_ulps <= ATTN_MAX_ULPS and frac <= ATTN_MAX_DIFF_FRAC
+            and same_amax):
+        raise AssertionError(
+            f"attention fwd at the training shape: {max_ulps} ulps, "
+            f"fraction {frac:.2e}, amax_s {as_k.item()} vs {as_p.item()}, "
+            f"amax_p {ap_k.item()} vs {ap_p.item()}")
     common = dict(plain_ms=plain, library_ms=lib)
     return {"fwd": dict(ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
                         bound_ms=b_f[0], bound_by=b_f[1], max_abs_err=err_f),
@@ -2028,17 +2142,23 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    kbuild.build(kbuild.KERNELS)
+    # The attention forward's probe build (it records its schedule) beside
+    # the four libraries, all nvcc processes at once.
+    from repro_torch.kernels.fp8_attention import probe as at_probe
+    probe_dir = kbuild.build_dir() / "fwd_probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probe_build = pool.submit(at_probe.build_fwd_probe, probe_dir)
+        kbuild.build(kbuild.KERNELS)
+        fwd_probe = probe_build.result()[0]
     for name in kbuild.KERNELS:
         rep = [ln.strip() for ln in kbuild.BUILD_LOGS.get(name, "").splitlines()
                if "registers" in ln or "spill" in ln or "smem" in ln]
         log(f"built {name} from src/repro_torch/csrc/{name}.cu: "
             + " | ".join(rep))
-    smem = kbuild.load("fp8_attention_fwd").attn_fwd_smem_bytes()
     bwd = kbuild.load("fp8_attention_bwd")
-    log(f"dynamic shared memory per block: fp8_attention_fwd {smem} bytes, "
-        f"fp8_attention_bwd dQ (long-span variant) "
-        f"{bwd.attn_bwd_dq_smem_bytes()} bytes, dK/dV "
+    log(f"dynamic shared memory per block: fp8_attention_bwd dQ (long-span "
+        f"variant) {bwd.attn_bwd_dq_smem_bytes()} bytes, dK/dV "
         f"{bwd.attn_bwd_dkv_smem_bytes()} bytes")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
@@ -2055,6 +2175,14 @@ def main() -> int:
     if err or info[3] < 2:
         failures.append(f"dQ stash variant: cudaError {err}, {info[3]} "
                         "blocks per SM (2 expected)")
+    nk = TRAIN_S // at.LANE
+    err = kbuild.load("fp8_attention_fwd").attn_fwd_info(nk, info)
+    log(f"fp8_attention_fwd at S={TRAIN_S}: {info[0]} bytes of dynamic shared "
+        f"memory, {info[1]} registers and {info[2]} local (spill) bytes a "
+        f"thread, {info[3]} blocks per SM (cudaError {err})")
+    if err or info[2] or info[3] < 1:
+        failures.append(f"attention forward: cudaError {err}, {info[2]} spill "
+                        f"bytes (0 expected), {info[3]} blocks per SM")
     gemm_info = gemm_variant_info(kbuild.load("fused_quant_matmul"))
     for v in gemm_info:
         log(f"fused_quant_matmul variant {v['name']}: {v['smem']} bytes of "
@@ -2087,6 +2215,7 @@ def main() -> int:
     phase(check_sr, dev)
     sr_rows = phase(time_sr, dev)
     phase(check_attention_exact, dev)
+    phase(check_attention_schedule, dev, fwd_probe)
     phase(check_attention, dev)
     phase(check_attention_bwd, dev)
     attn_rows = phase(time_attention_bwd, dev)

@@ -97,11 +97,21 @@
 // SM, and kernel 2 by its 64 blocks on 132 SMs. fp8 wgmma, TMA and a wider
 // dK/dV grid are later work.
 #include <algorithm>
-#include <type_traits>
 
-#include "fp8_common.cuh"
+#include "fp8_epilogue.cuh"
 
 namespace {
+
+using fp8::QConst;
+using fp8::make_qconst;
+using fp8::quant_bf;
+using fp8::ldsm_x4;
+using fp8::ldsm_x4_t;
+using fp8::byte_to_f32;
+using fp8::word_to_f32;
+using fp8::hash_row;
+using fp8::hash_col;
+using fp8::with_flag;
 
 constexpr int LANE = 128;  // kv columns per block (and q rows per dK tile)
 constexpr int D = 128;     // head dim (the wrapper zero-pads smaller heads)
@@ -465,131 +475,11 @@ constexpr int STASH_BLOCKS = 4;   // kv blocks a stash-variant span may cover
 constexpr int TILE_BYTES = LANE * KS * 2;
 constexpr int STASH_WORDS = 16 * 128;   // words per stash per kv block
 
-// One Q node's constants, precomputed on the host and read from the
-// kernel's parameter space, so that the per-element quantizers below run
-// without a branch (fp8::quant_rne / quant_sr, bit for bit).
-struct QConst {
-  float pre;          // SR: prescale into fp16 (2^-8 e4m3, 1 e5m2)
-  float maxn;         // max normal
-  float thresh;       // RNE: smallest |x| that rounds past max normal
-  float sub_mul;      // RNE: subnormal encode multiplier (2^9 / 2^16)
-  uint32_t mask, keep, max_bits, ovf_bits;  // SR on the fp16 pattern
-  int man, min_exp, bias, shift;  // shift: fp16 pattern -> byte (7 / 8)
-  int sat, e4m3;
-};
 
 struct QConsts {
   QConst s, p, e;
 };
 
-QConst make_qconst(int fmt, int sat) {
-  QConst c;
-  const bool e4 = fmt == fp8::E4M3;
-  c.pre = e4 ? 0.00390625f : 1.f;
-  c.maxn = e4 ? 448.f : 57344.f;
-  c.thresh = e4 ? 480.f : 61440.f;
-  c.sub_mul = e4 ? 512.f : 65536.f;
-  c.mask = e4 ? 0x7Fu : 0xFFu;
-  c.keep = 0xFFFFu ^ c.mask;
-  c.max_bits = e4 ? 0x3F00u : 0x7B00u;
-  c.ovf_bits = e4 ? 0x7E00u : 0x7C00u;
-  c.man = e4 ? 3 : 2;
-  c.min_exp = e4 ? -6 : -14;
-  c.bias = e4 ? 7 : 15;
-  c.shift = e4 ? 7 : 8;
-  c.sat = sat;
-  c.e4m3 = e4;
-  return c;
-}
-
-// fp8::quant_sr without branches: an e4m3 byte is the fp16 pattern of the
-// prescaled value shifted by 7 (normals and subnormals alike), an e5m2
-// byte its top byte; inf / NaN patterns give e4m3's NaN.
-__device__ __forceinline__ uint32_t quant_sr_bf(float y, uint32_t rnd,
-                                                const QConst& c) {
-  const float yc = fminf(fmaxf(y, -c.maxn), c.maxn);
-  y = (c.sat && !isnan(y)) ? yc : y;
-  y = __fmul_rn(y, c.pre);
-  const uint32_t hb = __half_as_ushort(__float2half_rn(y));
-  const uint32_t sgn = hb & 0x8000u, mag = hb & 0x7FFFu;
-  uint32_t trunc = ((mag + (rnd & c.mask)) & 0xFFFFu) & c.keep;
-  trunc = c.sat ? min(trunc, c.max_bits)
-                : (trunc > c.max_bits ? c.ovf_bits : trunc);
-  const uint32_t om = mag < 0x7C00u ? trunc
-                                    : ((mag & c.keep) | (mag & 0x0200u));
-  const uint32_t mb = (c.e4m3 && om >= 0x7C00u) ? 0x7Fu : (om >> c.shift);
-  return (sgn >> 8) | mb;
-}
-
-// fp8::quant_rne without branches (the division by the power-of-two ulp is
-// the exact multiplication by its inverse).
-__device__ __forceinline__ uint32_t quant_rne_bf(float y, const QConst& c) {
-  const uint32_t yb = __float_as_uint(y);
-  const uint32_t sgn = (yb >> 24) & 0x80u;
-  const float ax = fabsf(y);
-  const int e = max((int)((yb >> 23) & 0xFFu) - 127, c.min_exp);
-  const float ulp = __uint_as_float((uint32_t)(e - c.man + 127) << 23);
-  const float inv = __uint_as_float((uint32_t)(127 - e + c.man) << 23);
-  float r = __fmul_rn(rintf(__fmul_rn(ax, inv)), ulp);
-  const bool ovf = !c.sat && (ax >= c.thresh || r > c.maxn);
-  r = c.sat ? fminf(r, c.maxn) : r;
-  const uint32_t rb = __float_as_uint(r);
-  const int er = (int)(rb >> 23) - 127;
-  const uint32_t nor = ((uint32_t)(er + c.bias) << c.man) |
-                       ((rb >> (23 - c.man)) & ((1u << c.man) - 1u));
-  const uint32_t sub = __float2uint_rz(__fmul_rn(r, c.sub_mul));
-  uint32_t out = sgn | (er < c.min_exp ? sub : nor);
-  const uint32_t big = c.e4m3 ? (sgn | 0x7Fu) : (sgn | 0x7Cu);
-  out = ovf ? (c.e4m3 ? 0x7Fu : big) : out;
-  out = isinf(y) ? big : out;
-  return isnan(y) ? (sgn | 0x7Fu) : out;
-}
-
-template <bool SR>
-__device__ __forceinline__ uint32_t quant_bf(float y, uint32_t rnd,
-                                             const QConst& c) {
-  if constexpr (SR) return quant_sr_bf(y, rnd, c);
-  return quant_rne_bf(y, c);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a) : "memory");
-}
-
-// Two fp8 bytes (low byte first) -> f16x2 by the hardware conversion
-// (exact: every e4m3 / e5m2 value is an f16 value).
-__device__ __forceinline__ __half2 fp8x2_to_half2(uint32_t two, int fmt) {
-  const unsigned short in = static_cast<unsigned short>(two & 0xFFFFu);
-  uint32_t out;
-  if (fmt == fp8::E4M3)
-    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(out) : "h"(in));
-  else
-    asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(out) : "h"(in));
-  return *reinterpret_cast<__half2*>(&out);
-}
-
-// One fp8 byte as f32 (fp8::to_float by the hardware conversion).
-__device__ __forceinline__ float byte_to_f32(uint32_t b, int fmt) {
-  return __low2float(fp8x2_to_half2(b, fmt));
-}
-
-// The four fp8 bytes of a word (byte e -> v[e]) as f32.
-__device__ __forceinline__ void word_to_f32(uint32_t w, int fmt, float v[4]) {
-  const float2 lo = __half22float2(fp8x2_to_half2(w, fmt));
-  const float2 hi = __half22float2(fp8x2_to_half2(w >> 16, fmt));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
 
 // 16 fp8 bytes -> 8 packed bf16 pairs.
 __device__ __forceinline__ void bytes_to_bf16_hw(const uint4& x, int fmt,
@@ -669,19 +559,6 @@ __device__ __forceinline__ void frag_abt_pair(float acc[2][4],
   }
 }
 
-// The SR hash split at the row: the (seed, salt, bh, row) prefix once per
-// row, the column step per element; fp8::hash_bits bit for bit.
-__device__ __forceinline__ uint32_t hash_row(uint32_t seed, uint32_t salt,
-                                             uint32_t bh, uint32_t row) {
-  const uint32_t gold = 0x9E3779B9u;
-  uint32_t s = fp8::fmix32(seed + salt * gold);
-  s = fp8::fmix32(s + bh * gold);
-  return fp8::fmix32(s + row * gold);
-}
-
-__device__ __forceinline__ uint32_t hash_col(uint32_t pre, uint32_t col) {
-  return fp8::fmix32(pre ^ (col * 0x9E3779B9u)) & 0xFFu;
-}
 
 // Built with -DDQ_PROBE (kernels/fp8_attention/probe.py), the stash
 // kernel records the SM clock at its pass boundaries in two blocks (the
@@ -704,15 +581,6 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #define DQ_PROBE_MARK(k)
 #endif
 
-// Runs f(std::bool_constant<SR>) with SR the (uniform) rounding flag, so
-// that a loop's per-element quantizer is chosen once, outside the loop.
-template <class F>
-__device__ __forceinline__ void with_sr(int sr, F&& f) {
-  if (sr)
-    f(std::true_type{});
-  else
-    f(std::false_type{});
-}
 
 __global__ void __launch_bounds__(128, 2)
     attn_bwd_dq_kernel_stash(Args p, QConsts qc) {
@@ -794,7 +662,7 @@ __global__ void __launch_bounds__(128, 2)
     else
       fetch_rows<LANE>(nx, vg, jmin * LANE, p.S);
     float mx[2] = {-1e30f, -1e30f};
-    with_sr(p.sr_s, [&](auto sr) {
+    with_flag(p.sr_s, [&](auto sr) {
 #pragma unroll 2
       for (int np = 0; np < 8; ++np) {
         float acc[2][4];
@@ -835,7 +703,7 @@ __global__ void __launch_bounds__(128, 2)
     // The next V block, or the span's first K block for pass C.
     fetch_rows<LANE>(nx, j < jmax ? vg : kg, (j < jmax ? j + 1 : jmin) * LANE,
                      p.S);
-    with_sr(p.sr_e, [&](auto sr) {
+    with_flag(p.sr_e, [&](auto sr) {
 #pragma unroll 2
       for (int np = 0; np < 8; ++np) {
         float acc[2][4];
@@ -887,7 +755,7 @@ __global__ void __launch_bounds__(128, 2)
   float dsafe[2], rd[2] = {0.f, 0.f};
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) dsafe[hf] = l[hf] > 0.f ? l[hf] : 1.f;
-  with_sr(p.sr_p, [&](auto sr) {
+  with_flag(p.sr_p, [&](auto sr) {
     for (int j = jmin; j <= jmax; ++j) {
       const int jl = j - jmin;
       float rsum[2] = {0.f, 0.f};
@@ -941,7 +809,7 @@ __global__ void __launch_bounds__(128, 2)
     for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-    with_sr(p.sr_e, [&](auto sr) {
+    with_flag(p.sr_e, [&](auto sr) {
 #pragma unroll 1
       for (int ks = 0; ks < 8; ++ks) {
         float dsq[2][4];

@@ -15,7 +15,10 @@ csrc/fp8_attention_bwd.cu) or raise. `fp8_attention_fwd.launches`,
 `fp8_attention_bwd_dq.launches` and `fp8_attention_bwd_dkv.launches`
 count the launches of the three kernels (the dQ kernel's also by variant,
 `launches_by_variant`: 'stash' for spans of up to STASH_BLOCKS kv blocks,
-'long' past them, chosen by `dq_variant`).
+'long' past them, chosen by `dq_variant`). `fwd_tile_order`,
+`fwd_live_blocks` and `fwd_dead_warps` state the forward kernel's
+schedule: its 128-row query tiles in launch order, the kv blocks each
+visits and the warps that skip their epilogue.
 
 Padding contract (the reference's): the head dim is zero-padded to 128 and
 the kv length to a multiple of 128 (slot positions pad with -1, validity
@@ -39,7 +42,7 @@ LANE = _ref.LANE
 HEAD_DIM = 128
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _MASK_ID = {"causal": 0, "full": 1, "kv": 2, "chunk": 3}
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
              + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
 
 
@@ -51,34 +54,115 @@ def _pad_bytes(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
     return F.pad(x.view(torch.uint8), widths).view(x.dtype)
 
 
+def _pad_words(x, device, pad: int, value: int) -> torch.Tensor:
+    """Per-column mask words as contiguous int32 on `device`, padded by
+    `pad` columns of `value` (copied only where needed)."""
+    x = torch.as_tensor(x, device=device).to(torch.int32)
+    return (F.pad(x, (0, pad), value=value) if pad else x).contiguous()
+
+
 def seed_tensor(seed, device) -> torch.Tensor:
     """The SR hash seed (a python int or an integer tensor, e.g. drawn by
-    the caller's generator on the device) as a (1,) int32 tensor on
-    `device` holding its low 32 bits — the kernels read it from device
-    memory, so a seed drawn on the card never visits the host, and an int
-    seed is filled in on the device (no blocking host-to-device copy)."""
+    the caller's generator on the device) as a (1,) int32 or int64 tensor
+    on `device`, of which the kernels read the low 32 bits from device
+    memory: an int32 / int64 tensor already there is passed as it is (a
+    seed drawn on the card costs no copy and no launch), another is
+    converted, and an int seed is filled in on the device (no blocking
+    host-to-device copy)."""
     if isinstance(seed, torch.Tensor):
-        s = seed.to(device=device, dtype=torch.int64).reshape(1)
-        return (((s & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+        s = seed.reshape(1)
+        if s.dtype not in (torch.int32, torch.int64) or s.device != device:
+            s = s.to(device=device, dtype=torch.int64)
+        return s.contiguous()
     v = int(seed) & 0xFFFFFFFF
     return torch.full((1,), v - (1 << 32) if v >= 1 << 31 else v,
                       dtype=torch.int32, device=device)
 
 
+# ---------------------------------------------------------------------------
+# forward: the schedule of kernel 2 (csrc/fp8_attention_fwd.cu)
+# ---------------------------------------------------------------------------
+
+FWD_BQ = 128        # query rows per block: two warpgroups of 64
+FWD_WARP_ROWS = 16  # query rows per warp
+_NONE = np.iinfo(np.int32).max
+
+
+def fwd_tile_order(q_rows: int) -> list:
+    """Kernel 2's query tiles (FWD_BQ rows each) in launch order: blockIdx.z
+    walks them from the last, so the longest causal kv spans start first.
+    The wrapper sizes the per-tile amax outputs from it."""
+    return list(range(-(-q_rows // FWD_BQ) - 1, -1, -1))
+
+
+def _fwd_live_rows(q_rows, mask_mode, chunk_pos, b):
+    """Rows [0, n) of batch row b that attend anything: rows past n_valid
+    have q position -1 in 'chunk' mode."""
+    if mask_mode == "chunk":
+        return min(q_rows, int(chunk_pos[b][1]))
+    return q_rows
+
+
+def fwd_dead_warps(iq: int, b: int, *, q_rows: int, mask_mode: str,
+                   chunk_pos=None) -> list:
+    """Per warp of query tile iq of batch row b: True where all of its 16
+    rows are dead (at or past Q, or q position -1). Such a warp skips its
+    epilogue and stores zeros; a warpgroup of four also its products."""
+    live = _fwd_live_rows(q_rows, mask_mode, chunk_pos, b)
+    return [iq * FWD_BQ + w * FWD_WARP_ROWS >= live
+            for w in range(FWD_BQ // FWD_WARP_ROWS)]
+
+
+def fwd_live_blocks(iq: int, b: int, *, q_rows: int, s_len: int,
+                    mask_mode: str, window: int = 0, kv_mask=None,
+                    chunk_pos=None) -> list:
+    """The kv blocks (LANE columns each, ascending) that query tile iq of
+    batch row b visits: none without a live row; the causal (+ window)
+    span (`kv_stripe_span` at the tile); every block for 'full'; for 'kv'
+    and 'chunk' the blocks with a column whose key (0 for a valid 'kv'
+    column, the slot position for 'chunk'; padding and holes have none)
+    lies in the union of the tile's live row ranges ('chunk': q positions
+    from the first live row's, less window - 1, to the last's). The kernel
+    implements this rule; a skipped block is masked for every row."""
+    nk = -(-s_len // LANE)
+    row0 = iq * FWD_BQ
+    live = _fwd_live_rows(q_rows, mask_mode, chunk_pos, b)
+    if live <= row0:
+        return []
+    if mask_mode in ("causal", "full"):
+        lo, hi = _ref.kv_stripe_span(row0, FWD_BQ, block_kv=LANE, n_kv=nk,
+                                     mask_mode=mask_mode, window=window)
+        return list(range(lo, hi + 1))
+    mv = np.asarray(kv_mask[b]).astype(np.int64)
+    if mask_mode == "kv":
+        key, lo, hi = np.where(mv != 0, 0, _NONE), 0, 0
+    else:
+        start = int(chunk_pos[b][0])
+        key = np.where(mv >= 0, mv, _NONE)
+        lo = start + row0 - window + 1 if window else -_NONE
+        hi = start + min(row0 + FWD_BQ, live) - 1
+    key = np.concatenate([key, np.full(nk * LANE - s_len, _NONE)])
+    hit = ((key >= lo) & (key <= hi)).reshape(nk, LANE).any(axis=1)
+    return [int(j) for j in np.flatnonzero(hit)]
+
+
 def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
-            q_len, s_len, fmt_s, fmt_p, rounding_s, rounding_p, saturate_s,
-            saturate_p):
+            s_len, fmt_s, fmt_p, rounding_s, rounding_p, saturate_s,
+            saturate_p, lib=None):
+    """Kernel 2 on padded CUDA payloads (D = 128, S a multiple of 128),
+    through `lib` (a probe build) or the package's library. Returns (o,
+    amaxes (2, B, H, tiles): the S and P amax of each query tile)."""
     b_, h_, q_rows, d = q8.shape
     hkv, s_pad = k8.shape[1], k8.shape[2]
     if d != HEAD_DIM or s_pad % LANE:
         raise ValueError(f"kernel needs D={HEAD_DIM}, S % {LANE} == 0")
     dev = q8.device
     o = torch.empty((b_, h_, q_rows, d), dtype=torch.bfloat16, device=dev)
-    nq = -(-q_rows // 64)
-    amax_s = torch.empty((b_, h_, nq), dtype=torch.float32, device=dev)
-    amax_p = torch.empty((b_, h_, nq), dtype=torch.float32, device=dev)
-    lib = _build.load("fp8_attention_fwd")
-    fn = lib.attn_fwd_launch
+    nq = len(fwd_tile_order(q_rows))
+    amax = torch.empty((2, b_, h_, nq), dtype=torch.float32, device=dev)
+    amax_s = amax.data_ptr()
+    amax_p = amax_s + 4 * b_ * h_ * nq
+    fn = (lib or _build.load("fp8_attention_fwd")).attn_fwd_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     f_s, s_s, f_p, f_o = (float(np.float32(x)) for x in scal)
@@ -86,8 +170,8 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(),
              kvm.data_ptr() if kvm is not None else None,
              chunk_pos.data_ptr() if chunk_pos is not None else None,
-             o.data_ptr(), amax_s.data_ptr(), amax_p.data_ptr(),
-             b_, h_, hkv, q_rows, s_pad, q_len, s_len, _MASK_ID[mask_mode],
+             o.data_ptr(), amax_s, amax_p,
+             b_, h_, hkv, q_rows, s_pad, s_len, _MASK_ID[mask_mode],
              window, _FMT_ID[format_of_dtype(q8.dtype).name],
              _FMT_ID[format_of_dtype(k8.dtype).name],
              _FMT_ID[format_of_dtype(v8.dtype).name], _FMT_ID[fmt_s],
@@ -96,7 +180,29 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
              seed_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_fwd")
     fp8_attention_fwd.launches += 1
-    return o, amax_s, amax_p
+    return o, amax
+
+
+def _fwd_cuda(q8, k8, v8, seed, scal, *, mask_mode, window, kv_mask,
+              chunk_pos, lib=None, **kw):
+    """Kernel 2 on CUDA payloads of the wrapper's arguments, padded to
+    D = 128 and S a multiple of 128, through `lib` (a probe build) or the
+    package's library. Returns _launch's (o, per-tile amaxes)."""
+    s_len = k8.shape[2]
+    qp = aligned(_pad_bytes(q8.contiguous(), 3, HEAD_DIM))
+    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
+    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, HEAD_DIM), 2, LANE))
+    kvm = cpos = None
+    pad = kp.shape[2] - s_len
+    if mask_mode == "kv":
+        kvm = _pad_words(kv_mask, q8.device, pad, 0)
+    elif mask_mode == "chunk":
+        # Slot positions pad with -1: 0 is a valid position.
+        kvm = _pad_words(kv_mask, q8.device, pad, -1)
+        cpos = torch.as_tensor(chunk_pos, device=q8.device).to(
+            torch.int32).contiguous()
+    return _launch(qp, kp, vp, kvm, cpos, seed, scal, mask_mode=mask_mode,
+                   window=window, s_len=s_len, lib=lib, **kw)
 
 
 def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
@@ -143,26 +249,13 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         raise ValueError(f"fp8_attention_fwd: unsupported device {q8.device}")
     if d > HEAD_DIM:
         raise ValueError(f"head dim {d} > {HEAD_DIM} is not supported")
-    qp = aligned(_pad_bytes(q8.contiguous(), 3, HEAD_DIM))
-    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
-    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, HEAD_DIM), 2, LANE))
-    kvm = cpos = None
-    pad = kp.shape[2] - s_len
-    if mask_mode == "kv":
-        kvm = F.pad(torch.as_tensor(kv_mask, device=q8.device).to(torch.int32),
-                    (0, pad), value=0).contiguous()
-    elif mask_mode == "chunk":
-        # Slot positions pad with -1: 0 is a valid position.
-        kvm = F.pad(torch.as_tensor(kv_mask, device=q8.device).to(torch.int32),
-                    (0, pad), value=-1).contiguous()
-        cpos = torch.as_tensor(chunk_pos, device=q8.device).to(
-            torch.int32).contiguous()
-    o, amax_s, amax_p = _launch(
-        qp, kp, vp, kvm, cpos, seed, scal, mask_mode=mask_mode,
-        window=window, q_len=q_rows, s_len=s_len, **kw)
+    o, amax = _fwd_cuda(q8, k8, v8, seed, scal, mask_mode=mask_mode,
+                        window=window, kv_mask=kv_mask, chunk_pos=chunk_pos,
+                        **kw)
     if d != HEAD_DIM:
         o = o[..., :d].contiguous()
-    return o, torch.amax(amax_s), torch.amax(amax_p)
+    amax = torch.amax(amax.view(2, -1), dim=1)
+    return o, amax[0], amax[1]
 
 
 fp8_attention_fwd.launches = 0

@@ -87,20 +87,37 @@ def test_gemm_kernel_matches_plain(card, dims, fmt, shape):
         assert torch.equal(cpu[2], gpu[2].cpu())
 
 
+def _holes_layout(s):
+    """Chunk rows whose kv blocks the forward kernel skips or whose warps
+    are dead: no live row; one live row with slots past its position; 150
+    live rows (22 in the second 128-row tile) over two blocks of holes."""
+    cols = torch.arange(s)
+    blk = cols // 128
+    none = torch.full_like(cols, -1)
+    kv_mask = torch.stack([torch.where((cols < 300) & (blk != 1), cols, none),
+                           cols,
+                           torch.where((blk == 0) | (blk == 2), cols, none)])
+    return kv_mask.int(), torch.tensor([[0, 0], [299, 1], [200, 150]]).int()
+
+
 def _attn_case(mode, gen):
     b, h, hkv, d = 3, 4, 2, 64        # head dim padded to 128 by the wrapper
-    t, s = (8, 160) if mode == "chunk" else (70, 200)
-    kw = {"mask_mode": "causal" if mode == "window" else mode}
-    if mode == "window":
-        kw["window"] = 50
+    t, s = {"chunk": (8, 160), "chunk_window": (8, 160),
+            "holes": (160, 640)}.get(mode, (70, 200))
+    kw = {"mask_mode": {"window": "causal", "holes": "chunk",
+                        "chunk_window": "chunk"}.get(mode, mode)}
+    if mode in ("window", "chunk_window"):
+        kw["window"] = 50 if mode == "window" else 20
     if mode == "kv":
         kw["kv_mask"] = (torch.rand((b, s), generator=gen) < 0.7).to(torch.int8)
         kw["kv_mask"][1] = 0
-    if mode == "chunk":
+    if mode in ("chunk", "chunk_window"):
         lengths = torch.tensor([70, 33, 9])
         cols = torch.arange(s)[None]
         kw["kv_mask"] = torch.where(cols < lengths[:, None], cols, -1).int()
         kw["chunk_pos"] = torch.tensor([[62, 8], [32, 1], [0, 5]]).int()
+    if mode == "holes":
+        kw["kv_mask"], kw["chunk_pos"] = _holes_layout(s)
     q = (exact_fp8((b, h, t, d), "e4m3", gen).float() / 4).to(torch.float8_e4m3fn)
     k = (exact_fp8((b, hkv, 1, d), "e4m3", gen).float() / 4).to(
         torch.float8_e4m3fn).expand(b, hkv, s, d).contiguous()
@@ -108,8 +125,12 @@ def _attn_case(mode, gen):
     return q, k, v, kw
 
 
+ATTN_MODES = ["causal", "window", "full", "kv", "chunk", "chunk_window",
+              "holes"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["causal", "window", "full", "kv", "chunk"])
+@pytest.mark.parametrize("mode", ATTN_MODES)
 def test_attention_kernel_matches_plain(card, mode):
     gen = torch.Generator().manual_seed(4)
     q, k, v, kw = _attn_case(mode, gen)
@@ -127,7 +148,7 @@ def test_attention_kernel_matches_plain(card, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["causal", "window", "full", "kv", "chunk"])
+@pytest.mark.parametrize("mode", ATTN_MODES)
 @pytest.mark.parametrize("rounding", ["rne", "sr"])
 def test_attention_kernel_matches_plain_stepped_scores(card, mode, rounding):
     """Scores that step up by one per 128-column kv block (or sit at -224,
@@ -135,23 +156,7 @@ def test_attention_kernel_matches_plain_stepped_scores(card, mode, rounding):
     by exp(-1), and P is quantized off the grid (f_p = 0.3). Held against
     the plain version run on the card (the same exp), bit for bit."""
     from repro_torch.kernels.fp8_attention import ref
-    gen = torch.Generator().manual_seed(5)
-    _, _, v, kw = _attn_case(mode, gen)
-    b, hkv, s, d = v.shape
-    if mode == "chunk":
-        kw["chunk_pos"] = torch.tensor([[142, 8], [130, 1], [0, 5]]).int()
-        kw["kv_mask"] = torch.where(torch.arange(s)[None] < torch.tensor(
-            [[150], [131], [9]]), torch.arange(s)[None], -1).int()
-    t = 8 if mode == "chunk" else s
-    q = torch.zeros((b, 4, t, d))
-    q[..., 0] = 1
-    k = exact_fp8((b, hkv, s, d), "e4m3", gen).float()
-    k[..., 0] = torch.where(torch.rand((b, hkv, s), generator=gen) < 0.5,
-                            (torch.arange(s) // 128).float(), -224.0)
-    q, k = (x.to(torch.float8_e4m3fn).to(card) for x in (q, k))
-    v = v.to(card)
-    kw = {n: x.to(card) if isinstance(x, torch.Tensor) else x
-          for n, x in kw.items()}
+    q, k, v, kw = _stepped_case(mode, "e4m3", card)
     fk = dict(fmt_s="e4m3", fmt_p="e4m3", rounding_s=rounding,
               rounding_p=rounding)
     scal = [1.0, 1.0, 0.3, 1.5]
@@ -160,6 +165,77 @@ def test_attention_kernel_matches_plain_stepped_scores(card, mode, rounding):
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+def _stepped_case(mode, fmt, card):
+    """The stepped-scores fixture (q picks key dim 0, which holds the
+    column's kv block index or -224) on the card, in `fmt`."""
+    gen = torch.Generator().manual_seed(5)
+    _, _, v, kw = _attn_case(mode, gen)
+    b, hkv, s, d = v.shape
+    if mode in ("chunk", "chunk_window"):
+        kw["chunk_pos"] = torch.tensor([[142, 8], [130, 1], [0, 5]]).int()
+        kw["kv_mask"] = torch.where(torch.arange(s)[None] < torch.tensor(
+            [[150], [131], [9]]), torch.arange(s)[None], -1).int()
+    t = {"chunk": 8, "chunk_window": 8, "holes": 160}.get(mode, s)
+    q = torch.zeros((b, 4, t, d))
+    q[..., 0] = 1
+    k = exact_fp8((b, hkv, s, d), "e4m3", gen).float()
+    k[..., 0] = torch.where(torch.rand((b, hkv, s), generator=gen) < 0.5,
+                            (torch.arange(s) // 128).float(), -224.0)
+    dt = FP8[fmt][0]
+    q, k, v = (x.float().to(dt).to(card) for x in (q, k, v))
+    kw = {n: x.to(card) if isinstance(x, torch.Tensor) else x
+          for n, x in kw.items()}
+    return q, k, v, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+def test_attention_kernel_matches_plain_unsaturated_overflow(card, fmt,
+                                                             rounding):
+    """The stepped fixture with f_s so large (64 e4m3, 512 e5m2) that the
+    -224 scores pass the format's max normal, unsaturated: they become NaN
+    (e4m3: their rows and the S amax turn NaN) or -inf (e5m2: they act as
+    masked, the S amax is inf); the block steps become 64 / 512, whose exp
+    is negligible beside 1, so every sum stays exact. Held against the
+    plain version run on the card, bit for bit with NaN where NaN."""
+    from repro_torch.kernels.fp8_attention import ref
+    q, k, v, kw = _stepped_case("causal", fmt, card)
+    fk = dict(fmt_s=fmt, fmt_p=fmt, rounding_s=rounding, rounding_p=rounding,
+              saturate_s=False, saturate_p=False)
+    scal = [64.0 if fmt == "e4m3" else 512.0, 1.0, 0.3, 1.5]
+    got = attn.fp8_attention_fwd(q, k, v, 4, scal, **kw, **fk)
+    want = ref.fp8_attention_fwd_ref(q, k, v, 4, scal, **kw, **fk)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(want[1])
+    for x, y in zip(got, want):
+        assert bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+@pytest.fixture(scope="module")
+def fwd_probe_lib(tmp_path_factory):
+    """Kernel 2 built with -DFWD_PROBE: it records the schedule it ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run on the card")
+    from repro_torch.kernels.fp8_attention import probe
+    return probe.build_fwd_probe(tmp_path_factory.mktemp("fwd_probe"))[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ATTN_MODES)
+def test_attention_kernel_runs_the_stated_schedule(card, fwd_probe_lib, mode):
+    """The q tile each block took, the kv blocks it visited and the warps
+    that skipped their epilogue, as the kernel recorded them, are those
+    ops.fwd_tile_order / fwd_live_blocks / fwd_dead_warps state (the rule
+    the CPU tests hold against the plain mask)."""
+    from repro_torch.kernels.fp8_attention import probe
+    q, k, v, kw = _attn_case(mode, torch.Generator().manual_seed(4))
+    gkw = {n: x.to(card) if isinstance(x, torch.Tensor) else x
+           for n, x in kw.items()}
+    assert probe.fwd_schedule_faults(fwd_probe_lib, q.to(card), k.to(card),
+                                     v.to(card), gkw) == []
 
 
 @pytest.mark.gpu
