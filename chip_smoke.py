@@ -5,9 +5,9 @@
 
 Phases, each of which raises on failure (there is no CPU fallback):
   1. build the four CUDA libraries from src/repro_torch/csrc (one nvcc
-     each, in parallel, beside a probe build of the attention forward
-     that records the schedule it ran) and print ptxas' register /
-     shared-memory report;
+     each, in parallel, beside probe builds of the attention forward and
+     of the dK/dV kernel that record the schedule they ran) and print
+     ptxas' register / shared-memory report;
   2. hold each kernel against its plain PyTorch version on the card, at
      the serving path's and the training path's shapes: outputs bitwise
      on exact-accumulation inputs, a grid-neighbour flip-rate bound (GEMM),
@@ -16,8 +16,13 @@ Phases, each of which raises on failure (there is no CPU fallback):
      planted fault exceeds (attention backward) on general inputs, amaxes
      equal; hold the attention forward's schedule (the q tile of each
      block, the kv blocks it visits, the warps that skip their epilogue,
-     read from the probe build) to the rule the wrapper states;
-     and time kernel, plain version, a library yardstick and the bound;
+     read from the probe build) and the dK/dV kernel's (each block's head,
+     kv block and visited q tiles) to the rules the wrapper states; hold
+     the backward bitwise on a fixture whose unsaturated dP overflows at
+     masked positions (NaN included), and two dK/dV launches bitwise equal
+     on every backward input; and time kernel, plain version, a library
+     yardstick and the bound (the dK/dV kernel's main and group-sum
+     kernels apart);
   3. calibrate qwen2-1.5b at full width and depth (random weights from a
      seed) on 2 seeded batches, and freeze the scales;
   4. serve 4 seeded requests through PagedServeEngine (greedy), with the
@@ -50,9 +55,11 @@ the attention backward's dQ kernel (the stash variant for kv spans of up
 to 512 columns, the four-pass one past them) against the plain version
 and against each other. The start of the run prints the shared memory,
 registers, spills and blocks per SM of the attention forward, of the dQ
-stash variant and of every GEMM variant (a forward that spills fails). The line before the last is a JSON object with one entry
-per kernel (kernel 3's with its two variants, the GEMM's and kernel 5's
-with their tile widths; launches: the fused GEMM's and the attention
+stash variant, of the dK/dV kernel and of every GEMM variant (a forward or
+dK/dV kernel that spills fails, as does one below its blocks per SM). The
+line before the last is a JSON object with one entry per kernel (kernel
+3's with its two variants, kernel 4's with its two kernels, the GEMM's and
+kernel 5's with their tile widths; launches: the fused GEMM's and the attention
 kernels' from phase 6, the unfused GEMM's from phase 8, the
 stochastic-rounding kernels' from the op's path); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -860,6 +867,7 @@ PROJ = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 # of dq / dk / dv (set from readings, PERF.md; a planted unquantized dS
 # must exceed it).
 ATTN_BWD_REL_L2 = 1e-3
+DKV_BLOCKS_PER_SM = 2              # the dK/dV kernel's residency target
 
 
 def train_gemm_cases():
@@ -1111,6 +1119,9 @@ def check_attention_bwd(dev):
                         q, k, v, do, 7, scal, with_stats=True, **kw)
                     stats = at.fp8_attention_bwd_dq(
                         q, kp, vp, do, 7, scal, q_len=s, s_len=s, **kw)[1:4]
+                    twice = [at.fp8_attention_bwd_dkv(
+                        q, kp, vp, do, 7, scal, *stats, q_len=s, s_len=s,
+                        **kw) for _ in range(2)]
                     torch.cuda.synchronize()
                     tag = (f"attention bwd {mask} B={b} S={s} {recipe} {kind}"
                            f" {rnd}")
@@ -1125,10 +1136,14 @@ def check_attention_bwd(dev):
                         raise AssertionError(
                             f"{tag}: {bad} not bitwise (dq max diff "
                             f"{(got[0] - want[0]).abs().max().item()})")
+                    if not all(same_bits(x, y) for x, y in zip(*twice)):
+                        raise AssertionError(f"{tag}: two launches of the "
+                                             "dK/dV kernel differ")
                     n += 1
     log(f"attention bwd: {n} exact-input cases (uniform, stepped; shapes "
         f"{list(BWD_EXACT_SHAPES)}) "
-        "bitwise equal to the plain version (dq, dk, dv, amaxes, m, l, rd)")
+        "bitwise equal to the plain version (dq, dk, dv, amaxes, m, l, rd); "
+        "two dK/dV launches bitwise equal in each")
     worst, fault = 0.0, float("inf")
     orig = at_ref._ds_block
     for recipe, (fa, fe) in BWD_RECIPES.items():
@@ -1151,6 +1166,13 @@ def check_attention_bwd(dev):
                 raise AssertionError(
                     f"attention bwd general {recipe} {rnd}: the dQ kernel's "
                     "stash and long variants differ")
+            twice = [at.fp8_attention_bwd_dkv(q, k, v, do, 7, scal,
+                                              *stash[1:4], **lens, **kw)
+                     for _ in range(2)]
+            if not all(same_bits(x, y) for x, y in zip(*twice)):
+                raise AssertionError(f"attention bwd general {recipe} {rnd}:"
+                                     " two launches of the dK/dV kernel "
+                                     "differ")
             at_ref._ds_block = lambda p_d, dp_d, rd, bits, *, f_ds, **_: \
                 (p_d * (dp_d - rd)) * f_ds
             try:
@@ -1158,17 +1180,19 @@ def check_attention_bwd(dev):
                                                       **kw)
             finally:
                 at_ref._ds_block = orig
-            rel = max(((g - w).norm() / w.norm()).item()
-                      for g, w in zip(got[:3], want[:3]))
+            rels = [((g - w).norm() / w.norm()).item()
+                    for g, w in zip(got[:3], want[:3])]
+            rel = max(rels)
             rel_f = min(max(((g - w).norm() / w.norm()).item()
                             for g, w in zip(got[:3], faulty[:3])), 1e9)
             worst, fault = max(worst, rel), min(fault, rel_f)
             same = torch.equal(got[3], want[3]) and torch.equal(got[4],
                                                                want[4])
-            log(f"attention bwd general {recipe} {rnd}: rel L2 {rel:.3e} "
+            log(f"attention bwd general {recipe} {rnd}: rel L2 dq "
+                f"{rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
                 f"(planted unquantized dS {rel_f:.3e}), amaxes "
                 f"{'equal' if same else 'DIFFER'}; dQ stash and long "
-                "variants bitwise equal")
+                "variants bitwise equal; two dK/dV launches bitwise equal")
             if rel > ATTN_BWD_REL_L2 or not same:
                 raise AssertionError(f"attention bwd general {recipe} {rnd}:"
                                      f" rel L2 {rel}, amaxes equal {same}")
@@ -1176,6 +1200,98 @@ def check_attention_bwd(dev):
         raise AssertionError(f"planted unquantized dS reads {fault:.3e}, "
                              f"within the bound {ATTN_BWD_REL_L2}")
     return worst
+
+
+def bwd_overflow_fixture(fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
+                         s=TRAIN_S, d=128):
+    """The uniform exact fixture with dP overflowing e5m2 at masked
+    positions inside a visited pair, and nowhere else: rows r < 32 take dO
+    = 2^14 at dim d-1, columns 64 <= c < 128 take V = 256 there; the
+    other rows' dO lies in dims below d-1, V is 0 at dim d-1 elsewhere. So
+    dP = 2^22 (2^16 after f_dp: inf, unsaturated) exactly where c > r in
+    the (q tile 0, kv block 0) pair, and 0 at those rows' attended columns.
+    P = 0 there makes P * dP NaN, so rd and every dS of rows 0-31 turn NaN,
+    and with them dq's rows 0-31 and dk's rows 0-127 (the only kv block q
+    tile 0 visits), as in the plain version; the rest stays exact."""
+    import torch
+    q, k, v, do, scal = bwd_fixture("uniform", fmt_a, fmt_e, gen, dev, b=b,
+                                    h=h, hkv=hkv, s=s, d=d)
+    rows = torch.arange(s, device=dev)
+    eye = torch.eye(d, device=dev)
+    dof = do.float()
+    dval = dof.abs().amax(-1, keepdim=True) * torch.sign(dof.sum(-1, True))
+    normal = eye[torch.randint(0, d - 1, (b, h, s), generator=gen,
+                               device=dev)] * dval
+    do = torch.where((rows < 32)[:, None], eye[d - 1] * 2.0 ** 14, normal)
+    vf = v.float()
+    vf[..., d - 1] = torch.where((rows >= 64) & (rows < 128), 256.0, 0.0)
+    return q, k, vf.to(v.dtype), do.to(fp8_dtype(fmt_e)), scal
+
+
+def check_attention_bwd_overflow(dev):
+    """Kernels 3 and 4 on bwd_overflow_fixture (both recipes, RNE and SR,
+    the unsaturated e5m2 dP of the backward's default) against the plain
+    version on the card: dq / dk / dv and the amaxes bitwise, NaN where
+    NaN; dk must hold NaN; two dK/dV launches bitwise equal."""
+    import torch
+    from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_attention import ref as at_ref
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 0
+    for mask, b, s, _ in BWD_EXACT_SHAPES[:1] + BWD_EXACT_SHAPES[3:4]:
+        for recipe, (fa, fe) in BWD_RECIPES.items():
+            q, k, v, do, scal = bwd_overflow_fixture(fa, fe, gen, dev, b=b,
+                                                     s=s)
+            kp, vp = (at._pad_bytes(x, 2, 128) for x in (k, v))
+            for rnd in ("rne", "sr"):
+                kw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, fmt_e=fe,
+                          rounding_s=rnd, rounding_p=rnd, rounding_e=rnd,
+                          saturate_e=False)
+                got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
+                want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal,
+                                                    **kw)
+                stats = at.fp8_attention_bwd_dq(
+                    q, kp, vp, do, 7, scal, q_len=s, s_len=s, **kw)[1:4]
+                twice = [at.fp8_attention_bwd_dkv(
+                    q, kp, vp, do, 7, scal, *stats, q_len=s, s_len=s, **kw)
+                    for _ in range(2)]
+                torch.cuda.synchronize()
+                tag = f"attention bwd overflow {mask} B={b} S={s} {recipe} {rnd}"
+                if not bool(torch.isnan(want[1]).any()):
+                    raise AssertionError(f"{tag}: the fixture did not overflow")
+                bad = [nm for nm, g, w in zip(("dq", "dk", "dv", "amax_dp",
+                                               "amax_ds"), got, want)
+                       if not same_bits(g, w)]
+                if bad:
+                    raise AssertionError(f"{tag}: {bad} not bitwise")
+                if not all(same_bits(x, y) for x, y in zip(*twice)):
+                    raise AssertionError(f"{tag}: two dK/dV launches differ")
+                n += 1
+                nan_rows = torch.isnan(want[1]).any(-1).float().mean().item()
+    log(f"attention bwd unsaturated-overflow fixture: {n} cases bitwise "
+        f"equal to the plain version, NaN included ({nan_rows:.3f} of dk's "
+        "rows NaN in the last, the rest finite); two dK/dV launches bitwise "
+        "equal in each")
+
+
+def check_dkv_schedule(dev, probe_lib):
+    """The schedule the dK/dV kernel ran (its probe build's records: each
+    block's head, batch row and kv block, and the q tiles it visited) is
+    the one ops.dkv_block_order / dkv_live_tiles state, at the training
+    shape, a windowed causal S=2048 and a ragged full S=968."""
+    from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_attention import probe
+    cases = probe.dkv_case_list(dev)
+    n = 0
+    for case in cases:
+        faults = probe.dkv_schedule_faults(probe_lib, case)
+        if faults:
+            raise AssertionError(f"dK/dV schedule, {case[0]}: "
+                                 f"{len(faults)} blocks differ: {faults[:3]}")
+        q, k = case[1], case[2]
+        n += q.shape[0] * q.shape[1] * len(at.dkv_block_order(k.shape[2]))
+    log(f"dK/dV schedule: {n} blocks over {len(cases)} layouts ran "
+        "ops.dkv_block_order / dkv_live_tiles")
 
 
 def fp8_dtype(fmt):
@@ -1242,6 +1358,9 @@ def time_attention_bwd(dev):
     ms_dq_long = min(t_dq["long"])
     ms_dkv = cuda_ms(lambda: at.fp8_attention_bwd_dkv(
         q, k, v, do, 7, scal, m, l, rd, **lens, **kw))
+    parts = dkv_part_ms(lambda: at.fp8_attention_bwd_dkv(
+        q, k, v, do, 7, scal, m, l, rd, **lens, **kw))
+    ms_bwd = cuda_ms(lambda: at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw))
     plain = cuda_ms(lambda: at_ref.fp8_attention_bwd_ref(
         q, k, v, do, 7, scal, **kw), iters=3)
     got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
@@ -1265,6 +1384,14 @@ def time_attention_bwd(dev):
         f"{t_dq['long']}; bound {b_dq[0]:.4f} ms, {b_dq[1]}), dK/dV kernel "
         f"{ms_dkv:.4f} ms (bound {b_dkv[0]:.4f} ms, {b_dkv[1]}), plain "
         f"{plain:.4f} ms, sdpa backward (bf16) {lib:.4f} ms [{CARD}]")
+    # The parts carry no bound of their own: the group sum's scratch exists
+    # only by the design, so the function's bound (b_dkv) is the one bound.
+    log("dK/dV kernel by part (device time, profiler): " + (", ".join(
+        f"{p['name']} ({p['symbol']}) {p['ms']:.4f} ms" for p in parts)
+        if parts else "not measured") + f"; the function's bound "
+        f"{b_dkv[0]:.4f} ms; whole backward (dQ + dK/dV kernels, one "
+        f"wrapper call) {ms_bwd:.4f} ms against sdpa's bf16 backward "
+        f"{lib:.4f} ms: {ms_bwd / lib:.2f}x [{CARD}]")
     long_row = time_attention_bwd_long(dev, gen)
     # The forward kernel at the same shape (the training path's).
     fscal = [0.088388, 1.0, 1.0, 1.0]
@@ -1304,7 +1431,36 @@ def time_attention_bwd(dev):
                        max_abs_err=err_dq, **common),
             "dq_long": long_row,
             "dkv": dict(ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                        max_abs_err=err_dkv, **common)}
+                        max_abs_err=err_dkv, parts=parts, whole_bwd_ms=ms_bwd,
+                        **common)}
+
+
+def dkv_part_ms(fn, iters: int = 20):
+    """Device ms per call of each of the dK/dV wrapper's two kernels
+    (attn_bwd_dkv_kernel_head, attn_bwd_dkv_kernel_group_sum) over `iters`
+    calls of fn under torch.profiler; [] where the trace holds no device
+    time (a measurement, not a check)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 — a measurement, reported
+        log(f"dK/dV parts: not measured ({type(e).__name__}: {e})")
+        return []
+    out = []
+    for name, sym in (("main", "attn_bwd_dkv_kernel_head"),
+                      ("group_sum", "attn_bwd_dkv_kernel_group_sum")):
+        us = sum(e.self_device_time_total for e in events if sym in e.key)
+        if us <= 0:
+            return []
+        out.append(dict(name=name, symbol=sym, ms=us / 1e3 / iters))
+    return out
 
 
 def time_attention_bwd_long(dev, gen):
@@ -1725,7 +1881,7 @@ def profile_train(one_step, batches):
     out = {name: dev_ms(lambda k, s=sym: s in k) for name, sym in (
         ("fp8_attention_fwd", "attn_fwd_kernel"),
         ("fp8_attention_bwd_dq", "attn_bwd_dq_kernel"),
-        ("fp8_attention_bwd_dkv", "attn_bwd_dkv_kernel"),
+        ("fp8_attention_bwd_dkv", "attn_bwd_dkv_kernel"),  # _head, _group_sum
         ("fused_quant_matmul", "fqmm"))}
     out["fp8_matmul"] = range_ms("fp8_matmul")
     out["fused_quant_matmul"] -= out["fp8_matmul"]
@@ -2142,15 +2298,19 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    # The attention forward's probe build (it records its schedule) beside
-    # the four libraries, all nvcc processes at once.
+    # The probe builds of the attention forward and of the dK/dV kernel
+    # (they record the schedule they ran) beside the four libraries, all
+    # nvcc processes at once.
     from repro_torch.kernels.fp8_attention import probe as at_probe
-    probe_dir = kbuild.build_dir() / "fwd_probe"
-    probe_dir.mkdir(parents=True, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        probe_build = pool.submit(at_probe.build_fwd_probe, probe_dir)
+    probe_dirs = [kbuild.build_dir() / n for n in ("fwd_probe", "dkv_probe")]
+    for d in probe_dirs:
+        d.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        probe_build = pool.submit(at_probe.build_fwd_probe, probe_dirs[0])
+        dkv_build = pool.submit(at_probe.build_dkv_probe, probe_dirs[1])
         kbuild.build(kbuild.KERNELS)
         fwd_probe = probe_build.result()[0]
+        dkv_probe = dkv_build.result()[0]
     for name in kbuild.KERNELS:
         rep = [ln.strip() for ln in kbuild.BUILD_LOGS.get(name, "").splitlines()
                if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -2158,8 +2318,7 @@ def main() -> int:
             + " | ".join(rep))
     bwd = kbuild.load("fp8_attention_bwd")
     log(f"dynamic shared memory per block: fp8_attention_bwd dQ (long-span "
-        f"variant) {bwd.attn_bwd_dq_smem_bytes()} bytes, dK/dV "
-        f"{bwd.attn_bwd_dkv_smem_bytes()} bytes")
+        f"variant) {bwd.attn_bwd_dq_smem_bytes()} bytes")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     # Every phase runs even if an earlier one failed (one call to the card
@@ -2175,6 +2334,20 @@ def main() -> int:
     if err or info[3] < 2:
         failures.append(f"dQ stash variant: cudaError {err}, {info[3]} "
                         "blocks per SM (2 expected)")
+    dkv_info = (ctypes.c_int * 6)()
+    err = bwd.attn_bwd_dkv_info(dkv_info)
+    log(f"fp8_attention_bwd dK/dV kernel (attn_bwd_dkv_kernel_head): "
+        f"{dkv_info[0]} bytes of dynamic shared memory, {dkv_info[1]} "
+        f"registers and {dkv_info[2]} local (spill) bytes a thread, "
+        f"{dkv_info[3]} blocks per SM; its group sum "
+        f"(attn_bwd_dkv_kernel_group_sum): {dkv_info[4]} registers and "
+        f"{dkv_info[5]} local (spill) bytes a thread (cudaError {err})")
+    if err or dkv_info[2] or dkv_info[5] \
+            or dkv_info[3] < DKV_BLOCKS_PER_SM:
+        failures.append(f"dK/dV kernel: cudaError {err}, {dkv_info[2]} and "
+                        f"{dkv_info[5]} spill bytes (0 expected), "
+                        f"{dkv_info[3]} blocks per SM "
+                        f"({DKV_BLOCKS_PER_SM} expected)")
     nk = TRAIN_S // at.LANE
     err = kbuild.load("fp8_attention_fwd").attn_fwd_info(nk, info)
     log(f"fp8_attention_fwd at S={TRAIN_S}: {info[0]} bytes of dynamic shared "
@@ -2218,6 +2391,8 @@ def main() -> int:
     phase(check_attention_schedule, dev, fwd_probe)
     phase(check_attention, dev)
     phase(check_attention_bwd, dev)
+    phase(check_attention_bwd_overflow, dev)
+    phase(check_dkv_schedule, dev, dkv_probe)
     attn_rows = phase(time_attention_bwd, dev)
     calib = phase(calibrate_full, dev)
     if calib is not None:
@@ -2310,6 +2485,8 @@ def main() -> int:
              launches=trained["dq_variants"]["long"],
              shape=attn_rows["dq_long"]["shape"],
              **{k: attn_rows["dq_long"][k] for k in keys})]
+    # Kernel 4's two kernels, each by its device time (profiler).
+    kernels[3]["parts"] = attn_rows["dkv"]["parts"]
     log(f"total {time.perf_counter() - t_all:.1f} s; training "
         f"{trained['tokens_s']:.0f} tokens/s (hybrid, delayed scaling), "
         f"{paper['tokens_s']:.0f} tokens/s (paper recipe) on {card}")

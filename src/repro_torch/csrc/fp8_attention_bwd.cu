@@ -70,35 +70,54 @@
 //
 // Both write dQ * f_dq and the per-row m, l, rd in f32 for kernel 2.
 //
-// Kernel 2 (dK/dV): one block per (b, hkv, 64 kv rows), four warps of 16
-// kv rows. It loops over the GQA members in head order, then the 128-row q
-// tiles that attend this kv block, recomputing S^T = K . Q^T and
-// dP^T = V . dO^T (the accumulator layout is then the A-operand layout of
-// dS^T and P8^T), and adds each tile's dS8^T . q8 and P8^T . do8 to f32
-// accumulators in shared memory in that fixed order: no atomics, so the
-// add chain is the reference's and the result does not change from run to
-// run. The scale is applied once, at the end.
+// Kernel 2 (dK/dV, attn_bwd_dkv_kernel_head): one block per (query head
+// h, batch row b, 64 kv rows), one warpgroup, two blocks an SM. It runs head
+// h's part of the chain: the 128-row q tiles whose kv_span holds its kv
+// rows, in ascending order, each in two steps of 64 q rows. A step:
+//  - copies: a 2-stage cp.async ring holds the next steps' q and dO bytes
+//    and their m, l, rd rows (rows past Q read as zeros); each stage is
+//    widened exactly into 128-byte-swizzled f16 tiles, which serve as
+//    K-major B operands of S^T and dP^T and, as they lie, as MN-major B
+//    operands of dK and dV; K and V are widened once, as the A operands;
+//  - S^T = K . Q^T on wgmma m64n64k16; the epilogue per score, a run of
+//    branch-free Q nodes folded at compile time for the call's rounding,
+//    saturation and format (S and P on Q_A, dP and dS on Q_E), the SR hash
+//    prefixes taken once per q row of the step (the accumulator's column in
+//    this transposed layout), exp(ok ? x - m : -inf) and the division by
+//    d_safe as fp8_epilogue.cuh's div_rn with 1 / d_safe taken once a row;
+//  - dV += P8^T . dO8 and dK += dS8^T . Q8 on register-A wgmma m64n128k16
+//    (the accumulator layout of S^T is the A layout) into f32 registers
+//    that live across the chain; dP^T = V . dO^T on m64n64k16.
+// Every score of a visited (q tile, kv block) pair is computed, masked
+// ones too (P = 0, so an unsaturated dP that overflows gives dS = NaN, as
+// in the plain version). The skip set is kv_span's, as in kernel 1.
+//
+// Association: the reference adds the (GQA member, q tile) parts of dK and
+// dV in one flat chain. Here each member's chain accumulates in the wgmma
+// accumulator; with a GQA group of one the block writes dK * f_dk and
+// dV * f_dv. Else each block writes head h's raw partials into a scratch
+// that attn_bwd_dkv_kernel_group_sum adds in head order,
+// ((P_0 + P_1) + P_2) ..., before scaling once. No atomics: the result
+// does not change from run to run. On inputs whose every partial sum is
+// exact (the exact fixtures) it equals the flat chain bit for bit.
 //
 // Both files' arithmetic is built with --fmad=false and the epilogues use
-// __fmul_rn / __fadd_rn / __fdiv_rn, so every product and sum is rounded
-// on its own, as in the reference.
+// __fmul_rn / __fadd_rn / __fdiv_rn (or div_rn), so every product and sum
+// is rounded on its own, as in the reference.
 //
 // What bounds them (H100 SXM at 700 W; chip_smoke.py and the probe,
 // kernels/fp8_attention/probe.py): at the training shape (B=4, H=12,
 // Hkv=2, S=512, D=128, causal) each kernel moves ~1-7 MB and does ~10
 // GFLOP of matrix products, a few microseconds at the card's rates (bounds
-// 6.0 and 3.5 us). Kernel 1's stash variant reads 0.18 ms: the products
-// are a few percent of it; the rest is the per-score epilogue (4 SR hashes,
-// 4 quantizations, 2 exp, an IEEE division and 8 fp8 conversions on each
-// of ~7.9 M scores; P8 and rd are the largest pass, 35% of a longest-span
-// tile) and the grid's tail (84% of the block slots busy). The long-span
-// variant (4.1 ms at the same shape) and kernel 2 (3.9 ms) are bound by
-// their recomputation, their shared-memory accumulators and one block an
-// SM, and kernel 2 by its 64 blocks on 132 SMs. fp8 wgmma, TMA and a wider
-// dK/dV grid are later work.
+// 6.0 and 3.5 us). Both visit the same ~7.9 M scores and are bound by
+// their per-score epilogues (4 SR hashes, 4 quantizations, exp, a division
+// and the fp8 conversions) and the grid's tail; PERF.md holds the times
+// and the probes' split. The long-span variant of kernel 1 is bound by its
+// recomputation, its shared-memory accumulator and one block an SM.
 #include <algorithm>
 
 #include "fp8_epilogue.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -112,6 +131,18 @@ using fp8::word_to_f32;
 using fp8::hash_row;
 using fp8::hash_col;
 using fp8::with_flag;
+using fp8::with_qnode;
+using fp8::cp_commit;
+using fp8::cp_wait;
+using fp8::fence_acc;
+using fp8::fence_async_smem;
+using fp8::slice_desc;
+using fp8::wg_commit;
+using fp8::wg_fence;
+using fp8::wg_wait;
+using fp8::widen2;
+using fp8::widen_tile;
+using fp8::widen_unit;
 
 constexpr int LANE = 128;  // kv columns per block (and q rows per dK tile)
 constexpr int D = 128;     // head dim (the wrapper zero-pads smaller heads)
@@ -196,13 +227,6 @@ __device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst,
 
 __device__ __forceinline__ uint32_t u32_at(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 values from two addresses packed as an mma operand register.
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* lo,
-                                         const __nv_bfloat16* hi) {
-  return (uint32_t)__bfloat16_as_ushort(*lo) |
-         ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
 }
 
 // acc[16][4] = A(16 rows of `a`, stride KS) . B^T, where B is 128 rows of
@@ -912,180 +936,447 @@ __global__ void __launch_bounds__(128, 2)
 // kernel 2: dK / dV
 // ---------------------------------------------------------------------------
 
-struct SmemDKV {
-  __nv_bfloat16 k[BKV][KS];   // [kv][d]: A operand of S^T
-  __nv_bfloat16 v[BKV][KS];   // [kv][d]: A operand of dP^T
-  __nv_bfloat16 q[TQ][KS];    // [q row][d]
-  __nv_bfloat16 dO[TQ][KS];
-  float dk[BKV][FS];
-  float dv[BKV][FS];
-  float m[TQ], dsafe[TQ], rd[TQ];
-};
+constexpr int DKV_THREADS = 128;  // one warpgroup; warp w: kv rows 16w .. 16w+15
+constexpr int QU = 64;            // q rows per step (half a 128-row q tile)
 
-// acc[dt] (+)= frag . rows(q or dO)[k = q row][n = d] for one half of D.
-__device__ __forceinline__ void tile_ab_half(float part[8][4],
-                                             const uint32_t frag[8][4],
-                                             const __nv_bfloat16* src,
-                                             int half) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// Shared memory, by byte offset (the f16 tiles 1024-byte aligned for the
+// 128-byte swizzle). Every f16 tile is two 64-wide d segments of 64 rows
+// (widen_unit's layout): K and V, the K-major A operands of S^T and dP^T;
+// the step's Q and dO, the K-major B operands of S^T and dP^T and, as they
+// lie, the MN-major B operands of dK and dV. A ring stage: the step's q and
+// dO fp8 bytes in load_tile's unit order, then its m, l and rd rows. The
+// step's rows: 1 / d_safe (double), m, rd and the four SR hash prefixes.
+constexpr int DK_KH = 0, DK_VH = DK_KH + BKV * D * 2;
+constexpr int DK_QH = DK_VH + BKV * D * 2, DK_DH = DK_QH + QU * D * 2;
+constexpr int DK_RING = DK_DH + QU * D * 2;
+constexpr int ST_Q = 0, ST_DO = QU * D, ST_STATS = 2 * QU * D;
+constexpr int DK_STAGE = ST_STATS + 3 * QU * 4;
+constexpr int DK_RCP = DK_RING + 2 * DK_STAGE;
+constexpr int DK_M = DK_RCP + QU * 8, DK_RD = DK_M + QU * 4;
+constexpr int DK_PRE = DK_RD + QU * 4;
+constexpr int DK_SMEM = DK_PRE + 4 * QU * 4;
+
+// cp.async of 16 (4) bytes that writes zeros for a source out of range.
+__device__ __forceinline__ void cp16_zfill(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4_zfill(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// The register A operand (four k slices of 16 q rows) from eight words of
+// fp8 bytes in the accumulator layout, widened exactly to f16.
+__device__ __forceinline__ void a_from_words(uint32_t (&a)[4][4],
+                                             const uint32_t (&w)[8], int fmt) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const int r = ks * 16 + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const int n = (half * 8 + dt) * 8 + g;
-      const uint32_t b0 = pair(src + r * KS + n, src + (r + 1) * KS + n);
-      const uint32_t b1 = pair(src + (r + 8) * KS + n, src + (r + 9) * KS + n);
-      fp8::mma_bf16(part[dt], frag[ks], b0, b1);
-    }
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = widen2(w[2 * ks], fmt);
+    a[ks][1] = widen2(w[2 * ks] >> 16, fmt);
+    a[ks][2] = widen2(w[2 * ks + 1], fmt);
+    a[ks][3] = widen2(w[2 * ks + 1] >> 16, fmt);
   }
 }
 
-__device__ __forceinline__ void add_half(float (*acc)[FS], int warp,
-                                         const float part[8][4], int half) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float& a = acc[warp * 16 + g + 8 * (e >> 1)]
-                    [(half * 8 + dt) * 8 + 2 * t + (e & 1)];
-      a = __fadd_rn(a, part[dt][e]);
-    }
+// Built with -DDKV_PROBE (kernels/fp8_attention/probe.py --dkv), thread 0 of
+// every block attributes its SM clock to the parts below and records the
+// block's start and end (global timer, ns), SM, (h, b, kv block) and the
+// 128-row q tiles it visited (probe.dkv_schedule_faults holds them against
+// ops.dkv_block_order and ops.dkv_live_tiles).
+enum DkvPart { D_STAGE, D_SPROD, D_SPEPI, D_DV, D_DPPROD, D_DSEPI, D_DK,
+               D_STORE, N_DPART };
+#ifdef DKV_PROBE
+constexpr int DKV_PROBE_BLOCKS = 16384, DKV_PROBE_WORDS = 9 + N_DPART;
+__device__ unsigned long long dkv_probe_blocks[DKV_PROBE_BLOCKS]
+                                              [DKV_PROBE_WORDS];
+__device__ __forceinline__ unsigned long long dkv_global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
+#define DKV_TICK(k)                  \
+  {                                  \
+    const long long now = clock64(); \
+    probe_c[k] += now - probe_last;  \
+    probe_last = now;                \
+  }
+#else
+#define DKV_TICK(k)
+#endif
 
-__global__ void __launch_bounds__(128) attn_bwd_dkv_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDKV& sm = *reinterpret_cast<SmemDKV*>(smem_raw);
+// One block per (query head h, batch row b, 64 kv rows): head h's part of
+// the dK / dV chain, the 128-row q tiles whose kv_span holds these rows in
+// ascending order, each in two steps of 64 q rows. With a GQA group of one
+// it writes dK * f_dk and dV * f_dv; else head h's raw partials into
+// `part` ((2, B, H, S, D) f32), which attn_bwd_dkv_kernel_group_sum adds.
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+    attn_bwd_dkv_kernel_head(Args p, float* part) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if (sbase & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int group = p.H / p.Hkv;
+  // ops.dkv_block_order: blockIdx.z walks the kv blocks ascending, along
+  // which the chains never grow (longest first).
+  const int h = blockIdx.x, b = blockIdx.y, kb = blockIdx.z;
+  const int group = p.H / p.Hkv, hk = h / group;
   const int kv0 = kb * BKV, jblk = kv0 / LANE;
+  const uint32_t bh = (uint32_t)(b * p.H + h);
   const uint32_t seed = *p.seed;
   const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
+  const long long qoff = (long long)(b * p.H + h) * p.Q * D;
+  const long long roff = (long long)(b * p.H + h) * p.Q;
+  const uint8_t* qg = p.q + qoff;
+  const uint8_t* dog = p.dO + qoff;
+#ifdef DKV_PROBE
+  const unsigned long long probe_ns = dkv_global_ns();
+  long long probe_c[N_DPART] = {};
+  const long long probe_clk = clock64();
+  long long probe_last = probe_clk;
+#endif
 
-  load_rows(&sm.k[0][0], p.k + kvoff, BKV, kv0, p.S, p.k_fmt);
-  load_rows(&sm.v[0][0], p.v + kvoff, BKV, kv0, p.S, p.v_fmt);
-  for (int i = tid; i < BKV * FS; i += 128) {
-    (&sm.dk[0][0])[i] = 0.f;
-    (&sm.dv[0][0])[i] = 0.f;
-  }
-  int cols[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) cols[i] = kv0 + warp * 16 + g + 8 * i;
-  const __nv_bfloat16* kw = &sm.k[warp * 16][0];
-  const __nv_bfloat16* vw = &sm.v[warp * 16][0];
+  // The q tiles whose kv_span holds this kv block: an interval
+  // (ops.dkv_live_tiles) under the causal (+ window) and full masks.
   const int nt_q = (p.Q + TQ - 1) / TQ;
-
-  for (int member = 0; member < group; ++member) {
-    const int h = hk * group + member;
-    const uint32_t bh = (uint32_t)(b * p.H + h);
-    const long long qoff = (long long)(b * p.H + h) * p.Q * D;
-    for (int tq = 0; tq < nt_q; ++tq) {
-      const int t0 = tq * TQ;
-      int jmin, jmax;
-      kv_span(p, t0, jmin, jmax);
-      if (jblk < jmin || jblk > jmax) continue;   // fully masked pair
-      __syncthreads();  // previous tile's q / dO / stats consumed
-      load_rows(&sm.q[0][0], p.q + qoff, TQ, t0, p.Q, p.q_fmt);
-      load_rows(&sm.dO[0][0], p.dO + qoff, TQ, t0, p.Q, p.do_fmt);
-      for (int r = tid; r < TQ; r += 128) {
-        const int row = t0 + r;
-        const long long ri = (long long)(b * p.H + h) * p.Q + row;
-        const bool in = row < p.Q;
-        const float lv = in ? p.l[ri] : 1.f;
-        sm.m[r] = in ? p.m[ri] : 0.f;
-        sm.dsafe[r] = lv > 0.f ? lv : 1.f;
-        sm.rd[r] = in ? p.rd[ri] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T (this warp's 16 kv rows x 128 q rows) -> P (dequantized).
-      float s[16][4];
-      tile_abt(s, kw, &sm.q[0][0]);
-      uint32_t pf[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        float pq[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qr = nt * 8 + 2 * t + (e & 1), row = t0 + qr;
-          const int col = cols[e >> 1];
-          const bool ok = row < p.Q && is_valid(p, row, col);
-          uint32_t rnd = p.sr_s ? fp8::hash_bits(seed, SALT_S, bh, row, col) : 0u;
-          const float sv = fp8::to_float(
-              fp8::quant(__fmul_rn(s[nt][e], p.f_s), rnd, p.fmt_s, p.sr_s,
-                         p.sat_s), p.fmt_s);
-          const float x = ok ? __fmul_rn(sv, p.s_s) : -1e30f;
-          const float ev = ok ? expf(__fsub_rn(x, sm.m[qr])) : 0.f;
-          rnd = p.sr_p ? fp8::hash_bits(seed, SALT_P, bh, row, col) : 0u;
-          pq[e] = fp8::to_float(
-              fp8::quant(__fmul_rn(__fdiv_rn(ev, sm.dsafe[qr]), p.f_p), rnd,
-                         p.fmt_p, p.sr_p, p.sat_p), p.fmt_p);
-          s[nt][e] = __fmul_rn(pq[e], p.s_p);
-        }
-        pack_a(pf, nt, pq);
-      }
-      // dV += P8^T . dO8
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float part[8][4];
-        tile_ab_half(part, pf, &sm.dO[0][0], half);
-        add_half(sm.dv, warp, part, half);
-      }
-      // dP^T = V . dO^T -> dS8^T
-      float dp[16][4];
-      tile_abt(dp, vw, &sm.dO[0][0]);
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        float dsq[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qr = nt * 8 + 2 * t + (e & 1), row = t0 + qr;
-          const int col = cols[e >> 1];
-          uint32_t rnd = p.sr_e ? fp8::hash_bits(seed, SALT_DP, bh, row, col) : 0u;
-          const float dpd = __fmul_rn(
-              fp8::to_float(fp8::quant(__fmul_rn(dp[nt][e], p.f_dp), rnd,
-                                       p.fmt_e, p.sr_e, p.sat_e), p.fmt_e),
-              p.s_dp);
-          rnd = p.sr_e ? fp8::hash_bits(seed, SALT_DS, bh, row, col) : 0u;
-          const float ds = __fmul_rn(s[nt][e], __fsub_rn(dpd, sm.rd[qr]));
-          dsq[e] = fp8::to_float(
-              fp8::quant(__fmul_rn(ds, p.f_ds), rnd, p.fmt_e, p.sr_e,
-                         p.sat_e), p.fmt_e);
-        }
-        pack_a(pf, nt, dsq);
-      }
-      // dK += dS8^T . Q8
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float part[8][4];
-        tile_ab_half(part, pf, &sm.q[0][0], half);
-        add_half(sm.dk, warp, part, half);
-      }
+  int tq_lo = nt_q, tq_hi = -1;
+  for (int tq = 0; tq < nt_q; ++tq) {
+    int jmin, jmax;
+    kv_span(p, tq * TQ, jmin, jmax);
+    if (jblk >= jmin && jblk <= jmax) {
+      tq_lo = min(tq_lo, tq);
+      tq_hi = tq;
     }
   }
+  const int nu = tq_hi >= tq_lo ? 2 * (tq_hi - tq_lo + 1) : 0;
+  auto row0_of = [&](int u) { return (tq_lo + (u >> 1)) * TQ + (u & 1) * QU; };
 
-  // dK * f_dk, dV * f_dv (rows of this thread).
+  // Step u's q and dO bytes and m, l, rd rows into ring stage st (rows at
+  // or past Q read as zeros: m = 0, d_safe = 1, rd = 0, q = dO = 0).
+  auto load = [&](int u, int st) {
+    const int r0 = row0_of(u);
+    const uint32_t s = sbase + DK_RING + st * DK_STAGE;
+#pragma unroll
+    for (int i = 0; i < QU * D / 16 / DKV_THREADS; ++i) {
+      const int un = tid + i * DKV_THREADS;
+      const int row = (un >> 2) % QU, seg = (un >> 2) / QU;
+      const bool in = r0 + row < p.Q;
+      const long long off =
+          (long long)(in ? r0 + row : 0) * D + seg * 64 + (un & 3) * 16;
+      cp16_zfill(s + ST_Q + un * 16, qg + off, in);
+      cp16_zfill(s + ST_DO + un * 16, dog + off, in);
+    }
+    for (int i = tid; i < 3 * QU; i += DKV_THREADS) {
+      const int r = i % QU;
+      const float* src = i < QU ? p.m : (i < 2 * QU ? p.l : p.rd);
+      const bool in = r0 + r < p.Q;
+      cp4_zfill(s + ST_STATS + i * 4, src + roff + (in ? r0 + r : 0), in);
+    }
+  };
+
+  // K and V, widened once (kv rows < S: the wrapper pads S).
+#pragma unroll
+  for (int i = 0; i < BKV * D / 16 / DKV_THREADS; ++i) {
+    const int un = tid + i * DKV_THREADS;
+    const int seg = un / (BKV * 4), row = (un >> 2) % BKV, q4 = un & 3;
+    const long long off =
+        kvoff + (long long)(kv0 + row) * D + seg * 64 + q4 * 16;
+    const uint4 xk = __ldg(reinterpret_cast<const uint4*>(p.k + off));
+    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(p.v + off));
+    widen_unit(smem + DK_KH + seg * (BKV * 128) + row * 128, row, q4, xk,
+               p.k_fmt);
+    widen_unit(smem + DK_VH + seg * (BKV * 128) + row * 128, row, q4, xv,
+               p.v_fmt);
+  }
+  if (nu > 0) load(0, 0);
+  cp_commit();
+  if (nu > 1) load(1, 1);
+  cp_commit();
+
+  // This thread's two kv rows (g and g + 8 of its warp's 16: the columns of
+  // its scores), and the q rows that attend each: is_valid, rows < Q.
+  int ccol[2], rlo[2], rhi[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int lr = warp * 16 + g + 8 * hf;
-    const long long r = (long long)(b * p.Hkv + hk) * p.S + kv0 + lr;
+    const int c = kv0 + warp * 16 + g + 8 * hf;
+    ccol[hf] = c;
+    rlo[hf] = c >= p.s_len ? p.Q : (p.causal ? c : 0);
+    rhi[hf] = (p.causal && p.window) ? min(c + p.window - 1, p.Q - 1)
+                                     : p.Q - 1;
+  }
+  float dk[64], dv[64];
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
-      const int col = dt * 8 + 2 * t;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        p.dk[r * D + col + c] = __fmul_rn(sm.dk[lr][col + c], p.f_dk);
-        p.dv[r * D + col + c] = __fmul_rn(sm.dv[lr][col + c], p.f_dv);
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  const double* rowr = reinterpret_cast<const double*>(smem + DK_RCP);
+  const float* rowm = reinterpret_cast<const float*>(smem + DK_M);
+  const float* rowrd = reinterpret_cast<const float*>(smem + DK_RD);
+  const uint32_t* pre = reinterpret_cast<const uint32_t*>(smem + DK_PRE);
+  const uint32_t sk = sbase + DK_KH, sv = sbase + DK_VH;
+  const uint32_t sq = sbase + DK_QH, sd = sbase + DK_DH;
+  DKV_TICK(D_STAGE)
+
+  for (int u = 0; u < nu; ++u) {
+    const int st = u & 1, r0 = row0_of(u);
+    cp_wait<1>();
+    __syncthreads();  // stage st landed; the previous step's tiles consumed
+    {
+      const uint8_t* s = smem + DK_RING + st * DK_STAGE;
+      widen_tile<D, true, DKV_THREADS>(smem + DK_QH, s + ST_Q, p.q_fmt, tid);
+      widen_tile<D, true, DKV_THREADS>(smem + DK_DH, s + ST_DO, p.do_fmt, tid);
+      const float* stats = reinterpret_cast<const float*>(s + ST_STATS);
+      const int r = tid % QU;
+      if (tid < QU) {
+        const float l = stats[QU + r];
+        reinterpret_cast<double*>(smem + DK_RCP)[r] =
+            fp8::rcp_rn(l > 0.f ? l : 1.f);
+        reinterpret_cast<float*>(smem + DK_M)[r] = stats[r];
+        reinterpret_cast<float*>(smem + DK_RD)[r] = stats[2 * QU + r];
       }
+      // The SR hash prefixes of the step's rows: S and P (threads 0-63),
+      // dP and dS (64-127).
+      const uint32_t salt = tid < QU ? SALT_S : SALT_DP;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(smem + DK_PRE);
+      pw[(salt - SALT_S) * QU + r] = hash_row(seed, salt, bh, r0 + r);
+      pw[(salt + 1 - SALT_S) * QU + r] = hash_row(seed, salt + 1, bh, r0 + r);
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (u + 2 < nu) load(u + 2, st);
+    cp_commit();
+    DKV_TICK(D_STAGE)
+
+    // S^T = K . Q^T (64 kv rows x 64 q rows).
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    fence_acc(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      fp8::wgmma_n64<0, 0>(
+          s, slice_desc<false>(sk + (kk >> 2) * (BKV * 128), kk & 3),
+          slice_desc<false>(sq + (kk >> 2) * (QU * 128), kk & 3));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    DKV_TICK(D_SPROD)
+
+    // S8 per score into a word per fragment (byte e = element e), then P8
+    // over it. Fragment f holds q rows r0 + 8f + 2t + (e & 1) of kv rows
+    // ccol[e >> 1]: the SR prefixes and row statistics are read per row
+    // pair, the column step taken per score.
+    uint32_t w[8];
+    with_qnode(p.sr_s, p.sat_s, p.fmt_s, [&](auto qn) {
+      using QN = decltype(qn);
+      constexpr QConst qc = make_qconst(QN::FMT, QN::SAT);
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const int r = 8 * f + 2 * t;
+        const uint2 hs = QN::SR ? *reinterpret_cast<const uint2*>(pre + r)
+                                : make_uint2(0u, 0u);
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t q8 = quant_bf<QN::SR>(
+              __fmul_rn(s[4 * f + e], p.f_s),
+              QN::SR ? hash_col((e & 1) ? hs.y : hs.x, ccol[e >> 1]) : 0u,
+              qc);
+          word |= q8 << (8 * e);
+        }
+        w[f] = word;
+      }
+    });
+    with_qnode(p.sr_p, p.sat_p, p.fmt_p, [&](auto qn) {
+      using QN = decltype(qn);
+      constexpr QConst qc = make_qconst(QN::FMT, QN::SAT);
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const int r = 8 * f + 2 * t, row = r0 + r;
+        const float2 m2 = *reinterpret_cast<const float2*>(rowm + r);
+        const double2 y2 = *reinterpret_cast<const double2*>(rowr + r);
+        const uint2 hp = QN::SR
+                             ? *reinterpret_cast<const uint2*>(pre + QU + r)
+                             : make_uint2(0u, 0u);
+        float sv[4];
+        word_to_f32(w[f], p.fmt_s, sv);
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1, o = e & 1, qr = row + o;
+          const bool ok = qr >= rlo[hf] && qr <= rhi[hf];
+          // exp(-inf) = +0: the masked score's e, with no branch.
+          const float ev = expf(
+              ok ? __fsub_rn(__fmul_rn(sv[e], p.s_s), o ? m2.y : m2.x)
+                 : -INFINITY);
+          const uint32_t p8 = quant_bf<QN::SR>(
+              __fmul_rn(fp8::mul_rcp(ev, o ? y2.y : y2.x), p.f_p),
+              QN::SR ? hash_col(o ? hp.y : hp.x, ccol[hf]) : 0u, qc);
+          word |= p8 << (8 * e);
+        }
+        w[f] = word;
+      }
+    });
+    DKV_TICK(D_SPEPI)
+
+    // dV += P8^T . dO8 (P8 widened as the register A operand, dO the
+    // MN-major B operand), then dP^T = V . dO^T, in two groups.
+    uint32_t a[4][4];
+    a_from_words(a, w, p.fmt_p);
+    float dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dp[e] = 0.f;
+    fence_acc(dv);
+    fence_acc(dp);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < QU / 16; ++ks)
+      fp8::wgmma_n128_rs<1>(dv, a[ks], slice_desc<true>(sd, ks));
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      fp8::wgmma_n64<0, 0>(
+          dp, slice_desc<false>(sv + (kk >> 2) * (BKV * 128), kk & 3),
+          slice_desc<false>(sd + (kk >> 2) * (QU * 128), kk & 3));
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(dv);
+    fp8::keep_a(a);
+    DKV_TICK(D_DV)
+    wg_wait<0>();
+    fence_acc(dp);
+    DKV_TICK(D_DPPROD)
+
+    // dP8, then dS8 = Q_E(P * (dP - rd) * f_ds) per score.
+    uint32_t wd[8];
+    with_qnode(p.sr_e, p.sat_e, p.fmt_e, [&](auto qn) {
+      using QN = decltype(qn);
+      constexpr QConst qc = make_qconst(QN::FMT, QN::SAT);
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const int r = 8 * f + 2 * t;
+        const float2 rd2 = *reinterpret_cast<const float2*>(rowrd + r);
+        const uint2 hdp =
+            QN::SR ? *reinterpret_cast<const uint2*>(pre + 2 * QU + r)
+                   : make_uint2(0u, 0u);
+        const uint2 hds =
+            QN::SR ? *reinterpret_cast<const uint2*>(pre + 3 * QU + r)
+                   : make_uint2(0u, 0u);
+        float pv[4];
+        word_to_f32(w[f], p.fmt_p, pv);
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1, o = e & 1;
+          const uint32_t dp8 = quant_bf<QN::SR>(
+              __fmul_rn(dp[4 * f + e], p.f_dp),
+              QN::SR ? hash_col(o ? hdp.y : hdp.x, ccol[hf]) : 0u, qc);
+          const float dpd = __fmul_rn(byte_to_f32(dp8, QN::FMT), p.s_dp);
+          const float ds = __fmul_rn(__fmul_rn(pv[e], p.s_p),
+                                     __fsub_rn(dpd, o ? rd2.y : rd2.x));
+          const uint32_t ds8 = quant_bf<QN::SR>(
+              __fmul_rn(ds, p.f_ds),
+              QN::SR ? hash_col(o ? hds.y : hds.x, ccol[hf]) : 0u, qc);
+          word |= ds8 << (8 * e);
+        }
+        wd[f] = word;
+      }
+    });
+    DKV_TICK(D_DSEPI)
+
+    // dK += dS8^T . Q8 (Q the MN-major B operand), waited on before the
+    // next step's staging overwrites Q.
+    a_from_words(a, wd, p.fmt_e);
+    fence_acc(dk);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < QU / 16; ++ks)
+      fp8::wgmma_n128_rs<1>(dk, a[ks], slice_desc<true>(sq, ks));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(dk);
+    fp8::keep_a(a);
+    DKV_TICK(D_DK)
+  }
+  cp_wait<0>();
+
+  // dK * f_dk and dV * f_dv, or head h's raw partials.
+  const bool own = group == 1;
+  const long long ooff = own ? kvoff : (long long)(b * p.H + h) * p.S * D;
+  float* outk = own ? p.dk : part;
+  float* outv = own ? p.dv : part + (long long)p.B * p.H * p.S * D;
+  const float fk = own ? p.f_dk : 1.f, fv = own ? p.f_dv : 1.f;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const long long r = ooff + (long long)ccol[hf] * D;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int c = nt * 8 + 2 * t, i = 4 * nt + 2 * hf;
+      *reinterpret_cast<float2*>(outk + r + c) =
+          make_float2(__fmul_rn(dk[i], fk), __fmul_rn(dk[i + 1], fk));
+      *reinterpret_cast<float2*>(outv + r + c) =
+          make_float2(__fmul_rn(dv[i], fv), __fmul_rn(dv[i + 1], fv));
     }
   }
+#ifdef DKV_PROBE
+  DKV_TICK(D_STORE)
+  const int bid =
+      (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  if (tid == 0 && bid < DKV_PROBE_BLOCKS) {
+    unsigned int smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    unsigned long long* rec = dkv_probe_blocks[bid];
+    rec[0] = probe_ns;
+    rec[1] = dkv_global_ns();
+    rec[2] = smid;
+    rec[3] = clock64() - probe_clk;
+    rec[4] = h;
+    rec[5] = b;
+    rec[6] = kb;
+    unsigned long long tiles = 0;  // q tile tq visited: bit tq (nt_q <= 64)
+    for (int u = 0; u < nu; u += 2) tiles |= 1ull << ((row0_of(u) / TQ) & 63);
+    rec[7] = tiles;
+    rec[8] = nu;
+    for (int k = 0; k < N_DPART; ++k) rec[9 + k] = probe_c[k];
+  }
+#endif
+}
+
+// dK (blockIdx.y = 0) or dV (1) of each GQA group: its members' raw
+// partials added in head order, ((P_0 + P_1) + P_2) ..., then scaled once.
+// part: (2, B, H, S, D); dk, dv: (B, Hkv, S, D).
+__global__ void __launch_bounds__(256)
+    attn_bwd_dkv_kernel_group_sum(const float* part, float* dk, float* dv,
+                                  int B, int H, int Hkv, int S, float f_dk,
+                                  float f_dv) {
+  const int group = H / Hkv, which = blockIdx.y;
+  const long long per = (long long)S * D / 4;  // float4s a head
+  const long long n = (long long)B * Hkv * per;
+  const float4* src = reinterpret_cast<const float4*>(part) +
+                      which * (long long)B * H * per;
+  float4* dst = reinterpret_cast<float4*>(which ? dv : dk);
+  const float f = which ? f_dv : f_dk;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long bk = i / per;  // b * Hkv + hk
+  const float4* x = src + (bk * group) * per + i % per;
+  float4 a = x[0];
+  for (int m = 1; m < group; ++m) {
+    const float4 y = x[m * per];
+    a = make_float4(__fadd_rn(a.x, y.x), __fadd_rn(a.y, y.y),
+                    __fadd_rn(a.z, y.z), __fadd_rn(a.w, y.w));
+  }
+  dst[i] = make_float4(__fmul_rn(a.x, f), __fmul_rn(a.y, f),
+                       __fmul_rn(a.z, f), __fmul_rn(a.w, f));
+}
+
+cudaError_t dkv_prepare() {
+  return cudaFuncSetAttribute(attn_bwd_dkv_kernel_head,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              DK_SMEM);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dO,
@@ -1147,7 +1438,6 @@ cudaError_t stash_prepare(int smem) {
 }  // namespace
 
 extern "C" int attn_bwd_dq_smem_bytes() { return static_cast<int>(sizeof(SmemDQ)); }
-extern "C" int attn_bwd_dkv_smem_bytes() { return static_cast<int>(sizeof(SmemDKV)); }
 
 // Integer arguments `iv` (22): B, H, Hkv, Q, S, q_len, s_len, causal,
 // window, q/k/v/dO formats, fmt_s, fmt_p, fmt_e, sr_s, sr_p, sr_e, sat_s,
@@ -1173,23 +1463,61 @@ extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 2: grid (S/64, Hkv, B). Reads m, l, rd of kernel 1; writes dk, dv.
+// Kernel 2: grid (H, B, S/64) of attn_bwd_dkv_kernel_head, then, for a
+// GQA group of more than one, attn_bwd_dkv_kernel_group_sum over `part`, a
+// (2, B, H, S, D) f32 scratch (unused, and may be null, for a group of
+// one). Reads m, l, rd of kernel 1; writes dk, dv (B, Hkv, S, D).
 extern "C" int attn_bwd_dkv_launch(const void* q, const void* k,
                                    const void* v, const void* dO,
                                    const void* seed, const void* m,
                                    const void* l, const void* rd, void* dk,
-                                   void* dv, const int* iv, const float* fv,
-                                   void* stream) {
+                                   void* dv, void* part, const int* iv,
+                                   const float* fv, void* stream) {
   Args p = make_args(q, k, v, dO, seed, nullptr, const_cast<void*>(m),
                      const_cast<void*>(l), const_cast<void*>(rd), nullptr,
                      nullptr, dk, dv, iv, fv);
-  const int smem = static_cast<int>(sizeof(SmemDKV));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int group = p.H / p.Hkv;
+  if (group > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = dkv_prepare();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.S / BKV, p.Hkv, p.B);
-  attn_bwd_dkv_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(p.H, p.B, p.S / BKV);
+  attn_bwd_dkv_kernel_head<<<grid, DKV_THREADS, DK_SMEM, st>>>(
+      p, static_cast<float*>(part));
+  if (group > 1) {
+    // One float4 of dK or dV a thread.
+    const long long n4 = (long long)p.B * p.Hkv * p.S * D / 4;
+    const dim3 sgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
+    attn_bwd_dkv_kernel_group_sum<<<sgrid, 256, 0, st>>>(
+        static_cast<const float*>(part), p.dk, p.dv, p.B, p.H, p.Hkv, p.S,
+        p.f_dk, p.f_dv);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// out = {attn_bwd_dkv_kernel_head's dynamic shared memory bytes, registers
+// a thread, local (spill) bytes a thread, blocks resident per SM;
+// attn_bwd_dkv_kernel_group_sum's registers and local bytes a thread}.
+// Returns a cudaError_t.
+extern "C" int attn_bwd_dkv_info(int* out) {
+  cudaError_t err = dkv_prepare();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes a, g;
+  err = cudaFuncGetAttributes(&a, attn_bwd_dkv_kernel_head);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&g, attn_bwd_dkv_kernel_group_sum);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, attn_bwd_dkv_kernel_head, DKV_THREADS, DK_SMEM);
+  out[0] = DK_SMEM;
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = resident;
+  out[4] = g.numRegs;
+  out[5] = static_cast<int>(g.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 // Kernel 1, stash variant: grid (H, B, ceil(Q/64)), for launches whose
@@ -1247,5 +1575,17 @@ extern "C" int attn_bwd_dq_probe_read(unsigned long long* marks,
   return static_cast<int>(cudaMemcpyFromSymbol(
       blocks, dq_probe_blocks,
       sizeof(unsigned long long) * 4 * std::min(n, PROBE_BLOCKS)));
+}
+#endif
+
+#ifdef DKV_PROBE
+// The probe's per-block records (n x DKV_PROBE_WORDS) after a launch: start
+// and end (ns), SM, clocks, h, b, kv block, the visited q tiles' bits, the
+// steps, then the cycles of each part.
+extern "C" int attn_bwd_dkv_probe_read(unsigned long long* blocks, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      blocks, dkv_probe_blocks,
+      sizeof(unsigned long long) * DKV_PROBE_WORDS *
+          std::min(n, DKV_PROBE_BLOCKS)));
 }
 #endif

@@ -53,7 +53,8 @@
 //    product, added as acc*c + pv after the block;
 //  - the amaxes are kept as fp8 magnitude bytes (they order like the
 //    values, inf and NaN above every finite one) and decoded once a tile;
-//    the output's division is div_rn below (no slow-path call).
+//    the output's division is fp8_epilogue.cuh's div_rn (no slow-path
+//    call).
 // Shared memory: Q, K and V f16 tiles (96 KB), the ring (65 KB), the stash
 // (16 KB), column keys and the live-block list: one block of 8 warps an SM.
 //
@@ -73,6 +74,7 @@ using fp8::byte_to_f32;
 using fp8::cp16;
 using fp8::cp_commit;
 using fp8::cp_wait;
+using fp8::div_rn;
 using fp8::fence_acc;
 using fp8::fence_async_smem;
 using fp8::fp8x2_to_half2;
@@ -199,57 +201,13 @@ __device__ __forceinline__ uint32_t half2_bits(__half2 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// a / b rounded to nearest even, as __fdiv_rn, for b > 0 (or NaN), without
-// __fdiv_rn's slow-path subroutine (the probe read a decode tile's store
-// pass at 18.8k cycles with it, 2.3k with this). In double: 1/b by Newton
-// from the approximate reciprocal (relative error < 2^-51 after three
-// steps), times a, rounded to float. A float quotient lies at least 2^-49
-// (relative) from every midpoint between floats, so the rounding is a / b's.
-__device__ __forceinline__ float div_rn(float a, float b) {
-  const double bd = b;
-  double y;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(bd));
-#pragma unroll
-  for (int i = 0; i < 3; ++i) y = fma(y, fma(-bd, y, 1.0), y);
-  y = isinf(b) ? 0.0 : y;
-  return __double2float_rn((double)a * y);
-}
-
-// A Q node known at compile time: rounding, saturation and format.
-template <bool SR_, bool SAT_, int FMT_>
-struct QNode {
-  static constexpr bool SR = SR_;
-  static constexpr int SAT = SAT_, FMT = FMT_;
-};
-
-// Runs f(QNode<...>{}) for the (uniform) Q-node flags, so that a pass's
-// quantizer and fp8 conversions fold to the one Q node it takes.
-template <bool SR, class F>
-__device__ __forceinline__ void with_qnode_sr(int sat, int fmt, F&& f) {
-  if (sat) {
-    if (fmt == fp8::E4M3)
-      f(QNode<SR, true, fp8::E4M3>{});
-    else
-      f(QNode<SR, true, fp8::E5M2>{});
-  } else {
-    if (fmt == fp8::E4M3)
-      f(QNode<SR, false, fp8::E4M3>{});
-    else
-      f(QNode<SR, false, fp8::E5M2>{});
-  }
-}
-
 // f(QNode, std::bool_constant<up>): a pass's Q node, and whether the
 // upper rows (g + 8) of the warp hold live rows.
 template <class F>
 __device__ __forceinline__ void with_qnode(int sr, int sat, int fmt, bool up,
                                            F&& f) {
   with_flag(up, [&](auto u) {
-    auto g = [&](auto qn) { f(qn, u); };
-    if (sr)
-      with_qnode_sr<true>(sat, fmt, g);
-    else
-      with_qnode_sr<false>(sat, fmt, g);
+    fp8::with_qnode(sr, sat, fmt, [&](auto qn) { f(qn, u); });
   });
 }
 
@@ -543,6 +501,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
       wg_commit();
       wg_wait<0>();
       fence_acc(pv);
+      fp8::keep_a(a);
     }
     FWD_TICK(P_PV)
     if (warp_live) {

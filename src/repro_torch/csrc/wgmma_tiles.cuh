@@ -134,7 +134,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
 // each warp's four words hold its 16 rows in mma.sync m16n8k16's A layout
 // ({row g, k 2t}, {g + 8, 2t}, {g, 2t + 8}, {g + 8, 2t + 8}, low half first);
 // TB: B is MN-major. The A registers must not change before the product's
-// group is waited on.
+// group is waited on: call keep_a on them after that wait.
 template <int TB>
 __device__ __forceinline__ void wgmma_n128_rs(float (&d)[64],
                                              const uint32_t (&a)[4],
@@ -155,6 +155,18 @@ __device__ __forceinline__ void wgmma_n128_rs(float (&d)[64],
         F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// Keeps the A registers of register-A wgmmas (wgmma_n128_rs, one row of
+// four words a k slice) live and unchanged up to this point; placed after
+// the wait on their group, so the compiler cannot reuse them while the
+// products still read them.
+template <int N>
+__device__ __forceinline__ void keep_a(const uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" ::"r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3])
+                 : "memory");
 }
 
 // ---- operand tiles ---------------------------------------------------------

@@ -18,7 +18,9 @@ count the launches of the three kernels (the dQ kernel's also by variant,
 'long' past them, chosen by `dq_variant`). `fwd_tile_order`,
 `fwd_live_blocks` and `fwd_dead_warps` state the forward kernel's
 schedule: its 128-row query tiles in launch order, the kv blocks each
-visits and the warps that skip their epilogue.
+visits and the warps that skip their epilogue; `dkv_block_order` and
+`dkv_live_tiles` the dK/dV kernel's: its 64-row kv blocks in launch order
+and the query tiles each block's chain visits.
 
 Padding contract (the reference's): the head dim is zero-padded to 128 and
 the kv length to a multiple of 128 (slot positions pad with -1, validity
@@ -268,7 +270,7 @@ fp8_attention_fwd.launches = 0
 _BWD_DQ_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int),
                                               ctypes.POINTER(ctypes.c_float),
                                               ctypes.c_void_p]
-_BWD_DKV_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_int),
+_BWD_DKV_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int),
                                                ctypes.POINTER(ctypes.c_float),
                                                ctypes.c_void_p]
 
@@ -360,20 +362,60 @@ def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None, **kw):
     return dq, m, l, rd, amax_dp, amax_ds
 
 
-def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, **kw):
+# The dK/dV kernel's schedule (csrc/fp8_attention_bwd.cu,
+# attn_bwd_dkv_kernel_head): one block per (query head, batch row, DKV_ROWS
+# kv rows); each runs its head's chain over the 128-row query tiles that
+# attend its kv rows at the backward's skip set.
+DKV_ROWS = 64
+
+
+def dkv_live_tiles(kb: int, *, q_rows: int, s_pad: int, mask_mode: str,
+                   window: int = 0) -> list:
+    """The 128-row query tiles (ascending) whose kv span (`kv_stripe_span`
+    at block_kv = LANE, the skip set of both backward kernels) holds kv
+    block kb (DKV_ROWS rows): the chain of a dK/dV block, in its order."""
+    j = kb * DKV_ROWS // LANE
+    out = []
+    for tq in range(-(-q_rows // _ref.TQ)):
+        lo, hi = _ref.kv_stripe_span(tq * _ref.TQ, _ref.TQ, block_kv=LANE,
+                                     n_kv=s_pad // LANE,
+                                     mask_mode=mask_mode, window=window)
+        if lo <= j <= hi:
+            out.append(tq)
+    return out
+
+
+def dkv_block_order(s_pad: int) -> list:
+    """The dK/dV kernel's kv blocks in launch order: blockIdx.z walks them
+    ascending. Under the causal (+ window) and full masks a block's chain
+    (`dkv_live_tiles`) never grows along this order, so the longest chains
+    launch first (tests/test_torch_attn_bwd.py holds that)."""
+    return list(range(s_pad // DKV_ROWS))
+
+
+def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, lib=None,
+                          **kw):
     """Kernel 2 of the backward on padded CUDA payloads, from kernel 1's
-    row statistics: returns (dk, dv) (B,Hkv,S,D) f32."""
+    row statistics, through `lib` (a probe build) or the package's library:
+    returns (dk, dv) (B,Hkv,S,D) f32. With a GQA group of more than one,
+    the kernel writes each query head's partials into a scratch allocated
+    here, and a second kernel adds them in head order."""
     iv, fv = _bwd_args(q8, k8, v8, do8, scal=scal, **kw)
     dev = q8.device
+    b_, h_ = q8.shape[:2]
+    hkv, s_pad, d = k8.shape[1:]
     dk = torch.empty(k8.shape, dtype=torch.float32, device=dev)
     dv = torch.empty(k8.shape, dtype=torch.float32, device=dev)
+    part = (torch.empty((2, b_, h_, s_pad, d), dtype=torch.float32,
+                        device=dev) if h_ != hkv else None)
     seed_t = seed_tensor(seed, dev)
-    fn = _build.load("fp8_attention_bwd").attn_bwd_dkv_launch
+    fn = (lib or _build.load("fp8_attention_bwd")).attn_bwd_dkv_launch
     fn.argtypes = _BWD_DKV_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
              seed_t.data_ptr(), m.data_ptr(), l.data_ptr(), rd.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), iv, fv,
+             dk.data_ptr(), dv.data_ptr(),
+             part.data_ptr() if part is not None else None, iv, fv,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_bwd_dkv")
     fp8_attention_bwd_dkv.launches += 1

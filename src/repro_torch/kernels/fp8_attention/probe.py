@@ -2,9 +2,10 @@
 
     python -m repro_torch.kernels.fp8_attention.probe [--b 4] [--s 512]
     python -m repro_torch.kernels.fp8_attention.probe --fwd
+    python -m repro_torch.kernels.fp8_attention.probe --dkv
 
 The default mode probes the dQ kernel's stash variant; --fwd the forward
-kernel (below).
+kernel and --dkv the dK/dV kernel (below).
 
 Builds csrc/fp8_attention_bwd.cu with -DDQ_PROBE into a temporary
 directory (the stash kernel then records the SM clock at its pass
@@ -30,7 +31,22 @@ back-to-back call, the cycles of each pass in a longest-span tile, the
 makespan, the share of block slots busy, and whether the schedule the
 kernel ran is the one `ops.fwd_live_blocks` / `fwd_dead_warps` /
 `fwd_tile_order` state (`fwd_schedule_faults`, which chip_smoke.py and the
-`gpu` tests also run). It needs a CUDA device and nvcc.
+`gpu` tests also run).
+
+--dkv builds csrc/fp8_attention_bwd.cu with -DDKV_PROBE (thread 0 of every
+dK/dV block attributes its SM clock to the parts: staging, the S^T
+product, the S/P epilogue, the dV product, the dP^T product, the dS
+epilogue, the dK product, the store; every block records its start, end,
+SM, (head, batch row, kv block) and the q tiles it visited). At the
+training shape (causal B=4, H=12, Hkv=2, S=512, hybrid, SR), a windowed
+causal S=2048 with a GQA group of one and a ragged full S=968 it prints
+ptxas' registers and spills, the shared memory and blocks per SM, the
+probe and package builds' device time (graph replays, main kernel and
+group sum), the cycles of each part in the longest block, the makespan,
+the busy share of the block slots, and whether the schedule the kernel
+ran is the one `ops.dkv_block_order` / `dkv_live_tiles` state
+(`dkv_schedule_faults`, which chip_smoke.py and the `gpu` tests also
+run). Every mode needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -300,12 +316,151 @@ def fwd_main(card):
                   "differ" + "".join(f"\n  {f}" for f in faults[:5]))
 
 
+DKV_PARTS = ("staging", "S^T product", "S/P epilogue", "dV product",
+             "dP^T product", "dS epilogue", "dK product", "store")
+DKV_WORDS = 9 + len(DKV_PARTS)
+
+
+def build_dkv_probe(out_dir: Path) -> tuple[ctypes.CDLL, str]:
+    """csrc/fp8_attention_bwd.cu built with -DDKV_PROBE into out_dir."""
+    return build_all(out_dir, "fp8_attention_bwd",
+                     {"dkv_probe": ["-DDKV_PROBE"]})["dkv_probe"]
+
+
+def dkv_case(dev, *, b=4, s=512, mask="causal", window=0, group=6):
+    """(name, q, k, v, do, scal, kw) of a backward at H = 2 * group, Hkv=2,
+    D=128 (hybrid recipe, SR; random fp8 inputs from a seed), kw holding
+    the dK/dV wrapper's keyword arguments."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h, hkv, d = 2 * group, 2, 128
+
+    def rnd(*shape, dt=torch.float8_e4m3fn):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    q, do = rnd(b, h, s, d), rnd(b, h, s, d, dt=torch.float8_e5m2)
+    s_pad = -(-s // ops.LANE) * ops.LANE
+    k, v = rnd(b, hkv, s_pad, d), rnd(b, hkv, s_pad, d)
+    scal = [0.088388, 1.0, 1.0, 1.0, 1.0, 1.0, 0.088388, 1.0, 1.0, 1.0]
+    kw = dict(mask_mode=mask, window=window, fmt_s="e4m3", fmt_p="e4m3",
+              fmt_e="e5m2", rounding_s="sr", rounding_p="sr",
+              rounding_e="sr", saturate_e=False, q_len=s, s_len=s)
+    name = (f"{mask} B={b} H={h} Hkv={hkv} S={s} D={d}"
+            + (f" window={window}" if window else "") + ", hybrid, SR")
+    return name, q, k, v, do, scal, kw
+
+
+def dkv_stats(case):
+    """Kernel 1's row statistics (m, l, rd) for a dK/dV case."""
+    _, q, k, v, do, scal, kw = case
+    return ops.fp8_attention_bwd_dq(q, k, v, do, 7, scal, **kw)[1:4]
+
+
+def dkv_records(lib, case, stats) -> np.ndarray:
+    """One launch of the probe build `lib`; its per-block records, by
+    block id ((z * B + b) * H + h)."""
+    _, q, k, v, do, scal, kw = case
+    ops.fp8_attention_bwd_dkv(q, k, v, do, 7, scal, *stats, lib=lib, **kw)
+    torch.cuda.synchronize()
+    b, h = q.shape[:2]
+    n = b * h * len(ops.dkv_block_order(k.shape[2]))
+    rec = (ctypes.c_ulonglong * (DKV_WORDS * n))()
+    _build.check(lib.attn_bwd_dkv_probe_read(rec, n), "probe")
+    return np.array(rec, dtype=np.int64).reshape(n, DKV_WORDS)
+
+
+def dkv_schedule_faults(lib, case, stats=None) -> list:
+    """Where the schedule the dK/dV kernel ran (probe build `lib`, one
+    launch) differs from the rule `ops` states: for every block, the
+    (head, batch row) of its blockIdx, the kv block its blockIdx.z stands
+    for (dkv_block_order) and the query tiles it visited, in two steps
+    each (dkv_live_tiles). Returns a description per differing block."""
+    _, q, k, v, do, scal, kw = case
+    b, h, q_rows = q.shape[:3]
+    s_pad = k.shape[2]
+    if -(-q_rows // 128) > 64:
+        raise ValueError("the probe records at most 64 q tiles a block")
+    order = ops.dkv_block_order(s_pad)
+    faults = []
+    recs = dkv_records(lib, case, stats if stats is not None
+                       else dkv_stats(case))
+    for bid, r in enumerate(recs):
+        z, bb, hh = bid // (b * h), bid // h % b, bid % h
+        tiles = [t for t in range(64) if int(r[7]) >> t & 1]
+        want = ops.dkv_live_tiles(order[z], q_rows=q_rows, s_pad=s_pad,
+                                  mask_mode=kw["mask_mode"],
+                                  window=kw["window"])
+        if (r[4], r[5], r[6]) != (hh, bb, order[z]) or tiles != want \
+                or r[8] != 2 * len(want):
+            faults.append(f"block (h {hh}, b {bb}, z {z}): ran (h {r[4]}, "
+                          f"b {r[5]}, kv block {r[6]}), q tiles {tiles} in "
+                          f"{r[8]} steps (rule: kv block {order[z]}, q "
+                          f"tiles {want})")
+    return faults
+
+
+def dkv_case_list(dev):
+    """The training shape, and shapes that reach a window, a full mask, a
+    GQA group of one and ragged lengths."""
+    return (dkv_case(dev),
+            dkv_case(dev, b=1, s=2048, window=256, group=1),
+            dkv_case(dev, b=1, s=968, mask="full", group=2))
+
+
+def dkv_main(card):
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"probe": build_dkv_probe(Path(tmp)),
+                "package": (_build.load("fp8_attention_bwd"),
+                            _build.BUILD_LOGS.get("fp8_attention_bwd", ""))}
+        print(f"card: {card}")
+        for var, (lib, log) in libs.items():
+            info = (ctypes.c_int * 6)()
+            _build.check(lib.attn_bwd_dkv_info(info), "probe")
+            print(f"{var} build: ptxas "
+                  f"{ptxas_line(log, 'attn_bwd_dkv_kernel_head')}; group "
+                  f"sum {ptxas_line(log, 'attn_bwd_dkv_kernel_group_sum')}; "
+                  f"{info[0]} bytes of shared memory, {info[1]} registers, "
+                  f"{info[2]} local bytes, {info[3]} blocks per SM; group "
+                  f"sum {info[4]} registers, {info[5]} local bytes")
+        slots = torch.cuda.get_device_properties(dev).multi_processor_count \
+            * info[3]
+        for case in dkv_case_list(dev):
+            name, q, k, v, do, scal, kw = case
+            print(f"-- {name}")
+            stats = dkv_stats(case)
+            order = ("package", "probe")
+            ms = {x: [] for x in order}
+            for var in order + order[::-1]:
+                fn = lambda: ops.fp8_attention_bwd_dkv(  # noqa: E731
+                    q, k, v, do, 7, scal, *stats, lib=libs[var][0], **kw)
+                ms[var].append(graph_ms(fn))
+            print("device ms per launch (graph, both kernels): " + ", ".join(
+                f"{x} {min(y):.4f} (runs {', '.join(f'{z:.4f}' for z in y)})"
+                for x, y in ms.items()))
+            bl = dkv_records(libs["probe"][0], case, stats)
+            top = bl[np.argmax(bl[:, 3])]
+            print(f"longest block (kv block {top[6]}, {top[8]} steps): "
+                  f"{int(top[3])} cycles; " + ", ".join(
+                      f"{p} {int(c)}" for p, c in zip(DKV_PARTS, top[9:])))
+            t0 = bl[:, 0].min()
+            st, en = (bl[:, 0] - t0) / 1e3, (bl[:, 1] - t0) / 1e3
+            span = en.max()
+            print(f"makespan {span:.1f} us; busy share of the {slots} block "
+                  f"slots {(en - st).sum() / (slots * span):.3f}; SM clock "
+                  f"{np.median(bl[:, 3] / (bl[:, 1] - bl[:, 0])) * 1e3:.0f} "
+                  f"MHz; {len(set(bl[:, 2].tolist()))} SMs")
+            faults = dkv_schedule_faults(libs["probe"][0], case, stats)
+            print(f"schedule against ops.dkv_*: {len(faults)} of {len(bl)} "
+                  "blocks differ" + "".join(f"\n  {x}" for x in faults[:5]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--b", type=int, default=4)
     ap.add_argument("--s", type=int, default=512)
     ap.add_argument("--fwd", action="store_true",
                     help="probe the forward kernel instead of the dQ kernel")
+    ap.add_argument("--dkv", action="store_true",
+                    help="probe the dK/dV kernel instead of the dQ kernel")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe: needs a CUDA device")
@@ -315,6 +470,8 @@ def main():
                           text=True).stdout.strip()
     if a.fwd:
         return fwd_main(card)
+    if a.dkv:
+        return dkv_main(card)
     gen = torch.Generator(device=dev).manual_seed(9)
     b, h, hkv, s, d = a.b, 12, 2, a.s, 128
     q = torch.randn((b, h, s, d), generator=gen, device=dev).to(

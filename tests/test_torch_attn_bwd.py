@@ -217,3 +217,117 @@ def test_dq_variant_from_shape_mask_and_window(s, mask, window, blocks,
     assert max(hi - lo + 1 for lo, hi in spans) == blocks
     assert tattn.dq_span_blocks(s, s, mask, window) == blocks
     assert tattn.dq_variant(s, s, mask, window) == variant
+
+
+# The dK/dV kernel's schedule: (S = Q, mask, window) over causal and full
+# masks, windows and ragged lengths (S not a multiple of 128: the wrapper
+# pads the kv length, the query rows stay ragged).
+DKV_SCHEDULES = [(s, mask, window) for s in (200, 512, 968, 2048)
+                 for mask, window in (("causal", 0), ("full", 0),
+                                      ("causal", 256), ("causal", 385),
+                                      ("full", 256))]
+
+
+@pytest.mark.parametrize("s,mask,window", DKV_SCHEDULES,
+                         ids=[f"{m}-S{s}-w{w}" for s, m, w in
+                              DKV_SCHEDULES])
+def test_dkv_schedule_is_the_plain_versions_skip_set(s, mask, window):
+    """Each dK/dV block (DKV_ROWS kv rows) visits exactly the 128-row query
+    tiles whose rows the plain version keeps for its 128-column kv block
+    (`ref._live`, the skip set: `kv_stripe_span` of the row's tile), as
+    one ascending interval (the kernel walks it as one), and the blocks
+    launch in an order along which the chains never grow."""
+    from repro_torch.kernels.fp8_attention import ref as tref
+    s_pad = -(-s // 128) * 128
+    order = tattn.dkv_block_order(s_pad)
+    assert sorted(order) == list(range(s_pad // tattn.DKV_ROWS))
+    chains = []
+    for kb in order:
+        tiles = tattn.dkv_live_tiles(kb, q_rows=s, s_pad=s_pad,
+                                     mask_mode=mask, window=window)
+        j = kb * tattn.DKV_ROWS // 128
+        rows = torch.arange(0, s, 128)
+        live = tref._live(rows, j, mask, window)
+        want = list(range(len(rows))) if live is None else [
+            int(i) for i in torch.nonzero(live).flatten()]
+        assert tiles == want
+        assert tiles == list(range(tiles[0], tiles[-1] + 1)) if tiles else True
+        chains.append(len(tiles))
+    assert chains == sorted(chains, reverse=True)
+
+
+def _dkv_parts(monkeypatch, q, k, v, do, scal, kw):
+    """The plain backward's per-column-block dS8 and P8 parts (as its `_keep`
+    hands them to the dK / dV sums) and its (dk, dv)."""
+    from repro_torch.kernels.fp8_attention import ref as tref
+    seen = []
+    keep = tref._keep
+
+    def record(live, x):
+        out = keep(live, x)
+        seen.append(out)
+        return out
+    monkeypatch.setattr(tref, "_keep", record)
+    out = tref.fp8_attention_bwd_ref(q, k, v, do, SEED, scal, **kw)
+    monkeypatch.setattr(tref, "_keep", keep)
+    nb = len(seen) // 3
+    tail = seen[nb:]    # pass B: dS8 then P8, per column block
+    return (torch.cat(tail[0::2], dim=-1), torch.cat(tail[1::2], dim=-1),
+            out[1], out[2])
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+@pytest.mark.parametrize("kind", ["uniform", "stepped", "general"])
+@pytest.mark.parametrize("mask", ["causal", "full"])
+@pytest.mark.parametrize("group", [2, 3])
+def test_dkv_member_then_head_order_association(monkeypatch, recipe, kind,
+                                                mask, group):
+    """The association of the dK/dV kernel's design, modelled on the plain
+    version's parts: each GQA member's chain of 128-row query tiles (one
+    matmul product a tile), then the members added in head order
+    ((P_0 + P_1) + P_2), against the plain version's flat (member, tile)
+    chain: bit for bit on the exact fixtures, within 1e-6 relative on
+    general inputs. This is a model of the order, not of the kernel: the
+    kernel adds 16-row k slices into its wgmma accumulator in the
+    hardware's order. The kernel itself is held on the card against the
+    backward's limit of 1e-3 (ATTN_BWD_REL_L2 in chip_smoke.py, which logs
+    dq, dk and dv apart)."""
+    fmt_a, fmt_e = RECIPES[recipe]
+    rng = np.random.default_rng(
+        zlib.crc32(f"{recipe}{kind}{mask}{group}".encode()))
+    q, k, v, do, scal = fixture(kind, group, fmt_a, fmt_e, rng)
+    kw = dict(mask_mode=mask, fmt_s=fmt_a, fmt_p=fmt_a, fmt_e=fmt_e,
+              rounding_s="sr", rounding_p="sr", rounding_e="sr",
+              saturate_e=False)
+    qt, dot = to_t(q, fmt_a), to_t(do, fmt_e)
+    ds, p8, dk_ref, dv_ref = _dkv_parts(
+        monkeypatch, qt, to_t(k, fmt_a), to_t(v, fmt_a), dot, scal.tolist(),
+        kw)
+    b, h, s, d = q.shape
+    qf = qt.float().reshape(b, HKV, group * s, d)
+    dof = dot.float().reshape(b, HKV, group * s, d)
+    f_dk, f_dv = (float(np.float32(x)) for x in scal[8:10])
+    flat = [torch.zeros(b, HKV, ds.shape[-1], d) for _ in range(2)]
+    members = []
+    for i in range(group):
+        chain = [torch.zeros(b, HKV, ds.shape[-1], d) for _ in range(2)]
+        for t0 in range(0, s, 128):
+            r = slice(i * s + t0, i * s + min(t0 + 128, s))
+            parts = (ds[:, :, r].transpose(-1, -2) @ qf[:, :, r],
+                     p8[:, :, r].transpose(-1, -2) @ dof[:, :, r])
+            flat = [x + y for x, y in zip(flat, parts)]
+            chain = [x + y for x, y in zip(chain, parts)]
+        members.append(chain)
+    # The flat chain is the plain version's own.
+    assert torch.equal(flat[0] * f_dk, dk_ref)
+    assert torch.equal(flat[1] * f_dv, dv_ref)
+    total = members[0]
+    for chain in members[1:]:
+        total = [x + y for x, y in zip(total, chain)]
+    for got, want, f in zip(total, flat, (f_dk, f_dv)):
+        got, want = got * f, want * f
+        if kind == "general":
+            rel = ((got - want).norm() / want.norm()).item()
+            assert rel <= 1e-6, rel
+        else:
+            assert torch.equal(got, want)

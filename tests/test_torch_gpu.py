@@ -316,6 +316,150 @@ def test_attention_bwd_kernels_match_plain(card, kind, mask, recipe,
         assert torch.equal(x, y)
 
 
+def _bwd_overflow_case(group, fmt_a, fmt_e, gen, s=200, d=64):
+    """_bwd_case's uniform fixture with dP overflowing e5m2 (unsaturated)
+    at masked positions inside a visited pair only: rows r < 32 take dO =
+    2^14 at dim d-1, columns 64 <= c < 128 take V = 256 there, the other
+    rows' dO stays below dim d-1 and V is 0 at dim d-1 elsewhere. dP =
+    2^16 after f_dp (inf) where c > r in the (q tile 0, kv block 0) pair:
+    P * dP = 0 * inf makes rd and the dS of rows 0-31 NaN, which reaches dq
+    rows 0-31 and dk rows 0-127; the rest stays exact (as chip_smoke.py's
+    bwd_overflow_fixture at the training shape)."""
+    q, k, v, do, scal = _bwd_case("uniform", group, fmt_a, fmt_e, gen, s=s,
+                                  d=d)
+    b, h = q.shape[:2]
+    rows = torch.arange(s)
+    eye = torch.eye(d)
+    dof = do.float()
+    dval = dof.abs().amax(-1, keepdim=True) * torch.sign(dof.sum(-1, True))
+    normal = eye[torch.randint(0, d - 1, (b, h, s), generator=gen)] * dval
+    do = torch.where((rows < 32)[:, None], eye[d - 1] * 2.0 ** 14, normal)
+    vf = v.float()
+    vf[..., d - 1] = torch.where((rows >= 64) & (rows < 128), 256.0, 0.0)
+    return q, k, vf.to(v.dtype), do.to(FP8[fmt_e][0]), scal
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", [("e4m3", "e5m2"), ("e5m2", "e5m2")],
+                         ids=["hybrid", "paper"])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_attention_bwd_kernels_match_plain_unsaturated_overflow(
+        card, recipe, rounding, group):
+    """dq, dk, dv and the amaxes on the overflow fixture equal the plain
+    backward run on the card, bit for bit with NaN where NaN (the masked
+    positions' 0 * inf reaches dk), and two dK/dV launches agree."""
+    from repro_torch.kernels.fp8_attention import ref
+    gen = torch.Generator().manual_seed(13)
+    fa, fe = recipe
+    q, k, v, do, scal = (x.to(card) if isinstance(x, torch.Tensor) else x
+                         for x in _bwd_overflow_case(group, fa, fe, gen))
+    kw = dict(mask_mode="causal", fmt_s=fa, fmt_p=fa, fmt_e=fe,
+              rounding_s=rounding, rounding_p=rounding, rounding_e=rounding,
+              saturate_e=False)
+    got = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
+    again = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
+    want = ref.fp8_attention_bwd_ref(q, k, v, do, 9, scal, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[1]).any())
+    for x, y, z in zip(got, want, again):
+        assert _same_bits(x, y) and _same_bits(x, z)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "stepped"])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("window", [100, 200])
+def test_attention_bwd_kernels_match_plain_window(card, kind, rounding,
+                                                  group, window):
+    """The backward under a causal sliding window (ragged S=456: the
+    window bounds the kv span of later q tiles and of each dK/dV block's
+    rows) equals the plain version on the card, bit for bit on the exact
+    fixtures (hybrid recipe)."""
+    from repro_torch.kernels.fp8_attention import ref
+    gen = torch.Generator().manual_seed(15)
+    q, k, v, do, scal = (x.to(card) if isinstance(x, torch.Tensor) else x
+                         for x in _bwd_case(kind, group, "e4m3", "e5m2",
+                                            gen, s=456))
+    kw = dict(mask_mode="causal", window=window, fmt_s="e4m3",
+              fmt_p="e4m3", fmt_e="e5m2", rounding_s=rounding,
+              rounding_p=rounding, rounding_e=rounding)
+    got = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
+    want = ref.fp8_attention_bwd_ref(q, k, v, do, 9, scal, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", [("e4m3", "e5m2"), ("e5m2", "e5m2")],
+                         ids=["hybrid", "paper"])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_attention_dkv_kernel_is_deterministic(card, recipe, rounding,
+                                               group):
+    """Two launches of the dK/dV kernel on the same general inputs (B=2,
+    S=512, D=128, causal) give the same bits: no atomics, the GQA group
+    added in head order."""
+    gen = torch.Generator().manual_seed(14)
+    fa, fe = recipe
+    b, hkv, s, d = 2, 2, 512, 128
+    q, do = (torch.randn((b, hkv * group, s, d), generator=gen).to(
+        FP8[f][0]).to(card) for f in (fa, fe))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen).to(
+        FP8[fa][0]).to(card) for _ in range(2))
+    scal = [0.088388, 1.0, 1.0, 1.0, 1.0, 1.0, 0.088388, 1.0, 1.0, 1.0]
+    kw = dict(mask_mode="causal", fmt_s=fa, fmt_p=fa, fmt_e=fe,
+              rounding_s=rounding, rounding_p=rounding, rounding_e=rounding,
+              saturate_e=False, q_len=s, s_len=s)
+    stats = attn.fp8_attention_bwd_dq(q, k, v, do, 9, scal, **kw)[1:4]
+    one, two = (attn.fp8_attention_bwd_dkv(q, k, v, do, 9, scal, *stats,
+                                           **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(one, two):
+        assert _same_bits(x, y)
+
+
+@pytest.mark.gpu
+def test_attention_dkv_kernel_residency(card):
+    """The dK/dV kernel runs two blocks an SM with no spills."""
+    import ctypes
+    from repro_torch.kernels import build
+    info = (ctypes.c_int * 6)()
+    assert build.load("fp8_attention_bwd").attn_bwd_dkv_info(info) == 0
+    assert info[2] == 0 and info[3] >= 2 and info[5] == 0, list(info)
+
+
+@pytest.fixture(scope="module")
+def dkv_probe_lib(tmp_path_factory):
+    """The backward built with -DDKV_PROBE: its dK/dV kernel records the
+    schedule it ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run on the card")
+    from repro_torch.kernels.fp8_attention import probe
+    return probe.build_dkv_probe(tmp_path_factory.mktemp("dkv_probe"))[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [0, 1, 2],
+                         ids=["train", "causal-window", "full-ragged"])
+def test_attention_dkv_kernel_runs_the_stated_schedule(card, dkv_probe_lib,
+                                                       case):
+    """Each dK/dV block's head, batch row and kv block, and the q tiles it
+    visited, as the kernel recorded them, are those ops.dkv_block_order /
+    dkv_live_tiles state (the rule the CPU tests hold against the plain
+    version's skip set)."""
+    from repro_torch.kernels.fp8_attention import probe
+    assert probe.dkv_schedule_faults(
+        dkv_probe_lib, probe.dkv_case_list(card)[case]) == []
+
+
 @pytest.mark.gpu
 def test_attention_bwd_rejects_other_masks(card):
     x = torch.zeros((1, 2, 8, 64), dtype=torch.float8_e4m3fn, device=card)
