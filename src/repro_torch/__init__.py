@@ -5,10 +5,12 @@ in PyTorch, with every Pallas TPU kernel on the ported path rewritten by hand
 for NVIDIA Hopper (`csrc/`). It imports torch, numpy and the standard library
 only — never jax and never a module of `repro`.
 
-Ported so far (slice 1): frozen-scale FP8 paged serving of the dense decoder
-(`serve.engine.PagedServeEngine`), the calibration that produces its scales
-(`scaling.calibrate`), and the two kernels that path runs:
-`kernels/fused_quant_matmul` and the forward of `kernels/fp8_attention`.
+Ported so far: FP8 serving of the dense decoder (`serve.engine`: the paged
+and the fixed-slot engines, bf16 and FP8 KV caches, fused and unfused
+attention) with the calibration that produces its frozen scales
+(`scaling.calibrate`); FP8 training under the hybrid delayed-scaling
+recipe and the paper's own (`train.step`); and every Pallas kernel of the
+reference, in `kernels/` and `csrc/`.
 
 Public layouts follow the reference: weights are `(d_in, d_out)` so `x @ W`
 is the `nn` GEMM, attention tensors are `(B, H, S, dh)`. Entry points run on

@@ -115,7 +115,7 @@ class PrecisionPolicy:
     master_weight_dtype: str = "float16"
     update_dtype: str = "float32"
     activation_dtype: str = "bfloat16"
-    # FP8 KV cache: ported in a later slice (this slice serves a bf16 cache).
+    # FP8 KV cache: None (bf16), "e5m2" or "e4m3".
     kv_cache_format: Optional[str] = None
 
     def quant_for_layer(self, *, is_embedding: bool = False,

@@ -6,7 +6,10 @@ Function: the fp8 payloads q8 / k8 / v8 and the SR seed are its backward
 residuals, and the backward quantizes dO at #E and runs the two backward
 kernels (dQ, then dK/dV) with the dP / dS Q nodes inside them.
 `fp8_sdpa_chunk` is the paged serving step: T consecutive tokens per
-request against a gathered KV view under the 'chunk' position mask.
+request against a gathered KV view under the 'chunk' position mask;
+`fp8_sdpa_decode` the fixed-slot engine's decode step, one query row per
+request against its cache under the 'kv' validity mask. Both take FP8
+cache payloads as they are, with their frozen cache scales.
 Scale sites (scaling.context.attention_keys): operands {#q,#k,#v}.A,
 in-kernel #qk.A / #p.A, and the error sites #E (dO), #dp.E, #ds.E.
 
@@ -20,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.fp8_formats import FP8_DTYPES
 from repro_torch.core.precision_policy import (ACT, ERROR, QuantConfig,
                                                dtype_of)
 from repro_torch.core.qlinear import _observe, _quant_operand, kernel_backend
@@ -161,46 +165,82 @@ def fp8_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _FP8SDPA.apply(q, k, v, meta)
 
 
+def _serve_fwd(q, k_cached, v_cached, *, cfg: QuantConfig, sm_scale: float,
+               k_cache_scale, v_cache_scale, site, generator, **mask):
+    """The serving forward through kernel 2 (the reference's shared body of
+    `fp8_sdpa_decode` / `fp8_sdpa_chunk`): q quantized at #q.A; FP8 cache
+    payloads passed to the kernel as they are, with their frozen cache
+    scales (no dequantize -> requantize round trip; q and the cache may
+    hold different formats); a 16-bit cache quantized at #k.A / #v.A.
+    `mask`: the kernel's mask arguments."""
+    from repro_torch.kernels.fp8_attention import ops as attn_ops
+    ctx = scale_ctx.current()
+    keys = None
+    one = f32(1.0)
+    s_q = s_s = s_p = one
+    if cfg.delayed and ctx is not None and site is not None:
+        keys = scale_ctx.attention_keys(ctx.site_key(site))
+        for n in ("q", "k", "v", "s", "p"):
+            ctx.register(keys[n])
+        _check_frozen_sites(ctx, keys)
+        s_q, s_s, s_p = (ctx.scale_for(keys[n]) for n in ("q", "s", "p"))
+    q8 = _quant_operand(q, ACT, cfg, s_q, generator)
+    if k_cached.dtype in FP8_DTYPES:
+        k8, v8 = k_cached, v_cached
+        s_k, s_v = f32(k_cache_scale), f32(v_cache_scale)
+    else:
+        s_k = ctx.scale_for(keys["k"]) if keys is not None else one
+        s_v = ctx.scale_for(keys["v"]) if keys is not None else one
+        k8 = _quant_operand(k_cached, ACT, cfg, s_k, generator).data
+        v8 = _quant_operand(v_cached, ACT, cfg, s_v, generator).data
+    o, amax_s, amax_p = attn_ops.fp8_attention_fwd(
+        q8.data, k8, v8, _seed(cfg, generator),
+        _fwd_factors(s_q, s_k, s_v, s_s, s_p, sm_scale),
+        **mask, **_kernel_kwargs(cfg))
+    if keys is not None and ctx.mode == "calibrate":
+        ctx.record(keys["q"], _observe(q8))
+        ctx.record(keys["s"], amax_s * float(s_s))
+        ctx.record(keys["p"], amax_p * float(s_p))
+    return o.to(dtype_of(cfg.output_dtype))
+
+
+def fp8_sdpa_decode(q: torch.Tensor, k_cached: torch.Tensor,
+                    v_cached: torch.Tensor, valid: torch.Tensor, *,
+                    cfg: QuantConfig, sm_scale: float,
+                    k_cache_scale=1.0, v_cache_scale=1.0,
+                    site: Optional[str] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Serving decode through the fused kernel ('kv' mask).
+
+    q: (B,H,1,dh). k_cached/v_cached: (B,Hkv,C,dh) cache rows — FP8
+    payloads with their frozen cache scales (k_cache_scale/v_cache_scale,
+    the '.../kv/{k,v}#A' constants), or a bf16 cache quantized here at the
+    #k.A/#v.A sites. valid: (B, C) slot validity."""
+    return _serve_fwd(q, k_cached, v_cached, cfg=cfg, sm_scale=sm_scale,
+                      k_cache_scale=k_cache_scale,
+                      v_cache_scale=v_cache_scale, site=site,
+                      generator=generator, mask_mode="kv",
+                      kv_mask=valid)
+
+
 def fp8_sdpa_chunk(q: torch.Tensor, k_cached: torch.Tensor,
                    v_cached: torch.Tensor, slot_pos: torch.Tensor,
                    chunk_pos: torch.Tensor, *, cfg: QuantConfig,
                    sm_scale: float, window: int = 0,
+                   k_cache_scale=1.0, v_cache_scale=1.0,
                    site: Optional[str] = None,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
     """Serving chunk step through the fused kernel ('chunk' mask).
 
     q: (B,H,T,dh) — the chunk's queries. k_cached/v_cached: (B,Hkv,C,dh)
-    gathered bf16 cache rows, quantized here at the #k.A/#v.A sites.
+    gathered cache rows, FP8 payloads or bf16, as in `fp8_sdpa_decode`.
     slot_pos: (B,C) absolute position of each gathered column (-1 = hole).
     chunk_pos: (B,2) [start, n_valid]: q row r sits at start + r when
     r < n_valid and is fully masked (exact-zero output) otherwise."""
-    from repro_torch.kernels.fp8_attention import ops as attn_ops
-    if k_cached.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise NotImplementedError(
-            "FP8 KV-cache payloads are not ported yet (ROADMAP.md, slice "
-            "3); serve with a bf16 cache")
-    ctx = scale_ctx.current()
-    keys = None
-    one = f32(1.0)
-    s_q = s_k = s_v = s_s = s_p = one
-    if cfg.delayed and ctx is not None and site is not None:
-        keys = scale_ctx.attention_keys(ctx.site_key(site))
-        for n in ("q", "k", "v", "s", "p"):
-            ctx.register(keys[n])
-        _check_frozen_sites(ctx, keys)
-        s_q, s_k, s_v, s_s, s_p = (ctx.scale_for(keys[n])
-                                   for n in ("q", "k", "v", "s", "p"))
-    q8 = _quant_operand(q, ACT, cfg, s_q, generator)
-    k8 = _quant_operand(k_cached, ACT, cfg, s_k, generator)
-    v8 = _quant_operand(v_cached, ACT, cfg, s_v, generator)
-    o, amax_s, amax_p = attn_ops.fp8_attention_fwd(
-        q8.data, k8.data, v8.data, _seed(cfg, generator),
-        _fwd_factors(s_q, s_k, s_v, s_s, s_p, sm_scale),
-        mask_mode="chunk", window=window, kv_mask=slot_pos,
-        chunk_pos=chunk_pos, **_kernel_kwargs(cfg))
-    if keys is not None and ctx.mode == "calibrate":
-        ctx.record(keys["q"], _observe(q8))
-        ctx.record(keys["s"], amax_s * float(s_s))
-        ctx.record(keys["p"], amax_p * float(s_p))
-    return o.to(dtype_of(cfg.output_dtype))
+    return _serve_fwd(q, k_cached, v_cached, cfg=cfg, sm_scale=sm_scale,
+                      k_cache_scale=k_cache_scale,
+                      v_cache_scale=v_cache_scale, site=site,
+                      generator=generator, mask_mode="chunk", window=window,
+                      kv_mask=slot_pos, chunk_pos=chunk_pos)

@@ -13,7 +13,8 @@ Dispatch: CPU tensors take the plain versions (ref.py); CUDA tensors launch
 the hand-written Hopper kernels (csrc/fp8_attention_fwd.cu,
 csrc/fp8_attention_bwd.cu) or raise. `fp8_attention_fwd.launches`,
 `fp8_attention_bwd_dq.launches` and `fp8_attention_bwd_dkv.launches`
-count the launches of the three kernels (the dQ kernel's also by variant,
+count the launches of the three kernels (the forward's also by mask,
+`launches_by_mask`; the dQ kernel's also by variant,
 `launches_by_variant`: 'stash' for spans of up to STASH_BLOCKS kv blocks,
 'long' past them, chosen by `dq_variant`). `fwd_tile_order`,
 `fwd_live_blocks` and `fwd_dead_warps` state the forward kernel's
@@ -182,6 +183,7 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
              seed_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_fwd")
     fp8_attention_fwd.launches += 1
+    fp8_attention_fwd.launches_by_mask[mask_mode] += 1
     return o, amax
 
 
@@ -261,6 +263,7 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
 
 fp8_attention_fwd.launches = 0
+fp8_attention_fwd.launches_by_mask = dict.fromkeys(_MASK_ID, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +498,7 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 def reset_launches():
     """Set the launch counts of the three attention kernels to 0."""
     fp8_attention_fwd.launches = 0
+    fp8_attention_fwd.launches_by_mask = dict.fromkeys(_MASK_ID, 0)
     fp8_attention_bwd_dq.launches = 0
     fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
     fp8_attention_bwd_dkv.launches = 0

@@ -23,9 +23,10 @@ block attributes its SM clock to the passes: stage / widen, S product, S
 epilogue, P epilogue, P.V, rescale, store; every block records its start,
 end, SM and the kv blocks it visited, and each warp whether it ran its
 epilogue). At the training shape (causal B=4, H=12, Hkv=2, S=512, e4m3,
-SR) and the serving 'chunk' shape (B=4, Q=32, S=512, the ragged requests
-of chip_smoke.py) it prints ptxas' registers and spills, the shared memory
-and blocks per SM, the probe build's and the package build's device time
+SR), the serving 'chunk' shape (B=4, Q=32, S=512, the ragged requests
+of chip_smoke.py) and the fixed-slot decode shape ('kv', B=4, Q=1, S=512,
+q e4m3 against e5m2 K/V, RNE) it prints ptxas' registers and spills, the
+shared memory and blocks per SM, the probe build's and the package build's device time
 per launch (20 launches replayed from a CUDA graph) and time per
 back-to-back call, the cycles of each pass in a longest-span tile, the
 makespan, the share of block slots busy, and whether the schedule the
@@ -220,12 +221,12 @@ def fwd_schedule_faults(lib, q, k, v, kw) -> list:
 
 
 def fwd_cases(dev):
-    """(name, q, k, v, scal, kwargs) of the two shapes the probe reads."""
+    """(name, q, k, v, scal, kwargs) of the three shapes the probe reads."""
     gen = torch.Generator(device=dev).manual_seed(9)
     e4 = torch.float8_e4m3fn
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(e4)
+    def rnd(*shape, dt=e4):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
     b, h, hkv, s, d = 4, 12, 2, 512, 128
     rec = dict(fmt_s="e4m3", fmt_p="e4m3", rounding_s="sr", rounding_p="sr",
                saturate_s=True, saturate_p=True)
@@ -246,7 +247,18 @@ def fwd_cases(dev):
              dict(mask_mode="chunk", window=0, s_len=s,
                   kvm=slot_pos.int().contiguous(),
                   chunk_pos=chunk_pos.int().contiguous(), **rec))
-    return train, serve
+    # The fixed-slot engine's decode step under the hybrid recipe with an
+    # e5m2 KV cache: one query row per (b, h), payloads read as cached.
+    e5 = torch.float8_e5m2
+    rne = dict(rec, rounding_s="rne", rounding_p="rne")
+    decode = ("serving decode: kv B=4 H=12 Hkv=2 Q=1 S=512 D=128, q e4m3, "
+              "K/V e5m2, RNE",
+              rnd(b, h, 1, d), rnd(b, hkv, s, d, dt=e5),
+              rnd(b, hkv, s, d, dt=e5), [0.088388, 1.0, 1.0, 1.0],
+              dict(mask_mode="kv", window=0, s_len=s,
+                   kvm=(cols < lengths).int().contiguous(), chunk_pos=None,
+                   **rne))
+    return train, serve, decode
 
 
 def fwd_launch(lib, case):

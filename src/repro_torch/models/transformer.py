@@ -23,7 +23,7 @@ import torch
 from repro_torch.core.precision_policy import QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attention, init_attention,
-                                          init_paged_pool)
+                                          init_cache, init_paged_pool)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        logits_head, mlp, rmsnorm)
@@ -65,6 +65,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
             cfg.d_model, cfg.padded_vocab_size, scale=0.5, generator=gen,
             device=dev)
     return params
+
+
+def init_stack_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                     device=None):
+    """Per-layer fixed-slot KV caches (`init_cache`), keyed like the
+    decoder params."""
+    cfg.check_ported()
+    dev = resolve_device(device)
+    return {name: {"kv": init_cache(cfg, batch, max_len, device=dev)}
+            for name in _layer_names(cfg)}
 
 
 def init_paged_stack_state(cfg: ModelConfig, n_slots: int, *, device=None):
@@ -123,9 +133,13 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
             qgen: Optional[torch.Generator] = None):
     """Backbone forward. Returns (logits, new_states).
 
-    mode 'train' (causal, no cache) or 'chunk' (paged serving: `states`
-    are the pools of init_paged_stack_state, `page` the step's block-table
-    indirection). gather_rows: (B,) row per request at which to compute
+    mode 'train' (causal, no cache); 'prefill' / 'decode' (fixed-slot
+    serving: `states` are the caches of init_stack_state, written in
+    place; prefill writes only batch row page["slot"] when `page` is
+    given); or 'chunk' (paged serving:
+    `states` are the pools of init_paged_stack_state, `page` the step's
+    block-table indirection). last_only: logits of the last position only
+    (prefill). gather_rows: (B,) row per request at which to compute
     logits (the chunk's last valid token). qgen: the generator SR bits
     come from."""
     cfg.check_ported()

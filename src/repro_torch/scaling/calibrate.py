@@ -6,11 +6,20 @@ scaling) over N batches: scales start at 1.0 and follow the amax history
 exactly as the reference's DelayedScaling does. The first batch also
 registers every site it touches (the reference discovers them by an
 abstract trace, which eager PyTorch has no counterpart of; its first batch
-runs at unit scales either way). `freeze` emits {site_key: float}.
+runs at unit scales either way). `freeze` emits {site_key: float};
+`save_frozen` / `load_frozen` / `load_frozen_formats` keep it in the
+reference's JSON file, which either package reads.
+
+With an FP8 KV cache in the policy (`kv_cache_format`), the attention
+records max|k| (after RoPE) and max|v| at the sites '.../kv/{k,v}#A'.
+Those observations touch no other site, so the other scales are those of
+a calibration without the cache sites.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -20,6 +29,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.scaling import context as scale_ctx
 from repro_torch.scaling.state import (DelayedScaling, ScaleState,
                                        ScalingConfig, SiteRegistry)
+
+FROZEN_SCALES_FILE = "frozen_scales.json"
 
 
 def _delayed_eval_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -96,6 +107,40 @@ def freeze(ds: DelayedScaling, state: ScaleState) -> Dict[str, float]:
     return ds.freeze(state)
 
 
-def freeze_with_formats(ds: DelayedScaling, state: ScaleState
+def freeze_with_formats(ds: DelayedScaling, state: ScaleState,
+                        cfg: Optional[ModelConfig] = None
                         ) -> Tuple[Dict[str, float], Dict[str, str]]:
-    return ds.freeze(state), ds.frozen_formats()
+    """(frozen scales, the format each was calibrated under); the KV-cache
+    sites record `cfg.policy.kv_cache_format`. Serving refuses scales
+    calibrated under another format (`frozen_formats=` of the engines)."""
+    kv_format = cfg.policy.kv_cache_format if cfg is not None else None
+    return ds.freeze(state), ds.frozen_formats(kv_format=kv_format)
+
+
+def save_frozen(directory, scales: Dict[str, float],
+                formats: Optional[Dict[str, str]] = None):
+    """Write FROZEN_SCALES_FILE in `directory`: {"scales", "formats"}, or
+    the plain legacy {key: scale} layout without `formats` (the
+    reference's file, byte for byte)."""
+    p = Path(directory)
+    p.mkdir(parents=True, exist_ok=True)
+    doc = scales if formats is None else {"scales": scales,
+                                          "formats": formats}
+    (p / FROZEN_SCALES_FILE).write_text(json.dumps(doc, indent=1,
+                                                   sort_keys=True))
+
+
+def _load_doc(directory) -> dict:
+    return json.loads((Path(directory) / FROZEN_SCALES_FILE).read_text())
+
+
+def load_frozen(directory) -> Dict[str, float]:
+    doc = _load_doc(directory)
+    return doc["scales"] if isinstance(doc.get("scales"), dict) else doc
+
+
+def load_frozen_formats(directory) -> Dict[str, str]:
+    """The formats of a frozen-scales file ({} for the legacy layout)."""
+    doc = _load_doc(directory)
+    return doc.get("formats", {}) if isinstance(doc.get("scales"), dict) \
+        else {}

@@ -80,6 +80,14 @@ class ScaleContext:
         s = self.scales.get(key)
         return np.float32(default if s is None else s)
 
+    def frozen_scale(self, key: str, default: float = 1.0) -> float:
+        """The site's frozen scale as a python float in frozen mode (the
+        reference burns it into the program as a constant); `default` in
+        every other mode."""
+        if self.mode != "frozen":
+            return default
+        return float(self.scales.get(key, default))
+
     def has_scale(self, key: str) -> bool:
         return key in self.scales
 

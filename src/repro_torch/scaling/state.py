@@ -144,7 +144,14 @@ class DelayedScaling:
         return {k: float(state.scale[i]) for k, i in self.registry.index.items()
                 if self.registry.class_letter(k) in ("W", "A")}
 
-    def frozen_formats(self) -> Dict[str, str]:
-        """Storage format each frozen (forward) site was calibrated under."""
-        return {k: format_for_site(k, self.qcfg) for k in self.registry.keys
+    def frozen_formats(self, *, kv_format: Optional[str] = None
+                       ) -> Dict[str, str]:
+        """Storage format each frozen (forward) site was calibrated under.
+        The FP8 KV-cache sites ('.../kv/{k,v}#A') record `kv_format` (the
+        policy's kv_cache_format), or their class's format without one;
+        their scales target the class's format all the same
+        (`fmt_max_vector`), as the reference's do."""
+        return {k: format_for_site(k, self.qcfg, kv_format)
+                or self.registry.format_for(k, self.qcfg)
+                for k in self.registry.keys
                 if self.registry.class_letter(k) in ("W", "A")}

@@ -1,16 +1,22 @@
-"""Paged serving engine (counterpart of `repro.serve.engine.PagedServeEngine`).
+"""Serving engines (counterpart of `repro.serve.engine`).
 
-One fixed-shape `step()` serves every phase: each request row carries a
-prompt chunk (up to `chunk_size` tokens) or one decode token through the
-same forward — 'chunk' attention over a block-table KV pool, per-row
-[start, n_valid] ragged bounds — and sampling on the device. The host
-reads back only the (B,) sampled token ids.
+`PagedServeEngine`: one fixed-shape `step()` serves every phase: each
+request row carries a prompt chunk (up to `chunk_size` tokens) or one
+decode token through the same forward — 'chunk' attention over a
+block-table KV pool, per-row [start, n_valid] ragged bounds — and sampling
+on the device. The host reads back only the (B,) sampled token ids. The
+exact prefix cache is on by default, as in the reference.
 
-Serving runs the deterministic FP8 path (RNE, saturating) with frozen
-calibrated scales and a bf16 KV cache; under those, greedy streams match
-the reference engine's. The exact prefix cache is on by default, as in the
-reference. The legacy fixed-slot engine and the FP8 KV cache are queued in
-ROADMAP.md.
+`ServeEngine`: the reference's fixed-slot engine (the paged engine's
+oracle). `max_batch` slots of `max_len` cache rows each; add_request()
+prefills a free slot (the whole batch runs, as in the reference, and only
+the slot's cache rows are written); step() decodes one token for every
+slot; the host samples from the logits with numpy.
+
+Both serve the deterministic FP8 path (RNE, saturating), with frozen
+calibrated scales when given, over a bf16 or FP8 (`kv_cache_format`) KV
+cache; under frozen scales and a bf16 cache their greedy streams agree
+with each other and with the reference's.
 """
 from __future__ import annotations
 
@@ -26,6 +32,226 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Tracer
 
+
+def _check_formats(cfg: ModelConfig, frozen_formats: Dict[str, str]):
+    """Refuse scales calibrated under another storage format (a scale for
+    the e4m3 grid is 128x off on e5m2's)."""
+    from repro_torch.scaling.state import format_for_site
+    quant = cfg.policy.quant
+    kv_fmt = cfg.policy.kv_cache_format
+    for key, calibrated in frozen_formats.items():
+        serving = format_for_site(key, quant, kv_fmt)
+        if serving != calibrated:
+            raise ValueError(
+                f"frozen scale for site {key!r} was calibrated under "
+                f"format {calibrated!r} but this engine would quantize "
+                f"it as {serving!r} (recipe={quant.recipe!r}, "
+                f"kv_cache_format={kv_fmt!r}); recalibrate or fix the "
+                "serving config")
+
+
+def _pct(win, q):
+    return float(np.percentile(np.asarray(win), q)) if win else None
+
+
+class _Counters:
+    """The serving counters both engines keep: latency windows (prefill,
+    step, request), slot occupancy per step, requests and tokens."""
+
+    def __init__(self, win: int = 512):
+        self.prefill_lat = collections.deque(maxlen=win)
+        self.step_lat = collections.deque(maxlen=win)
+        self.req_lat = collections.deque(maxlen=win)
+        self.occupancy = collections.deque(maxlen=win)
+        self.requests = self.finished = 0
+        self.prefill_tokens = self.decode_tokens = 0
+        self.decode_time_s = 0.0
+
+    def finish(self, req):
+        req.t_finished = time.perf_counter()
+        self.finished += 1
+        self.req_lat.append(req.t_finished - req.t_added)
+
+    def stats(self, slots, occupancy_key: str, step_key: str
+              ) -> Dict[str, Any]:
+        return {
+            "requests": self.requests,
+            "finished": self.finished,
+            "active": sum(s is not None for s in slots),
+            "max_batch": len(slots),
+            occupancy_key: (float(np.mean(self.occupancy))
+                            if self.occupancy else 0.0),
+            "prefill_tokens": self.prefill_tokens,
+            "decode_tokens": self.decode_tokens,
+            "decode_tokens_per_s": (self.decode_tokens / self.decode_time_s
+                                    if self.decode_time_s > 0 else 0.0),
+            "prefill_latency_s": {"p50": _pct(self.prefill_lat, 50),
+                                  "p99": _pct(self.prefill_lat, 99)},
+            step_key: {"p50": _pct(self.step_lat, 50),
+                       "p99": _pct(self.step_lat, 99)},
+            "request_latency_s": {"p50": _pct(self.req_lat, 50),
+                                  "p99": _pct(self.req_lat, 99)},
+        }
+
+
+# ===========================================================================
+# Fixed-slot engine
+# ===========================================================================
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_len: int = 512
+    eos_id: int = -1          # -1 => never stops early
+    temperature: float = 0.0  # 0 => greedy
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_added: float = 0.0      # perf_counter at add_request
+    prefill_s: float = 0.0    # prefill latency (sampling included)
+    decode_s: float = 0.0     # summed decode-step time while active
+    t_finished: float = 0.0
+
+
+class ServeEngine:
+    """Fixed-slot serving on `device` (CUDA by default; pass device='cpu'
+    for the plain versions). frozen_scales: calibrated per-site scales
+    (`scaling.calibrate.freeze` / `load_frozen`), the FP8 KV cache's
+    included; frozen_formats: the formats they were calibrated under —
+    serving refuses a site this engine would quantize in another."""
+
+    def __init__(self, cfg: ModelConfig, params, serve: ServeConfig,
+                 frozen_scales: Optional[Dict[str, float]] = None,
+                 frozen_formats: Optional[Dict[str, str]] = None,
+                 device=None):
+        from repro_torch.models.transformer import init_stack_state
+        from repro_torch.train.step import (make_serve_decode,
+                                            make_serve_prefill)
+        self.device = resolve_device(device)
+        cfg.check_ported()
+        self.cfg = cfg
+        self.params = params
+        self.serve = serve
+        self.frozen_scales = frozen_scales
+        self.frozen_formats = frozen_formats
+        if frozen_formats:
+            _check_formats(cfg, frozen_formats)
+        self._prefill = make_serve_prefill(cfg, frozen_scales)
+        self._decode = make_serve_decode(cfg, frozen_scales)
+        b = serve.max_batch
+        self.states = init_stack_state(cfg, b, serve.max_len,
+                                       device=self.device)
+        self.slots: List[Optional[Request]] = [None] * b
+        self.positions = np.zeros((b,), np.int64)
+        self.last_token = np.zeros((b,), np.int32)
+        self._uid = 0
+        self.tracer = Tracer()
+        self._c = _Counters()
+
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def add_request(self, prompt: np.ndarray,
+                    max_new_tokens: int = 32) -> int:
+        """Prefill `prompt` into a free slot; returns the request uid."""
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slots; call step() until one frees")
+        slot = free[0]
+        self._uid += 1
+        req = Request(self._uid, np.asarray(prompt, np.int32),
+                      max_new_tokens, t_added=time.perf_counter())
+        self.slots[slot] = req
+        s = req.prompt.shape[0]
+        tokens = np.zeros((len(self.slots), s), np.int32)
+        tokens[slot] = req.prompt
+        with self.tracer.span("prefill", uid=req.uid, tokens=s):
+            logits, self.states = self._prefill(
+                self.params, {"tokens": torch.from_numpy(tokens).to(
+                    self.device), "slot": slot}, self.states)
+            self.positions[slot] = s
+            nxt = self._sample(logits[slot, -1].float().cpu().numpy())
+        req.prefill_s = time.perf_counter() - req.t_added
+        self._c.prefill_lat.append(req.prefill_s)
+        self._c.requests += 1
+        self._c.prefill_tokens += s
+        self.last_token[slot] = nxt
+        req.generated.append(int(nxt))
+        return req.uid
+
+    def step(self) -> Dict[int, List[int]]:
+        """One decode step for all slots. Returns the finished requests."""
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return {}
+        t0 = time.perf_counter()
+        self._c.occupancy.append(len(active) / len(self.slots))
+        dev = self.device
+        batch = {"tokens": torch.from_numpy(self.last_token[:, None]).to(dev),
+                 "positions": torch.from_numpy(
+                     self.positions[:, None].astype(np.int32)).to(dev)}
+        with self.tracer.span("decode", active=len(active)):
+            logits, self.states = self._decode(self.params, batch,
+                                               self.states)
+            logits = logits[:, 0].float().cpu().numpy()
+        dt = time.perf_counter() - t0
+        self._c.step_lat.append(dt)
+        self._c.decode_time_s += dt
+        self._c.decode_tokens += len(active)
+        finished: Dict[int, List[int]] = {}
+        for i in active:
+            req = self.slots[i]
+            req.decode_s += dt
+            nxt = self._sample(logits[i])
+            req.generated.append(int(nxt))
+            self.positions[i] += 1
+            self.last_token[i] = nxt
+            hit_eos = (self.serve.eos_id >= 0 and nxt == self.serve.eos_id)
+            if hit_eos or len(req.generated) >= req.max_new_tokens \
+                    or self.positions[i] >= self.serve.max_len - 1:
+                req.done = True
+                self._c.finish(req)
+                finished[req.uid] = req.generated
+                self.slots[i] = None
+        return finished
+
+    def run_to_completion(self, max_steps: int = 10_000
+                          ) -> Dict[int, List[int]]:
+        out: Dict[int, List[int]] = {}
+        for _ in range(max_steps):
+            out.update(self.step())
+            if not any(self.slots):
+                break
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """The reference's serving counters (jsonable)."""
+        return self._c.stats(self.slots, "kv_slot_occupancy",
+                             "decode_step_s")
+
+    def _sample(self, logits: np.ndarray) -> int:
+        """Greedy over the real vocabulary, or a draw from numpy's
+        generator seeded with seed + the latest uid (the reference's
+        rule; it draws in the logits' f32 here, bf16 there)."""
+        logits = logits[:self.cfg.vocab_size]
+        if self.serve.temperature <= 0:
+            return int(logits.argmax())
+        p = np.exp((logits - logits.max()) / self.serve.temperature)
+        p /= p.sum()
+        rng = np.random.default_rng(self.serve.seed + self._uid)
+        return int(rng.choice(len(p), p=p))
+
+
+# ===========================================================================
+# Paged engine
+# ===========================================================================
 
 @dataclasses.dataclass
 class PagedServeConfig:
@@ -84,7 +310,7 @@ class PagedServeEngine:
         self.frozen_scales = frozen_scales
         self.frozen_formats = frozen_formats
         if frozen_formats:
-            self._check_formats(frozen_formats)
+            _check_formats(cfg, frozen_formats)
         self.pager = PageAllocator(serve.n_pages, serve.page_size)
         self.capacity = -(-serve.max_len // serve.page_size) * serve.page_size
         self.states = init_paged_stack_state(cfg, self.pager.n_slots,
@@ -101,30 +327,7 @@ class PagedServeEngine:
         self.slots: List[Optional[_PagedRequest]] = [None] * serve.max_batch
         self._uid = 0
         self.tracer = Tracer()
-        win = 512
-        self._prefill_lat = collections.deque(maxlen=win)
-        self._step_lat = collections.deque(maxlen=win)
-        self._req_lat = collections.deque(maxlen=win)
-        self._occupancy = collections.deque(maxlen=win)
-        self._n_requests = 0
-        self._n_finished = 0
-        self._prefill_tokens = 0
-        self._decode_tokens = 0
-        self._decode_time_s = 0.0
-
-    def _check_formats(self, frozen_formats: Dict[str, str]):
-        """Refuse scales calibrated under another storage format."""
-        from repro_torch.scaling.state import format_for_site
-        quant = self.cfg.policy.quant
-        kv_fmt = self.cfg.policy.kv_cache_format
-        for key, calibrated in frozen_formats.items():
-            serving = format_for_site(key, quant, kv_fmt)
-            if serving != calibrated:
-                raise ValueError(
-                    f"frozen scale for site {key!r} was calibrated under "
-                    f"format {calibrated!r} but this engine would quantize "
-                    f"it as {serving!r} (recipe={quant.recipe!r}); "
-                    "recalibrate or fix the serving config")
+        self._c = _Counters()
 
     # -- admission ----------------------------------------------------------
 
@@ -163,7 +366,7 @@ class PagedServeEngine:
                 self.pager.release(req.table)
             raise
         self.slots[slot] = req
-        self._n_requests += 1
+        self._c.requests += 1
         return req.uid
 
     # -- the unified step ---------------------------------------------------
@@ -209,7 +412,7 @@ class PagedServeEngine:
         if not active:
             return {}
         t0 = time.perf_counter()
-        self._occupancy.append(len(active) / len(self.slots))
+        self._c.occupancy.append(len(active) / len(self.slots))
         b, tchunk = self.serve.max_batch, self.serve.chunk_size
         psize = self.serve.page_size
         tokens = np.zeros((b, tchunk), np.int32)
@@ -266,32 +469,30 @@ class PagedServeEngine:
                               decode_rows=n_decode_rows):
             tok = self._device_step(batch)
         dt = time.perf_counter() - t0
-        self._step_lat.append(dt)
+        self._c.step_lat.append(dt)
         finished: Dict[int, List[int]] = {}
         for i, what in plan.items():
             req = self.slots[i]
             if what[0] == "prefill":
                 req.prefill_pos += what[1]
                 req.pos = req.prefill_pos
-                self._prefill_tokens += what[1]
+                self._c.prefill_tokens += what[1]
                 if req.prefill_pos < len(req.prompt):
                     continue            # prompt not done; sample discarded
                 req.prefill_s = time.perf_counter() - req.t_added
-                self._prefill_lat.append(req.prefill_s)
+                self._c.prefill_lat.append(req.prefill_s)
                 if self.prefix_cache is not None:
                     self.prefix_cache.insert(req.prompt, req.table)
             else:
                 req.pos += 1
-                self._decode_tokens += 1
-                self._decode_time_s += dt / max(len(plan), 1)
+                self._c.decode_tokens += 1
+                self._c.decode_time_s += dt / max(len(plan), 1)
             nxt = int(tok[i])
             req.generated.append(nxt)
             hit_eos = (self.serve.eos_id >= 0 and nxt == self.serve.eos_id)
             if hit_eos or len(req.generated) >= req.max_new_tokens \
                     or req.pos >= self.serve.max_len - 1:
-                req.t_finished = time.perf_counter()
-                self._n_finished += 1
-                self._req_lat.append(req.t_finished - req.t_added)
+                self._c.finish(req)
                 finished[req.uid] = req.generated
                 self.pager.release(req.table)
                 self.slots[i] = None
@@ -308,26 +509,7 @@ class PagedServeEngine:
     # -- telemetry ----------------------------------------------------------
 
     def stats(self) -> Dict[str, Any]:
-        def pct(win, q):
-            return float(np.percentile(np.asarray(win), q)) if win else None
-        out = {
-            "requests": self._n_requests,
-            "finished": self._n_finished,
-            "active": sum(s is not None for s in self.slots),
-            "max_batch": len(self.slots),
-            "slot_occupancy": (float(np.mean(self._occupancy))
-                               if self._occupancy else 0.0),
-            "prefill_tokens": self._prefill_tokens,
-            "decode_tokens": self._decode_tokens,
-            "decode_tokens_per_s": (self._decode_tokens / self._decode_time_s
-                                    if self._decode_time_s > 0 else 0.0),
-            "prefill_latency_s": {"p50": pct(self._prefill_lat, 50),
-                                  "p99": pct(self._prefill_lat, 99)},
-            "step_s": {"p50": pct(self._step_lat, 50),
-                       "p99": pct(self._step_lat, 99)},
-            "request_latency_s": {"p50": pct(self._req_lat, 50),
-                                  "p99": pct(self._req_lat, 99)},
-        }
+        out = self._c.stats(self.slots, "slot_occupancy", "step_s")
         out.update(self.pager.stats())
         if self.prefix_cache is not None:
             out.update(self.prefix_cache.stats())

@@ -189,3 +189,32 @@ def make_serve_chunk(cfg: ModelConfig, frozen_scales=None):
                            page=page, gather_rows=batch["last_row"])
 
     return chunk_step
+
+
+def make_serve_prefill(cfg: ModelConfig, frozen_scales=None):
+    """Fixed-slot prefill: batch {"tokens": (B, S)} through the causal
+    forward, the prompt written into each layer's cache in place (with
+    batch["slot"], only that row's cache). Returns (logits (B, 1, V) of
+    the last position, states)."""
+    ecfg = _eval_cfg(cfg, frozen_scales)
+
+    def prefill(params, batch, states):
+        page = {"slot": batch["slot"]} if "slot" in batch else None
+        with torch.no_grad(), _maybe_frozen(frozen_scales):
+            return forward(params, batch["tokens"], cfg=ecfg, mode="prefill",
+                           states=states, page=page, last_only=True)
+
+    return prefill
+
+
+def make_serve_decode(cfg: ModelConfig, frozen_scales=None):
+    """Fixed-slot decode: batch {"tokens", "positions"} (B, 1), one token
+    per row appended to the caches. Returns (logits (B, 1, V), states)."""
+    ecfg = _eval_cfg(cfg, frozen_scales)
+
+    def decode(params, batch, states):
+        with torch.no_grad(), _maybe_frozen(frozen_scales):
+            return forward(params, batch["tokens"], cfg=ecfg, mode="decode",
+                           states=states, positions=batch["positions"])
+
+    return decode

@@ -239,6 +239,44 @@ def test_attention_kernel_runs_the_stated_schedule(card, fwd_probe_lib, mode):
 
 
 @pytest.mark.gpu
+def test_decode_equals_chunk_at_one_token(card):
+    """The fixed-slot decode op ('kv' mask) and the paged chunk op at T=1
+    ('chunk' mask) on the same e5m2 cache payloads, with the hybrid
+    recipe's e4m3 q and frozen scales, at the decode shape (B=4, H=12,
+    Hkv=2, C=512, D=128): bit for bit, each through kernel 2."""
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.core.qattention import fp8_sdpa_chunk, fp8_sdpa_decode
+    from repro_torch.scaling import context as scale_ctx
+    qcfg = QuantConfig(recipe="hybrid", scaling="delayed",
+                       backend="pallas").eval_mode()
+    gen = torch.Generator().manual_seed(8)
+    b, c = 4, 512
+    q = torch.randn((b, 12, 1, 128), generator=gen).to(torch.bfloat16)
+    k8, v8 = ((torch.randn((b, 2, c, 128), generator=gen) * 8).to(
+        torch.float8_e5m2) for _ in range(2))
+    lengths = torch.tensor([101, 38, 480, 6])
+    cols = torch.arange(c)[None]
+    valid = cols < lengths[:, None]
+    spos = torch.where(valid, cols, torch.full_like(cols, -1)).int()
+    cpos = torch.stack([lengths - 1, torch.ones_like(lengths)], 1).int()
+    scales = {f"sdpa#{n}.A": x for n, x in zip(
+        ("q", "k", "v", "qk", "p"), (0.01, 0.02, 0.02, 0.05, 1.0 / 448))}
+    kw = dict(cfg=qcfg, sm_scale=128 ** -0.5, k_cache_scale=0.125,
+              v_cache_scale=0.0625, site="sdpa")
+    masks = dict(attn.fp8_attention_fwd.launches_by_mask)
+    with scale_ctx.activate(scale_ctx.frozen_context(scales)):
+        dec = fp8_sdpa_decode(q.to(card), k8.to(card), v8.to(card),
+                              valid.to(card), **kw)
+        chk = fp8_sdpa_chunk(q.to(card), k8.to(card), v8.to(card),
+                             spos.to(card), cpos.to(card), **kw)
+    torch.cuda.synchronize()
+    assert attn.fp8_attention_fwd.launches_by_mask["kv"] == masks["kv"] + 1
+    assert attn.fp8_attention_fwd.launches_by_mask["chunk"] \
+        == masks["chunk"] + 1
+    assert torch.equal(dec.view(torch.int16), chk.view(torch.int16))
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
     x = torch.zeros((2, 2, 8, 256), dtype=torch.float8_e4m3fn, device=card)
     with pytest.raises(ValueError, match="head dim"):
