@@ -57,7 +57,21 @@ Phases, each of which raises on failure (there is no CPU fallback):
      rounding op (its own path, counts reset around it);
   9. hold one paper-recipe step (full width, 2 layers) against the plain
      versions on the card and, all-RNE, on the CPU, with a planted fault
-     in the unfused GEMM kernel.
+     in the unfused GEMM kernel;
+  10. train the paper's ResNet (ResNetConfig(): depth (2, 2, 2), widths
+     (32, 64, 128)) for RESNET_STEPS steps of B=256 synthetic 32x32
+     images under PAPER_FP8 (constant loss scale 10000, momentum SGD,
+     fp16 master, L2 in the loss), counts reset around the steps (kernel
+     5, 14 a step); validation accuracy, a profile; then one all-RNE step
+     against the plain versions on the card, with a planted kernel-5
+     fault;
+  11. train the encoder-decoder paper-transformer (6 + 6 layers, d 1024,
+     16 heads of 64, B=8 x 256 source frames and 255 target tokens) for
+     S2S_STEPS steps under the hybrid delayed recipe on the fused path
+     (kernels 1-4) and under the paper's on the unfused path (kernel 5),
+     counts reset around each run, a profile of each; then one step per
+     recipe at 2 + 2 layers against the plain versions on the card and,
+     all-RNE, on the CPU, with planted faults.
 Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
 against their plain versions and times them, holds the GEMM in every
 layout at ragged shapes that take each of its two tile widths (128x128,
@@ -66,7 +80,14 @@ the attention backward's dQ kernel (the stash variant for kv spans of up
 to 512 columns, the four-pass one past them) against the plain version
 and against each other, and kernel 2 with q in one fp8 format and K/V in
 the other at the decode and chunk shapes; the GEMMs and kernel 2 are held
-at the fixed-slot engine's decode and prefill shapes too. The start of
+at the fixed-slot engine's decode and prefill shapes too, and at the
+paper's workloads' shapes: kernel 5 at the ResNet's seven conv GEMMs (K
+of 32-1152, N of 32-128, up to 262144 rows), kernel 1 at the
+paper-transformer's M = 2040 projections, kernels 2-4 at its attention
+(head dim 64, MHA, 'full' 256 x 256 and 255 x 256, 'causal' 255 x 255;
+exact fixtures, general inputs, the schedules), each timed beside its
+bound and library call (where the wrapper pads, also the launch alone;
+the attention kernels also at head dim 128 on those shapes). The start of
 the run prints the shared memory, registers, spills and blocks per SM of
 the attention forward, of the dQ stash variant, of the dK/dV kernel and
 of every GEMM variant (a forward or dK/dV kernel that spills fails, as
@@ -75,7 +96,9 @@ line before the last is a JSON object with one entry per kernel (kernel
 3's with its two variants, kernel 4's with its two kernels, the GEMM's and
 kernel 5's with their tile widths; launches: the fused GEMM's and the attention
 kernels' from phase 6, the unfused GEMM's from phase 8, the
-stochastic-rounding kernels' from the op's path); the last line is
+stochastic-rounding kernels' from the op's path; `launches_by_path`: a
+step's launches on each training path, phases 6, 8, 10 and 11;
+`other_shapes`: its rows at the paper's workloads' shapes); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
@@ -338,14 +361,22 @@ def attn_inputs(dev, gen, mode, fmt, kv_fmt=None):
     query row per (b, h) against 512 cache slots under the 'kv' validity
     of four ragged lengths), 'prefill' (the fixed-slot engine's: max_batch
     4 rows of the longest phase-4 prompt, 98 tokens, 'causal', a kv length
-    short of one 128-column block), or a 256-token batch under 'causal',
-    'window' (causal, window 100), 'full' or 'kv' (random column validity,
-    one 128-column block fully masked). q in `fmt`, k and v in `kv_fmt`
-    (default `fmt`)."""
+    short of one 128-column block), the paper-transformer's three (T5_ATTN:
+    'enc', 'dec', 'cross'; head dim 64, 16 heads without GQA), or a
+    256-token batch under 'causal', 'window' (causal, window 100), 'full'
+    or 'kv' (random column validity, one 128-column block fully masked). q
+    in `fmt`, k and v in `kv_fmt` (default `fmt`)."""
     import torch
     from repro_torch.core.fp8_formats import get_format
     dt = get_format(fmt).dtype
     kdt = get_format(kv_fmt or fmt).dtype
+    if mode in T5_ATTN:
+        mask, q_len, s_len = T5_ATTN[mode]
+        b, h, d = T5_B, T5_HEADS, T5_HEAD_DIM
+        q = torch.randn((b, h, q_len, d), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((b, h, s_len, d), generator=gen,
+                            device=dev).to(kdt) for _ in range(2))
+        return q, k, v, dict(mask_mode=mask)
     if mode == "holes":
         b, h, hkv, t, c = 4, 12, 2, 160, 640
         q = torch.randn((b, h, t, 128), generator=gen, device=dev).to(dt)
@@ -398,11 +429,18 @@ def attn_inputs(dev, gen, mode, fmt, kv_fmt=None):
     return q, k, v, dict(mask_mode=mode)
 
 
+# The paper-transformer's attention (B=8 x 256 source and 255 target
+# tokens; 16 heads of 64, MHA): mode -> (mask, query rows, kv columns) of
+# the encoder's self-attention, the decoder's and its cross-attention.
+T5_B, T5_HEADS, T5_HEAD_DIM = 8, 16, 64
+T5_ATTN = {"enc": ("full", 256, 256), "dec": ("causal", 255, 255),
+           "cross": ("full", 255, 256)}
 # Every mask kernel 2 takes, the chunk layout with skipped kv blocks and
-# dead warps, and the fixed-slot engine's decode step (one live row per
-# 128-row tile) and prefill (98 rows and kv columns).
+# dead warps, the fixed-slot engine's decode step (one live row per
+# 128-row tile) and prefill (98 rows and kv columns), and the
+# paper-transformer's three (head dim 64, q_len != s_len in 'cross').
 ATTN_MODES = ("chunk", "chunk_window", "holes", "decode", "prefill",
-              "causal", "window", "full", "kv")
+              "causal", "window", "full", "kv") + tuple(T5_ATTN)
 # Cases of q in one format against K/V in the other, as serving reads an
 # FP8 cache (the hybrid recipe's e4m3 q against an e5m2 cache).
 ATTN_MIXED = tuple((m, qf, kf) for m in ("decode", "chunk")
@@ -578,7 +616,7 @@ def check_attention(dev):
                         f"{as_k.item()} vs {as_p.item()}, amax_p "
                         f"{ap_k.item()} vs {ap_p.item()}")
                 if fmt == "e4m3" and rounding == "rne" and mode in (
-                        "chunk", "causal", "decode"):
+                        "chunk", "causal", "decode", *T5_ATTN):
                     b, h, t, d = q.shape
                     hkv, s = k.shape[1], k.shape[2]
                     ms = cuda_ms(lambda: at.fp8_attention_fwd(
@@ -601,6 +639,9 @@ def check_attention(dev):
                         mask = (kw["kv_mask"] != 0)[:, None, None, :]
                         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                             qd, kd, vd, attn_mask=mask, enable_gqa=True))
+                    elif kw["mask_mode"] == "full":
+                        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                            qd, kd, vd))
                     else:
                         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                             qd, kd, vd, is_causal=True, enable_gqa=True))
@@ -613,7 +654,7 @@ def check_attention(dev):
                     pairs = attended_pairs(q, k, kw)
                     b_ms, b_by = bound(nbytes, 4.0 * d * pairs, FP8_OPS_PER_S)
                     log(f"attention time {mode} B={b} H={h} Hkv={hkv} Q={t} "
-                        f"S={s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                        f"S={s} D={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                         f"sdpa(bf16) {lib:.4f} ms, bound {b_ms:.4f} ms "
                         f"({b_by}) [{CARD}]")
                     rows[mode] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1316,13 +1357,13 @@ ATTN_BWD_REL_L2 = 1e-3
 DKV_BLOCKS_PER_SM = 2              # the dK/dV kernel's residency target
 
 
-def train_gemm_cases():
-    """(dims, a_shape, b_shape, a_fmt, b_fmt) of the training step's GEMMs:
-    forward Y = A.W ('nn', e4m3 x e4m3), dgrad dA = dY.W^T ('nt', e5m2 x
-    e4m3), wgrad dW = A^T.dY ('tn', e4m3 x e5m2)."""
-    m = TRAIN_B * TRAIN_S
+def train_gemm_cases(m=TRAIN_B * TRAIN_S, proj=PROJ):
+    """(dims, a_shape, b_shape, a_fmt, b_fmt) of the training step's GEMMs
+    at m rows and the (C, N) of `proj`: forward Y = A.W ('nn', e4m3 x
+    e4m3), dgrad dA = dY.W^T ('nt', e5m2 x e4m3), wgrad dW = A^T.dY ('tn',
+    e4m3 x e5m2)."""
     out = []
-    for c, n in PROJ:
+    for c, n in proj:
         out.append(("nn", (m, c), (c, n), "e4m3", "e4m3"))
         out.append(("nt", (m, n), (c, n), "e5m2", "e4m3"))
         out.append(("tn", (m, c), (m, n), "e4m3", "e5m2"))
@@ -1377,18 +1418,19 @@ def check_gemm_case(fq, fq_ref, a, b, dims, out_fmt, saturate, exact, gen,
     return len(roundings), worst, tiles
 
 
-def check_gemm_train(dev):
-    """Every GEMM of the training step at its training shape with the
-    recipe's formats (forward 'nn': e4m3 output, saturating; dgrad 'nt'
-    and wgrad 'tn': e5m2, not saturating), RNE and SR: bitwise on exact
-    inputs, the flip-rate bound on general ones."""
+def check_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ, seed=4):
+    """Every GEMM of the training step at its training shape (m rows, the
+    projections of `proj`) with the recipe's formats (forward 'nn': e4m3
+    output, saturating; dgrad 'nt' and wgrad 'tn': e5m2, not saturating),
+    RNE and SR: bitwise on exact inputs, the flip-rate bound on general
+    ones."""
     import torch
     from repro_torch.kernels.fused_quant_matmul import ops as fq
     from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
-    gen = torch.Generator(device=dev).manual_seed(4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     n_cases = worst = 0
     tiles = {d: set() for d in fq_ref.DIMS}
-    for dims, sa, sb, fa, fb in train_gemm_cases():
+    for dims, sa, sb, fa, fb in train_gemm_cases(m, proj):
         for exact in (True, False):
             a = fp8_tensor(sa, fa, gen, dev, exact)
             b = fp8_tensor(sb, fb, gen, dev, exact)
@@ -1398,9 +1440,10 @@ def check_gemm_train(dev):
                                       gen, dev)
             n_cases, worst = n_cases + c, max(worst, w)
             tiles[dims] |= t
-    log(f"gemm (training shapes, nn/nt/tn): {n_cases} cases match the plain "
-        f"version (bitwise on exact inputs; worst flip rate {worst:.2e}); "
-        f"tile widths launched by layout {tiles}")
+    log(f"gemm (training shapes M={m}, (C, N) {list(proj)}, nn/nt/tn): "
+        f"{n_cases} cases match the plain version (bitwise on exact inputs; "
+        f"worst flip rate {worst:.2e}); tile widths launched by layout "
+        f"{tiles}")
 
 
 # Ragged shapes (M, N, K; none a multiple of 128), one for each tile width
@@ -1440,15 +1483,18 @@ def check_gemm_ragged(dev):
         f"{worst:.2e}); tile widths launched by layout {tiles}")
 
 
-def time_gemm_train(dev):
+def time_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ):
     """Kernel / plain / torch._scaled_mm times of every training GEMM
-    shape (e5m2 SR output for nt / tn, e4m3 SR for nn), with the bound."""
+    shape (m rows, the projections of `proj`; e5m2 SR output for nt / tn,
+    e4m3 SR for nn), with the bound; where the rows or the contraction
+    are ragged (m = 2040), also the launch alone on operands padded
+    beforehand (the wrapper's time less its padding and slicing)."""
     import torch
     from repro_torch.kernels.fused_quant_matmul import ops as fq
     from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
     gen = torch.Generator(device=dev).manual_seed(6)
     rows = []
-    for dims, sa, sb, fa, fb in train_gemm_cases():
+    for dims, sa, sb, fa, fb in train_gemm_cases(m, proj):
         a = fp8_tensor(sa, fa, gen, dev, False)
         b = fp8_tensor(sb, fb, gen, dev, False)
         m, n, c = fq_ref.gemm_shape(a.shape, b.shape, dims)
@@ -1461,10 +1507,21 @@ def time_gemm_train(dev):
         plain = cuda_ms(lambda: fq_ref.fused_quant_matmul_ref(
             a, b, rand8, 64.0, dims=dims, out_format=fmt, rounding="sr",
             saturate=dims == "nn"), iters=5)
+        launch = None
+        if m % fq.BM or c % fq.BK:
+            pa, pb, pr = fq.operand_pads(dims, fq.gemm_tile(m, n, c))
+            ap, bp = fq.aligned(fq._pad2(a, *pa)), fq.aligned(fq._pad2(b, *pb))
+            rp = fq.aligned(fq._pad2(rand8, *pr))
+            launch = cuda_ms(lambda: fq._launch(
+                ap, bp, rp, 64.0, dims=dims, out_format=fmt, rounding="sr",
+                saturate=dims == "nn", lm=m, ln=n, with_counts=False))
         # _scaled_mm wants A row-major and B column-major, with at most one
-        # e5m2 operand: lay the operands out so, outside the timed call.
-        al = a if dims != "tn" else a.t().contiguous()
-        bl = (b.t() if dims == "nt" else b.t().contiguous().t())
+        # e5m2 operand, and a contraction a multiple of 16 (zeros pad it):
+        # lay the operands out so, outside the timed call.
+        al = a if dims != "tn" else fq._pad2(a.t().contiguous(), 1, 16)
+        bl = (b.t() if dims == "nt"
+              else fq._pad2(b, 16 if dims == "tn" else 1, 1)
+              .t().contiguous().t())
         one = torch.ones((), device=dev)
         lib = cuda_ms(lambda: torch._scaled_mm(al, bl, one, one,
                                                out_dtype=torch.bfloat16))
@@ -1476,19 +1533,21 @@ def time_gemm_train(dev):
         b_ms, b_by = bound(m * c + c * n + 2 * m * n, 2.0 * m * n * c,
                            FP8_OPS_PER_S)
         tile = fq.gemm_tile(m, n, c)
+        alone = "" if launch is None else f", launch alone {launch:.4f} ms"
         log(f"gemm time {dims} M={m} C={c} N={n} (128x{tile} tiles): kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, _scaled_mm {lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err} [{CARD}]")
+            f"{ms:.4f} ms{alone}, plain {plain:.4f} ms, _scaled_mm {lib:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err} [{CARD}]")
         rows.append(dict(dims=dims, m=m, c=c, n=n, tile=tile, ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err))
+                         bound_by=b_by, max_abs_err=err, launch_ms=launch))
     return rows
 
 
 def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
-                s=TRAIN_S, d=128):
+                s=TRAIN_S, d=128, q_len=None):
     """The exact backward fixtures of tests/test_torch_attn_bwd.py at the
-    training shape: one-hot q and dO rows, k and v rows constant across the
+    training shape (q_len query rows, s kv columns; q_len = s unless
+    given): one-hot q and dO rows, k and v rows constant across the
     head dim (k: 4, or 32 x the kv block index for 'stepped', on a random
     half of the columns and -224 elsewhere; v: +-1, +-2), so every exp is
     1 or 0, l is a count and every f32 sum is exact in any order."""
@@ -1496,7 +1555,8 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
     from repro_torch.core.fp8_formats import get_format
     ta, te = get_format(fmt_a).dtype, get_format(fmt_e).dtype
     eye = torch.eye(d, device=dev)
-    q = eye[torch.randint(0, d, (b, h, s), generator=gen, device=dev)]
+    q_len = s if q_len is None else q_len
+    q = eye[torch.randint(0, d, (b, h, q_len), generator=gen, device=dev)]
     # 'stepped': 32 x the kv block index modulo 8, so that the keys of long
     # sequences stay inside e4m3's range (at most 224).
     top = (32.0 * (torch.arange(s, device=dev) // 128 % 8).float()
@@ -1507,8 +1567,8 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
     vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)
     v = vals[torch.randint(0, 4, (b, hkv, s, 1), generator=gen,
                            device=dev)] * torch.ones(d, device=dev)
-    dval = fp8_tensor((b, h, s, 1), fmt_e, gen, dev, True).float() * 4
-    do = eye[torch.randint(0, d, (b, h, s), generator=gen, device=dev)] \
+    dval = fp8_tensor((b, h, q_len, 1), fmt_e, gen, dev, True).float() * 4
+    do = eye[torch.randint(0, d, (b, h, q_len), generator=gen, device=dev)] \
         * dval
     scal = [1.0, 1.0, 1.0, 1.0, 2.0 ** -6, 64.0, 256.0, 1.0, 1.0, 1.0]
     return q.to(ta), k.to(ta), v.to(ta), do.to(te), scal
@@ -1517,13 +1577,49 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
 BWD_RECIPES = {"hybrid": ("e4m3", "e5m2"), "paper": ("e5m2", "e5m2")}
 
 
-# Shapes of the exact backward checks: (mask, B, S, the dQ kernel's
-# variant). The training shape, the long-span variant past the stash's cap
-# (causal S=2048, full S=1024), and ragged lengths (S not a multiple of 64)
-# on each variant.
-BWD_EXACT_SHAPES = (("causal", TRAIN_B, TRAIN_S, "stash"),
-                    ("causal", 1, 2048, "long"), ("full", 1, 1024, "long"),
-                    ("causal", 1, 456, "stash"), ("full", 1, 968, "long"))
+# A shape of the attention backward's checks: (mask, B, H, Hkv, q_len, S,
+# D, the dQ kernel's variant there). The training shape, and the
+# paper-transformer's three (T5_ATTN: D = 64 padded to 128, MHA, q_len != S
+# in 'cross'; the stash variant, spans of 2 kv blocks).
+TRAIN_ATTN = ("causal", TRAIN_B, 12, 2, TRAIN_S, TRAIN_S, 128, "stash")
+T5_BWD_SHAPES = tuple((mask, T5_B, T5_HEADS, T5_HEADS, q_len, s_len,
+                       T5_HEAD_DIM, "stash")
+                      for mask, q_len, s_len in T5_ATTN.values())
+# Shapes of the exact backward checks: the training shape, the long-span
+# variant past the stash's cap (causal S=2048, full S=1024), ragged lengths
+# (S not a multiple of 64) on each variant, and the paper-transformer's;
+# of the checks on general inputs, the training shape and the
+# paper-transformer's.
+BWD_EXACT_SHAPES = (TRAIN_ATTN,
+                    ("causal", 1, 12, 2, 2048, 2048, 128, "long"),
+                    ("full", 1, 12, 2, 1024, 1024, 128, "long"),
+                    ("causal", 1, 12, 2, 456, 456, 128, "stash"),
+                    ("full", 1, 12, 2, 968, 968, 128, "long")) \
+    + T5_BWD_SHAPES
+BWD_GENERAL_SHAPES = (TRAIN_ATTN,) + T5_BWD_SHAPES
+
+
+def shape_tag(shape):
+    mask, b, h, hkv, q_len, s, d = shape[:7]
+    return f"{mask} B={b} H={h} Hkv={hkv} Q={q_len} S={s} D={d}"
+
+
+def bwd_scalars(d):
+    """The backward's scalars at head dim d: sm_scale 1/sqrt(d) (rounded
+    to 6 digits), unit scales."""
+    sm = round(d ** -0.5, 6)
+    return [sm, 1.0, 1.0, 1.0, 1.0, 1.0, sm, 1.0, 1.0, 1.0]
+
+
+def bwd_padded(q, k, v, do):
+    """q, k, v, dO padded as the backward's wrapper pads them before its
+    two launches: D to 128, the kv sequence axis to a multiple of 128."""
+    from repro_torch.kernels.fp8_attention import ops as at
+
+    def pad(x, s_mult=1):
+        x = at._pad_bytes(x.contiguous(), 3, at.HEAD_DIM)
+        return at._pad_bytes(x, 2, s_mult) if s_mult > 1 else x
+    return pad(q), pad(k, at.LANE), pad(v, at.LANE), pad(do)
 
 
 def same_bits(a, b):
@@ -1535,25 +1631,29 @@ def same_bits(a, b):
 
 def check_attention_bwd(dev):
     """Kernels 3 (both variants) and 4 against the plain backward on the
-    card at H=12, Hkv=2, D=128 over BWD_EXACT_SHAPES: dq / dk / dv, the
-    amaxes and kernel 3's row statistics bitwise on the exact fixtures
-    (both recipes, RNE and SR), each launch on the variant the shape
-    selects; at the training shape (causal, B=4, S=512) the two variants
-    of kernel 3 bitwise equal on general inputs, and dq / dk / dv within
-    ATTN_BWD_REL_L2 of the plain version there, which a planted fault (the
-    plain version with dS left unquantized) must exceed."""
+    card over BWD_EXACT_SHAPES: dq / dk / dv, the amaxes and kernel 3's row
+    statistics bitwise on the exact fixtures (both recipes, RNE and SR),
+    each launch on the variant the shape selects, two dK/dV launches
+    bitwise equal; over BWD_GENERAL_SHAPES on general inputs (both
+    recipes, RNE and SR) the two variants of kernel 3 bitwise equal, two
+    dK/dV launches bitwise equal, and dq / dk / dv within ATTN_BWD_REL_L2
+    of the plain version, which a planted fault (the plain version with dS
+    left unquantized) must exceed."""
     import torch
     from repro_torch.kernels.fp8_attention import ops as at
     from repro_torch.kernels.fp8_attention import ref as at_ref
     gen = torch.Generator(device=dev).manual_seed(8)
     n = 0
     names = ("dq", "dk", "dv", "amax_dp", "amax_ds")
-    for mask, b, s, variant in BWD_EXACT_SHAPES:
+    for shape in BWD_EXACT_SHAPES:
+        mask, b, h, hkv, q_len, s, d, variant = shape
+        lens = dict(q_len=q_len, s_len=s)
         for recipe, (fa, fe) in BWD_RECIPES.items():
             for kind in ("uniform", "stepped"):
                 q, k, v, do, scal = bwd_fixture(kind, fa, fe, gen, dev, b=b,
-                                                s=s)
-                kp, vp = (at._pad_bytes(x, 2, 128) for x in (k, v))
+                                                h=h, hkv=hkv, s=s, d=d,
+                                                q_len=q_len)
+                padded = bwd_padded(q, k, v, do)
                 for rnd in ("rne", "sr"):
                     kw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, fmt_e=fe,
                               rounding_s=rnd, rounding_p=rnd, rounding_e=rnd,
@@ -1564,12 +1664,12 @@ def check_attention_bwd(dev):
                     want = at_ref.fp8_attention_bwd_ref(
                         q, k, v, do, 7, scal, with_stats=True, **kw)
                     stats = at.fp8_attention_bwd_dq(
-                        q, kp, vp, do, 7, scal, q_len=s, s_len=s, **kw)[1:4]
+                        *padded, 7, scal, **lens, **kw)[1:4]
                     twice = [at.fp8_attention_bwd_dkv(
-                        q, kp, vp, do, 7, scal, *stats, q_len=s, s_len=s,
-                        **kw) for _ in range(2)]
+                        *padded, 7, scal, *stats, **lens, **kw)
+                        for _ in range(2)]
                     torch.cuda.synchronize()
-                    tag = (f"attention bwd {mask} B={b} S={s} {recipe} {kind}"
+                    tag = (f"attention bwd {shape_tag(shape)} {recipe} {kind}"
                            f" {rnd}")
                     if after[variant] != before[variant] + 1:
                         raise AssertionError(f"{tag}: the dQ kernel's "
@@ -1587,61 +1687,63 @@ def check_attention_bwd(dev):
                                              "dK/dV kernel differ")
                     n += 1
     log(f"attention bwd: {n} exact-input cases (uniform, stepped; shapes "
-        f"{list(BWD_EXACT_SHAPES)}) "
-        "bitwise equal to the plain version (dq, dk, dv, amaxes, m, l, rd); "
-        "two dK/dV launches bitwise equal in each")
+        f"{[shape_tag(x) + ' ' + x[7] for x in BWD_EXACT_SHAPES]}) bitwise "
+        "equal to the plain version (dq, dk, dv, amaxes, m, l, rd); two "
+        "dK/dV launches bitwise equal in each")
     worst, fault = 0.0, float("inf")
     orig = at_ref._ds_block
-    for recipe, (fa, fe) in BWD_RECIPES.items():
-        for rnd in ("rne", "sr"):
-            q, k, v = attn_train_inputs(dev, gen, fa)
-            do = (torch.randn(q.shape, generator=gen, device=dev)).to(
-                fp8_dtype(fe))
-            scal = [0.088388, 1.0, 1.0, 1.0, 1.0, 1.0, 0.088388, 1.0, 1.0,
-                    1.0]
-            kw = dict(mask_mode="causal", fmt_s=fa, fmt_p=fa, fmt_e=fe,
-                      rounding_s=rnd, rounding_p=rnd, rounding_e=rnd,
-                      saturate_e=False)
-            got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
-            want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal, **kw)
-            lens = dict(q_len=q.shape[2], s_len=k.shape[2])
-            stash, long_ = (at.fp8_attention_bwd_dq(
-                q, k, v, do, 7, scal, variant=var, **lens, **kw)
-                for var in ("stash", "long"))
-            if not all(same_bits(x, y) for x, y in zip(stash, long_)):
-                raise AssertionError(
-                    f"attention bwd general {recipe} {rnd}: the dQ kernel's "
-                    "stash and long variants differ")
-            twice = [at.fp8_attention_bwd_dkv(q, k, v, do, 7, scal,
-                                              *stash[1:4], **lens, **kw)
-                     for _ in range(2)]
-            if not all(same_bits(x, y) for x, y in zip(*twice)):
-                raise AssertionError(f"attention bwd general {recipe} {rnd}:"
-                                     " two launches of the dK/dV kernel "
-                                     "differ")
-            at_ref._ds_block = lambda p_d, dp_d, rd, bits, *, f_ds, **_: \
-                (p_d * (dp_d - rd)) * f_ds
-            try:
-                faulty = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal,
-                                                      **kw)
-            finally:
-                at_ref._ds_block = orig
-            rels = [((g - w).norm() / w.norm()).item()
-                    for g, w in zip(got[:3], want[:3])]
-            rel = max(rels)
-            rel_f = min(max(((g - w).norm() / w.norm()).item()
-                            for g, w in zip(got[:3], faulty[:3])), 1e9)
-            worst, fault = max(worst, rel), min(fault, rel_f)
-            same = torch.equal(got[3], want[3]) and torch.equal(got[4],
-                                                               want[4])
-            log(f"attention bwd general {recipe} {rnd}: rel L2 dq "
-                f"{rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} "
-                f"(planted unquantized dS {rel_f:.3e}), amaxes "
-                f"{'equal' if same else 'DIFFER'}; dQ stash and long "
-                "variants bitwise equal; two dK/dV launches bitwise equal")
-            if rel > ATTN_BWD_REL_L2 or not same:
-                raise AssertionError(f"attention bwd general {recipe} {rnd}:"
-                                     f" rel L2 {rel}, amaxes equal {same}")
+    for shape in BWD_GENERAL_SHAPES:
+        mask, b, h, hkv, q_len, s, d, _ = shape
+        lens = dict(q_len=q_len, s_len=s)
+        for recipe, (fa, fe) in BWD_RECIPES.items():
+            for rnd in ("rne", "sr"):
+                q, k, v = attn_train_inputs(dev, gen, fa, shape)
+                do = torch.randn(q.shape, generator=gen, device=dev).to(
+                    fp8_dtype(fe))
+                scal = bwd_scalars(d)
+                kw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, fmt_e=fe,
+                          rounding_s=rnd, rounding_p=rnd, rounding_e=rnd,
+                          saturate_e=False)
+                tag = f"attention bwd general {shape_tag(shape)} {recipe} {rnd}"
+                got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
+                want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal,
+                                                    **kw)
+                padded = bwd_padded(q, k, v, do)
+                stash, long_ = (at.fp8_attention_bwd_dq(
+                    *padded, 7, scal, variant=var, **lens, **kw)
+                    for var in ("stash", "long"))
+                if not all(same_bits(x, y) for x, y in zip(stash, long_)):
+                    raise AssertionError(f"{tag}: the dQ kernel's stash and "
+                                         "long variants differ")
+                twice = [at.fp8_attention_bwd_dkv(*padded, 7, scal,
+                                                  *stash[1:4], **lens, **kw)
+                         for _ in range(2)]
+                if not all(same_bits(x, y) for x, y in zip(*twice)):
+                    raise AssertionError(f"{tag}: two launches of the dK/dV "
+                                         "kernel differ")
+                at_ref._ds_block = lambda p_d, dp_d, rd, bits, *, f_ds, **_: \
+                    (p_d * (dp_d - rd)) * f_ds
+                try:
+                    faulty = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7,
+                                                          scal, **kw)
+                finally:
+                    at_ref._ds_block = orig
+                rels = [((g - w).norm() / w.norm()).item()
+                        for g, w in zip(got[:3], want[:3])]
+                rel = max(rels)
+                rel_f = min(max(((g - w).norm() / w.norm()).item()
+                                for g, w in zip(got[:3], faulty[:3])), 1e9)
+                worst, fault = max(worst, rel), min(fault, rel_f)
+                same = torch.equal(got[3], want[3]) and torch.equal(
+                    got[4], want[4])
+                log(f"{tag}: rel L2 dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
+                    f"{rels[2]:.3e} (planted unquantized dS {rel_f:.3e}), "
+                    f"amaxes {'equal' if same else 'DIFFER'}; dQ stash and "
+                    "long variants bitwise equal; two dK/dV launches bitwise"
+                    " equal")
+                if rel > ATTN_BWD_REL_L2 or not same:
+                    raise AssertionError(f"{tag}: rel L2 {rel}, amaxes equal "
+                                         f"{same}")
     if fault <= ATTN_BWD_REL_L2:
         raise AssertionError(f"planted unquantized dS reads {fault:.3e}, "
                              f"within the bound {ATTN_BWD_REL_L2}")
@@ -1684,7 +1786,8 @@ def check_attention_bwd_overflow(dev):
     from repro_torch.kernels.fp8_attention import ref as at_ref
     gen = torch.Generator(device=dev).manual_seed(12)
     n = 0
-    for mask, b, s, _ in BWD_EXACT_SHAPES[:1] + BWD_EXACT_SHAPES[3:4]:
+    for mask, b, _, _, _, s, _, _ in (BWD_EXACT_SHAPES[:1]
+                                     + BWD_EXACT_SHAPES[3:4]):
         for recipe, (fa, fe) in BWD_RECIPES.items():
             q, k, v, do, scal = bwd_overflow_fixture(fa, fe, gen, dev, b=b,
                                                      s=s)
@@ -1724,10 +1827,24 @@ def check_dkv_schedule(dev, probe_lib):
     """The schedule the dK/dV kernel ran (its probe build's records: each
     block's head, batch row and kv block, and the q tiles it visited) is
     the one ops.dkv_block_order / dkv_live_tiles state, at the training
-    shape, a windowed causal S=2048 and a ragged full S=968."""
+    shape, a windowed causal S=2048, a ragged full S=968
+    (probe.dkv_case_list) and the paper-transformer's three shapes
+    (T5_BWD_SHAPES, on the wrapper's padded operands)."""
+    import torch
     from repro_torch.kernels.fp8_attention import ops as at
     from repro_torch.kernels.fp8_attention import probe
-    cases = probe.dkv_case_list(dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cases = list(probe.dkv_case_list(dev))
+    for shape in T5_BWD_SHAPES:
+        mask, _, _, _, q_len, s, d, _ = shape
+        q, k, v = attn_train_inputs(dev, gen, "e4m3", shape)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(
+            torch.float8_e5m2)
+        kw = dict(mask_mode=mask, window=0, fmt_s="e4m3", fmt_p="e4m3",
+                  fmt_e="e5m2", rounding_s="sr", rounding_p="sr",
+                  rounding_e="sr", saturate_e=False, q_len=q_len, s_len=s)
+        cases.append((shape_tag(shape), *bwd_padded(q, k, v, do),
+                      bwd_scalars(d), kw))
     n = 0
     for case in cases:
         faults = probe.dkv_schedule_faults(probe_lib, case)
@@ -1736,8 +1853,9 @@ def check_dkv_schedule(dev, probe_lib):
                                  f"{len(faults)} blocks differ: {faults[:3]}")
         q, k = case[1], case[2]
         n += q.shape[0] * q.shape[1] * len(at.dkv_block_order(k.shape[2]))
-    log(f"dK/dV schedule: {n} blocks over {len(cases)} layouts ran "
-        "ops.dkv_block_order / dkv_live_tiles")
+    log(f"dK/dV schedule: {n} blocks over {len(cases)} layouts "
+        f"({[c[0] for c in cases]}) ran ops.dkv_block_order / "
+        "dkv_live_tiles")
 
 
 def fp8_dtype(fmt):
@@ -1745,140 +1863,183 @@ def fp8_dtype(fmt):
     return get_format(fmt).dtype
 
 
-def attn_train_inputs(dev, gen, fmt):
+def attn_train_inputs(dev, gen, fmt, shape=TRAIN_ATTN):
+    """Random q (B, H, q_len, D), k and v (B, Hkv, S, D) in `fmt` at an
+    attention backward shape (TRAIN_ATTN's layout)."""
     import torch
     dt = fp8_dtype(fmt)
-    b, h, hkv, s, d = TRAIN_B, 12, 2, TRAIN_S, 128
-    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
+    _, b, h, hkv, q_len, s, d, _ = shape
+    q = torch.randn((b, h, q_len, d), generator=gen, device=dev).to(dt)
     k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dt)
     v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dt)
     return q, k, v
 
 
-def causal_pairs(b, h, q, s):
-    return b * h * sum(min(r + 1, s) for r in range(q))
+def mask_pairs(mask, b, h, q_len, s):
+    """The (query, key) pairs a 'causal' or 'full' mask attends."""
+    if mask == "full":
+        return b * h * q_len * s
+    return b * h * sum(min(r + 1, s) for r in range(q_len))
 
 
-def bwd_bounds(q, k, do):
-    """(kernel 3's, kernel 4's) bound of a causal backward: fp8 q, dO, k, v
-    read once; f32 dq, m, l, rd (kernel 3) or dk, dv (kernel 4) written;
-    fp8 products over the attended pairs, three for kernel 3 (S, dP, dQ)
-    and two for kernel 4 (dK, dV)."""
-    b, h, s, d = q.shape
-    pairs = causal_pairs(b, h, s, s)
+def fwd_bound(q, k, mask="causal"):
+    """Kernel 2's bound: fp8 q, k, v read once, bf16 o written; two fp8
+    products over the attended pairs, at q's real head dim."""
+    b, h, q_len, d = q.shape
+    pairs = mask_pairs(mask, b, h, q_len, k.shape[2])
+    return bound(q.numel() + 2 * k.numel() + 2 * q.numel(),
+                 2 * 2.0 * d * pairs, FP8_OPS_PER_S)
+
+
+def bwd_bounds(q, k, do, mask="causal"):
+    """(kernel 3's, kernel 4's) bound of a backward: fp8 q, dO, k, v read
+    once; f32 dq, m, l, rd (kernel 3) or dk, dv (kernel 4) written; fp8
+    products over the attended pairs at q's real head dim, three for
+    kernel 3 (S, dP, dQ) and two for kernel 4 (dK, dV)."""
+    b, h, q_len, d = q.shape
+    pairs = mask_pairs(mask, b, h, q_len, k.shape[2])
     fp8 = q.numel() + do.numel() + 2 * k.numel()
-    return (bound(fp8 + 4 * q.numel() + 3 * 4 * b * h * s,
+    return (bound(fp8 + 4 * q.numel() + 3 * 4 * b * h * q_len,
                   3 * 2.0 * d * pairs, FP8_OPS_PER_S),
-            bound(fp8 + 3 * 4 * b * h * s + 2 * 4 * k.numel(),
+            bound(fp8 + 3 * 4 * b * h * q_len + 2 * 4 * k.numel(),
                   2 * 2.0 * d * pairs, FP8_OPS_PER_S))
 
 
-def time_attention_bwd(dev):
-    """Kernel 3 (its stash variant, and the long-span variant at the same
-    shape), kernel 4, the plain backward and the library yardstick
-    (autograd backward of scaled_dot_product_attention on dequantized bf16)
-    at the training shape, hybrid recipe, SR; kernel 3's long-span variant
-    where it runs (causal, B=1, S=2048) with the same yardsticks; with each
-    kernel's bound."""
+def time_attention_at(dev, gen, shape):
+    """Kernels 2, 3 and 4 at one attention shape (hybrid recipe, SR): the
+    forward, kernel 3's two variants in turns (stash, long, long, stash)
+    and kernel 4 by direct launch on the wrapper's padded operands, the
+    whole backward (one wrapper call), the plain versions,
+    scaled_dot_product_attention on dequantized bf16 (forward; autograd
+    backward) and each kernel's bound at the real head dim; the forward
+    held as check_attention holds it (bf16 ulps, the share of elements
+    that differ, equal amaxes). Below D = 128 also the forward and the
+    whole backward at D = 128 on the same B, H, Q, S: the work the padding
+    makes the kernels do. Returns the forward's, dQ's and dK/dV's rows,
+    and a call of the dK/dV kernel at the shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fp8_attention import ops as at
     from repro_torch.kernels.fp8_attention import ref as at_ref
-    gen = torch.Generator(device=dev).manual_seed(9)
-    q, k, v = attn_train_inputs(dev, gen, "e4m3")
+    mask, b, h, hkv, q_len, s, d, _ = shape
+    q, k, v = attn_train_inputs(dev, gen, "e4m3", shape)
     do = torch.randn(q.shape, generator=gen, device=dev).to(
         torch.float8_e5m2)
-    scal = [0.088388, 1.0, 1.0, 1.0, 1.0, 1.0, 0.088388, 1.0, 1.0, 1.0]
-    kw = dict(mask_mode="causal", fmt_s="e4m3", fmt_p="e4m3", fmt_e="e5m2",
-              rounding_s="sr", rounding_p="sr", rounding_e="sr",
-              saturate_e=False)
-    lens = dict(q_len=q.shape[2], s_len=k.shape[2])
-    dq, m, l, rd, _, _ = at.fp8_attention_bwd_dq(q, k, v, do, 7, scal,
-                                                 **lens, **kw)
-    # The two variants in turns (stash, long, long, stash) on one card.
+    scal = bwd_scalars(d)
+    fscal = scal[:4]
+    fkw = dict(mask_mode=mask, fmt_s="e4m3", fmt_p="e4m3", rounding_s="sr",
+               rounding_p="sr")
+    kw = dict(fkw, fmt_e="e5m2", rounding_e="sr", saturate_e=False)
+    lens = dict(q_len=q_len, s_len=s)
+    padded = bwd_padded(q, k, v, do)
+    _, m, l, rd, _, _ = at.fp8_attention_bwd_dq(*padded, 7, scal, **lens,
+                                                **kw)
     t_dq = {"stash": [], "long": []}
     for var in ("stash", "long", "long", "stash"):
         t_dq[var].append(cuda_ms(lambda: at.fp8_attention_bwd_dq(
-            q, k, v, do, 7, scal, variant=var, **lens, **kw)))
-    ms_dq = min(t_dq["stash"])
-    ms_dq_long = min(t_dq["long"])
-    ms_dkv = cuda_ms(lambda: at.fp8_attention_bwd_dkv(
-        q, k, v, do, 7, scal, m, l, rd, **lens, **kw))
-    parts = dkv_part_ms(lambda: at.fp8_attention_bwd_dkv(
-        q, k, v, do, 7, scal, m, l, rd, **lens, **kw))
-    ms_bwd = cuda_ms(lambda: at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw))
+            *padded, 7, scal, variant=var, **lens, **kw)))
+    ms_dq, ms_dq_long = min(t_dq["stash"]), min(t_dq["long"])
+
+    def dkv():
+        return at.fp8_attention_bwd_dkv(*padded, 7, scal, m, l, rd, **lens,
+                                        **kw)
+    ms_dkv = cuda_ms(dkv)
+    ms_bwd = cuda_ms(lambda: at.fp8_attention_bwd(q, k, v, do, 7, scal,
+                                                  **kw))
     plain = cuda_ms(lambda: at_ref.fp8_attention_bwd_ref(
         q, k, v, do, 7, scal, **kw), iters=3)
-    got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
-    want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal, **kw)
-    err_dq = (got[0] - want[0]).abs().max().item()
-    err_dkv = max((got[i] - want[i]).abs().max().item() for i in (1, 2))
+    ms_f = cuda_ms(lambda: at.fp8_attention_fwd(q, k, v, 7, fscal, **fkw))
+    plain_f = cuda_ms(lambda: at_ref.fp8_attention_fwd_ref(
+        q, k, v, 7, fscal, **fkw), iters=3)
     qd, kd, vd = (x.to(torch.bfloat16).requires_grad_(True)
                   for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True,
+    causal = mask == "causal"
+    with torch.no_grad():
+        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, is_causal=causal, enable_gqa=True))
+    o = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal,
                                        enable_gqa=True)
     dod = do.to(torch.bfloat16)
     lib = cuda_ms(lambda: torch.autograd.grad(o, (qd, kd, vd), dod,
                                               retain_graph=True))
-    b, h, s, d = q.shape
-    hkv = k.shape[1]
-    pairs = causal_pairs(b, h, s, s)
-    b_dq, b_dkv = bwd_bounds(q, k, do)
-    log(f"attention bwd time causal B={b} H={h} Hkv={hkv} S={s}: dQ kernel "
-        f"{ms_dq:.4f} ms (stash variant; runs {t_dq['stash']}; the long-"
-        f"span variant at this shape {ms_dq_long:.4f} ms, runs "
-        f"{t_dq['long']}; bound {b_dq[0]:.4f} ms, {b_dq[1]}), dK/dV kernel "
-        f"{ms_dkv:.4f} ms (bound {b_dkv[0]:.4f} ms, {b_dkv[1]}), plain "
-        f"{plain:.4f} ms, sdpa backward (bf16) {lib:.4f} ms [{CARD}]")
-    # The parts carry no bound of their own: the group sum's scratch exists
-    # only by the design, so the function's bound (b_dkv) is the one bound.
-    log("dK/dV kernel by part (device time, profiler): " + (", ".join(
-        f"{p['name']} ({p['symbol']}) {p['ms']:.4f} ms" for p in parts)
-        if parts else "not measured") + f"; the function's bound "
-        f"{b_dkv[0]:.4f} ms; whole backward (dQ + dK/dV kernels, one "
-        f"wrapper call) {ms_bwd:.4f} ms against sdpa's bf16 backward "
-        f"{lib:.4f} ms: {ms_bwd / lib:.2f}x [{CARD}]")
-    long_row = time_attention_bwd_long(dev, gen)
-    # The forward kernel at the same shape (the training path's).
-    fscal = [0.088388, 1.0, 1.0, 1.0]
-    fkw = dict(mask_mode="causal", fmt_s="e4m3", fmt_p="e4m3",
-               rounding_s="sr", rounding_p="sr")
-    ms_f = cuda_ms(lambda: at.fp8_attention_fwd(q, k, v, 7, fscal, **fkw))
-    plain_f = cuda_ms(lambda: at_ref.fp8_attention_fwd_ref(
-        q, k, v, 7, fscal, **fkw), iters=3)
-    with torch.no_grad():
-        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, is_causal=True, enable_gqa=True))
-    # Held like check_attention: bf16 ulps, the share of elements that
-    # differ, equal amaxes.
+    got = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
+    want = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal, **kw)
+    err_dq = (got[0] - want[0]).abs().max().item()
+    err_dkv = max((got[i] - want[i]).abs().max().item() for i in (1, 2))
     o_k, as_k, ap_k = at.fp8_attention_fwd(q, k, v, 7, fscal, **fkw)
     o_p, as_p, ap_p = at_ref.fp8_attention_fwd_ref(q, k, v, 7, fscal, **fkw)
     err_f = (o_k.float() - o_p.float()).abs().max().item()
     ulps = bf16_ulps(o_k, o_p)
     max_ulps, frac = ulps.max().item(), (ulps > 0).float().mean().item()
     same_amax = torch.equal(as_k, as_p) and torch.equal(ap_k, ap_p)
-    b_f = bound(q.numel() + 2 * k.numel() + 2 * q.numel(),
-                2 * 2.0 * d * pairs, FP8_OPS_PER_S)
-    log(f"attention fwd time causal B={b} H={h} Hkv={hkv} S={s}: kernel "
-        f"{ms_f:.4f} ms, plain {plain_f:.4f} ms, sdpa(bf16) {lib_f:.4f} ms, "
-        f"bound {b_f[0]:.4f} ms ({b_f[1]}); max {max_ulps} bf16 ulps, "
-        f"{frac:.2e} of elements differ, amaxes "
-        f"{'equal' if same_amax else 'DIFFER'} [{CARD}]")
+    b_f = fwd_bound(q, k, mask)
+    b_dq, b_dkv = bwd_bounds(q, k, do, mask)
+    d128 = ""
+    extra = {}
+    if d < at.HEAD_DIM:
+        # The same launches at a real head dim of 128 (fp8 has no cat: the
+        # bytes are doubled).
+        q2, k2, v2, do2 = (torch.cat([x.view(torch.uint8)] * 2, dim=-1)
+                           .view(x.dtype) for x in (q, k, v, do))
+        extra = dict(
+            d128_ms=cuda_ms(lambda: at.fp8_attention_fwd(
+                q2, k2, v2, 7, fscal, **fkw)),
+            d128_whole_bwd_ms=cuda_ms(lambda: at.fp8_attention_bwd(
+                q2, k2, v2, do2, 7, scal, **kw)))
+        d128 = (f"; at D=128: forward {extra['d128_ms']:.4f} ms, backward "
+                f"{extra['d128_whole_bwd_ms']:.4f} ms")
+    tag = shape_tag(shape)
+    log(f"attention time {tag}: forward {ms_f:.4f} ms (plain {plain_f:.4f}, "
+        f"sdpa(bf16) {lib_f:.4f}, bound {b_f[0]:.4f} {b_f[1]}; max "
+        f"{max_ulps} bf16 ulps, {frac:.2e} of elements differ, amaxes "
+        f"{'equal' if same_amax else 'DIFFER'}); dQ {ms_dq:.4f} ms (stash "
+        f"variant, runs {t_dq['stash']}; long-span variant {ms_dq_long:.4f}"
+        f", runs {t_dq['long']}; bound {b_dq[0]:.4f} {b_dq[1]}), dK/dV "
+        f"{ms_dkv:.4f} ms (bound {b_dkv[0]:.4f} {b_dkv[1]}), whole backward "
+        f"{ms_bwd:.4f} ms (plain {plain:.4f}, sdpa backward (bf16) "
+        f"{lib:.4f}: {ms_bwd / lib:.2f}x){d128} [{CARD}]")
     if not (max_ulps <= ATTN_MAX_ULPS and frac <= ATTN_MAX_DIFF_FRAC
             and same_amax):
         raise AssertionError(
-            f"attention fwd at the training shape: {max_ulps} ulps, "
-            f"fraction {frac:.2e}, amax_s {as_k.item()} vs {as_p.item()}, "
-            f"amax_p {ap_k.item()} vs {ap_p.item()}")
-    common = dict(plain_ms=plain, library_ms=lib)
-    return {"fwd": dict(ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
-                        bound_ms=b_f[0], bound_by=b_f[1], max_abs_err=err_f),
-            "dq": dict(ms=ms_dq, bound_ms=b_dq[0], bound_by=b_dq[1],
-                       max_abs_err=err_dq, **common),
-            "dq_long": long_row,
+            f"attention fwd {tag}: {max_ulps} ulps, fraction {frac:.2e}, "
+            f"amax_s {as_k.item()} vs {as_p.item()}, amax_p {ap_k.item()} "
+            f"vs {ap_p.item()}")
+    common = dict(shape=tag, plain_ms=plain, library_ms=lib,
+                  whole_bwd_ms=ms_bwd)
+    return {"fwd": dict(shape=tag, ms=ms_f, plain_ms=plain_f,
+                        library_ms=lib_f, bound_ms=b_f[0], bound_by=b_f[1],
+                        max_abs_err=err_f, **extra),
+            "dq": dict(ms=ms_dq, long_ms=ms_dq_long, bound_ms=b_dq[0],
+                       bound_by=b_dq[1], max_abs_err=err_dq, **common),
             "dkv": dict(ms=ms_dkv, bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                        max_abs_err=err_dkv, parts=parts, whole_bwd_ms=ms_bwd,
-                        **common)}
+                        max_abs_err=err_dkv, **common)}, dkv
+
+
+def time_attention_bwd(dev):
+    """The attention kernels at the training shape (time_attention_at),
+    the dK/dV kernel's two parts by their device time, and kernel 3's
+    long-span variant where the host selects it (causal, B=1, S=2048)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows, dkv = time_attention_at(dev, gen, TRAIN_ATTN)
+    parts = dkv_part_ms(dkv)
+    # The parts carry no bound of their own: the group sum's scratch exists
+    # only by the design, so the function's bound is the one bound.
+    log("dK/dV kernel by part (device time, profiler): " + (", ".join(
+        f"{p['name']} ({p['symbol']}) {p['ms']:.4f} ms" for p in parts)
+        if parts else "not measured") + f"; the function's bound "
+        f"{rows['dkv']['bound_ms']:.4f} ms [{CARD}]")
+    rows["dkv"]["parts"] = parts
+    rows["dq_long"] = time_attention_bwd_long(dev, gen)
+    return rows
+
+
+def time_attention_shapes(dev, shapes=T5_BWD_SHAPES):
+    """time_attention_at at each of `shapes` (by default the
+    paper-transformer's three)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(20)
+    return [time_attention_at(dev, gen, shape)[0] for shape in shapes]
 
 
 def dkv_part_ms(fn, iters: int = 20):
@@ -1924,7 +2085,7 @@ def time_attention_bwd_long(dev, gen):
         torch.float8_e4m3fn) for _ in range(2))
     do = torch.randn(q.shape, generator=gen, device=dev).to(
         torch.float8_e5m2)
-    scal = [0.088388, 1.0, 1.0, 1.0, 1.0, 1.0, 0.088388, 1.0, 1.0, 1.0]
+    scal = bwd_scalars(d)
     kw = dict(mask_mode="causal", fmt_s="e4m3", fmt_p="e4m3", fmt_e="e5m2",
               rounding_s="sr", rounding_p="sr", rounding_e="sr",
               saturate_e=False)
@@ -1971,8 +2132,13 @@ SR_SPECIAL = (float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-40,
 
 def check_fp8_matmul(dev):
     """Kernel 5 against its plain version on the card at the forward
-    training shapes (M = B x S rows, the four projection kinds) and the
-    ragged shapes of GEMM_RAGGED (both tile widths), paper (e5m2 x e5m2)
+    training shapes (M = B x S rows, the four projection kinds), the ragged
+    shapes of GEMM_RAGGED (both tile widths), the paper-transformer's
+    forward projections under the paper recipe (M = 2040 decoder and 2048
+    encoder rows, T5_PROJ's K and N of 1024 and 4096) and each distinct
+    conv GEMM of ResNetConfig() at B=256 on 32x32 images (K of 288, 576,
+    1152, 32 and 64 against the kernel's 64-deep k-step; N of 32, 64 and
+    128 against its 128-wide tile), paper (e5m2 x e5m2)
     and mixed (e4m3 x e5m2) operands: bitwise on exact inputs for f32 and
     bf16 output, within rtol 1e-5 / atol 1e-4 (the reference's own
     tolerance) on general inputs with f32 output; and at the fixed-slot
@@ -1983,17 +2149,41 @@ def check_fp8_matmul(dev):
     kernel and of the plain version from the f64 sum is logged."""
     import torch
     from repro_torch.kernels.fp8_matmul import ops as mm
-    from repro_torch.kernels.fp8_matmul import ref as mm_ref
     gen = torch.Generator(device=dev).manual_seed(12)
-    n_cases, worst = 0, 0.0
-    off64 = {"kernel": 0.0, "plain": 0.0}
     shapes = ([(TRAIN_B * TRAIN_S, k, n, (True, False)) for k, n in PROJ]
               + [(m, k, n, (True, False)) for m, n, k in GEMM_RAGGED]
+              + [(m, k, n, (True, False)) for m, k, n in T5_MM_SHAPES]
+              + [(m, k, n, (True, False)) for m, k, n in resnet_conv_shapes()]
               + [(m, k, n, (True,)) for m in (1, 4, 4 * 98)
                  for k, n in PROJ])
     before = dict(mm.fp8_matmul.launches_by_tile)
+    n_cases, worst, off64 = fp8mm_cases(
+        dev, gen, shapes, (("e5m2", "e5m2"), ("e4m3", "e5m2")))
+    tiles = {bn: v - before[bn]
+             for bn, v in mm.fp8_matmul.launches_by_tile.items()}
+    if not all(tiles.values()):
+        raise AssertionError(f"fp8_matmul launches by tile width {tiles}")
+    log(f"fp8_matmul: {n_cases} cases match the plain version (bitwise on "
+        f"exact inputs; max abs diff {worst:.3e} on general inputs, where "
+        f"the kernel's worst distance from the f64 sum is "
+        f"{off64['kernel']:.3e} and the plain version's "
+        f"{off64['plain']:.3e}); launches by tile width {tiles}")
+
+
+def fp8mm_cases(dev, gen, shapes, formats):
+    """Kernel 5 against its plain version on the card at each (m, k, n,
+    kinds) of `shapes` (kinds: exact and / or general inputs) for each
+    operand-format pair of `formats`: bitwise on exact inputs, f32 and
+    bf16 out; within rtol 1e-5 / atol 1e-4 on general inputs, f32 out.
+    Returns (cases, max abs diff on general inputs, worst distance of the
+    kernel and of the plain version from the f64 sum)."""
+    import torch
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    n_cases, worst = 0, 0.0
+    off64 = {"kernel": 0.0, "plain": 0.0}
     for m, k, n, kinds in shapes:
-        for fa, fb in (("e5m2", "e5m2"), ("e4m3", "e5m2")):
+        for fa, fb in formats:
             for exact in kinds:
                 a = fp8_tensor((m, k), fa, gen, dev, exact)
                 b = fp8_tensor((k, n), fb, gen, dev, exact)
@@ -2017,33 +2207,34 @@ def check_fp8_matmul(dev):
                             raise AssertionError(f"{tag}: beyond rtol 1e-5 "
                                                  "atol 1e-4")
                     n_cases += 1
-    tiles = {bn: v - before[bn]
-             for bn, v in mm.fp8_matmul.launches_by_tile.items()}
-    if not all(tiles.values()):
-        raise AssertionError(f"fp8_matmul launches by tile width {tiles}")
-    log(f"fp8_matmul: {n_cases} cases match the plain version (bitwise on "
-        f"exact inputs; max abs diff {worst:.3e} on general inputs, where "
-        f"the kernel's worst distance from the f64 sum is "
-        f"{off64['kernel']:.3e} and the plain version's "
-        f"{off64['plain']:.3e}); launches by tile width {tiles}")
+    return n_cases, worst, off64
 
 
-def time_fp8_matmul(dev):
-    """Kernel 5 / plain / torch.matmul on the bf16-upcast operands at the
-    four forward training shapes, paper recipe (e5m2 x e5m2, f32 out),
-    with the bound; torch._scaled_mm takes no e5m2 x e5m2 pair, so it is
-    timed on e4m3 x e5m2 operands of the same shape as a yardstick of the
-    card's fp8 rate only."""
+def time_fp8_matmul(dev, shapes=tuple((TRAIN_B * TRAIN_S, k, n)
+                                        for k, n in PROJ)):
+    """Kernel 5 at each (M, K, N) of `shapes` (by default the four forward
+    training shapes), paper recipe (e5m2 x e5m2, f32 out): the wrapper's
+    time (with its padding of K to a multiple of 64 and N to the tile, and
+    the slice of the result, where the shape needs them), the launch alone
+    on operands padded beforehand, the plain version, torch.matmul on the
+    bf16-upcast operands and the bound of the unpadded function;
+    torch._scaled_mm takes no e5m2 x e5m2 pair, so it is timed on e4m3 x
+    e5m2 operands of the same shape as a yardstick of the card's fp8 rate
+    only."""
     import torch
     from repro_torch.kernels.fp8_matmul import ops as mm
     from repro_torch.kernels.fp8_matmul import ref as mm_ref
     from repro_torch.kernels.fused_quant_matmul import ops as fq
     gen = torch.Generator(device=dev).manual_seed(13)
-    m, rows = TRAIN_B * TRAIN_S, []
-    for k, n in PROJ:
+    rows = []
+    for m, k, n in shapes:
         a = fp8_tensor((m, k), "e5m2", gen, dev, False)
         b = fp8_tensor((k, n), "e5m2", gen, dev, False)
+        tile = fq.gemm_tile(m, n, k)
+        pa, pb, _ = fq.operand_pads("nn", tile)
+        ap, bp = fq.aligned(fq._pad2(a, *pa)), fq.aligned(fq._pad2(b, *pb))
         ms = cuda_ms(lambda: mm.fp8_matmul(a, b))
+        launch = cuda_ms(lambda: mm._launch(ap, bp, torch.float32))
         plain = cuda_ms(lambda: mm_ref.fp8_matmul_ref(a, b), iters=5)
         ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
         lib = cuda_ms(lambda: torch.matmul(ab, bb))
@@ -2056,16 +2247,18 @@ def time_fp8_matmul(dev):
                ).abs().max().item()
         b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * n * k,
                            FP8_OPS_PER_S)
-        tile = fq.gemm_tile(m, n, k)
-        log(f"fp8_matmul time M={m} K={k} N={n} (128x{tile} tiles) e5m2xe5m2 "
-            f"f32 out: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.matmul(bf16) "
+        fill = (n / bp.shape[1]) * (k / ap.shape[1])
+        log(f"fp8_matmul time M={m} K={k} N={n} (128x{tile} tiles; padded K "
+            f"{ap.shape[1]}, N {bp.shape[1]}: {fill:.0%} of the tile's "
+            f"products real) e5m2xe5m2 f32 out: wrapper {ms:.4f} ms, launch "
+            f"alone {launch:.4f} ms, plain {plain:.4f} ms, torch.matmul(bf16) "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}; "
             f"_scaled_mm (no e5m2 x e5m2: e4m3 x e5m2 yardstick) {smm:.4f} "
             f"ms [{CARD}]")
-        rows.append(dict(k=k, n=n, tile=tile, ms=ms, plain_ms=plain,
+        rows.append(dict(shape=f"nn M={m} K={k} N={n}", k=k, n=n, tile=tile,
+                         ms=ms, launch_ms=launch, plain_ms=plain,
                          library_ms=lib, scaled_mm_ms=smm, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err))
+                         bound_by=b_by, max_abs_err=err, tile_fill=fill))
     return rows
 
 
@@ -2725,6 +2918,504 @@ def train_paper_parity(dev):
     return dict(kernels_vs_plain=r_kp, card_vs_cpu=r_cpu, fault=r_f)
 
 
+# ---------------------------------------------------------------------------
+# the paper's own workloads' GEMM shapes (phase 2 holds and times kernel 5
+# at the ResNet's conv GEMMs and the paper-transformer's projections, and
+# kernel 1 at the latter's M = 2040)
+# ---------------------------------------------------------------------------
+
+RESNET_B, RESNET_IMAGE = 256, 32
+# The paper-transformer's projection rows (8 x 255 target tokens; the
+# encoder's 8 x 256 are a multiple of 128) and (C, N) of its projections
+# (wq / wk / wv / wo, up / gate, down).
+T5_M = T5_B * 255
+T5_PROJ = ((1024, 1024), (1024, 4096), (4096, 1024))
+# Kernel 5's GEMMs there under the paper recipe: the decoder's rows and the
+# encoder's (8 x 256).
+T5_MM_SHAPES = tuple((m, k, n) for m in (T5_M, T5_B * 256)
+                     for k, n in T5_PROJ)
+
+
+def conv_gemms(cfg, b, size):
+    """(M, K, N) of each FP8 conv's GEMM of the ResNet `cfg`, in forward
+    order, at batch b on size x size images: M = B x H' x W', K = kh x kw x
+    C_in, N = C_out (the stem conv is 16-bit and takes no kernel)."""
+    out, c_prev, hw = [], cfg.widths[0], size
+    for s, (depth, c) in enumerate(zip(cfg.depth_per_stage, cfg.widths)):
+        for i in range(depth):
+            stride = 2 if (i == 0 and s > 0) else 1
+            ho = -(-hw // stride)
+            out.append((b * ho * ho, 9 * (c_prev if i == 0 else c), c))
+            out.append((b * ho * ho, 9 * c, c))
+            if i == 0 and c_prev != c:
+                out.append((b * ho * ho, c_prev, c))
+            hw = ho
+        c_prev = c
+    return out
+
+
+def resnet_conv_shapes():
+    from repro_torch.models.resnet import ResNetConfig
+    return sorted(set(conv_gemms(ResNetConfig(), RESNET_B, RESNET_IMAGE)),
+                  reverse=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper's ResNet (FP8 convolutions on kernel 5)
+# ---------------------------------------------------------------------------
+
+RESNET_STEPS = 6
+# One all-RNE ResNet step (B=256, 32x32), kernels vs plain versions on the
+# card: rel L2 of the gradients of all leaves together. Set between the
+# H100 readings (PERF.md): 1.9e-3 (kernel 5's f32 sums in another order
+# than cuBLAS's move a few outputs a bf16 notch, and the e5m2 Q nodes
+# carry them on) and 0.555 for the planted kernel-5 fault.
+RESNET_STEP_TOL = 5e-2
+
+
+def resnet_cfg(rne=False):
+    """ResNetConfig() at its full widths under the paper's recipe
+    (PAPER_FP8: e5m2, unit scales, SR on A/E/G) on the kernel backend."""
+    import dataclasses
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.resnet import ResNetConfig
+    quant = QuantConfig(backend="pallas")
+    if rne:
+        quant = dataclasses.replace(quant, act_rounding="rne",
+                                    error_rounding="rne", grad_rounding="rne")
+    return ResNetConfig(quant=quant)
+
+
+def train_resnet(dev):
+    """Phase 10: ResNetConfig() (depth (2, 2, 2), widths (32, 64, 128), 10
+    classes) trained RESNET_STEPS steps on B=256 synthetic 32x32 images
+    (noise 1.6), PAPER_FP8 on the kernel backend, constant loss scale
+    10000, momentum 0.9 at lr 0.05 through the fp16-master optimizer, L2
+    in the loss. Launch counts set to 0 just before the steps and read
+    just after: kernel 5 runs each FP8 conv's forward GEMM, 14 a step, and
+    nothing else runs a kernel. Then validation accuracy (RNE) on 256
+    held-out images and a profile of two more steps."""
+    import numpy as np
+    import torch
+    from repro_torch.core.loss_scale import convnet_scaler
+    from repro_torch.data.pipeline import synthetic_image_batches
+    from repro_torch.models.resnet import init_resnet
+    from repro_torch.train.convnet import (make_convnet_eval,
+                                           make_convnet_step,
+                                           momentum_optimizer)
+    cfg = resnet_cfg()
+    n_conv = len(conv_gemms(cfg, RESNET_B, RESNET_IMAGE))
+    opt = momentum_optimizer(0.05, convnet_scaler(10_000.0))
+    state = opt.init(init_resnet(cfg, seed=0, device=dev))
+    data = synthetic_image_batches(batch_size=RESNET_B,
+                                   image_size=RESNET_IMAGE, seed=0, noise=1.6)
+    batches = [next(data) for _ in range(RESNET_STEPS + 2)]
+    val = next(synthetic_image_batches(batch_size=RESNET_B,
+                                       image_size=RESNET_IMAGE, seed=1000,
+                                       noise=1.6))
+    step = make_convnet_step(cfg, opt, track_underflow=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, applied = [], 0
+    for i in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        applied += m["grads_finite"]
+        log(f"resnet step {i}: nll {m['nll']:.4f}, l2 {m['l2_loss']:.4f}, "
+            f"loss scale {m['loss_scale']:.0f}, overflows "
+            f"{m['overflow_count']:.0f}, underflow {m['underflow_frac']:.2e}"
+            f", {times[-1] * 1e3:.1f} ms")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ev = make_convnet_eval(cfg, opt)(state, val)
+    p50 = float(np.median(times)) * 1e3
+    img_s = RESNET_B / (p50 / 1e3)
+    log(f"resnet train: step p50 {p50:.1f} ms (first {times[0] * 1e3:.1f} "
+        f"ms), {img_s:.0f} images/s, max_memory_allocated {peak:.2f} GiB, "
+        f"loss scale {m['loss_scale']:.0f}, {m['overflow_count']:.0f} "
+        f"overflows, {int(applied)} of {RESNET_STEPS} updates applied; val "
+        f"accuracy {ev['accuracy']:.4f}, val nll {ev['nll']:.4f} [{CARD}]")
+    log(f"resnet train: launches per step "
+        f"{ {k: v / RESNET_STEPS for k, v in launches.items()} }")
+    want = {k: 0 for k in launches}
+    want["fp8_matmul"] = n_conv * RESNET_STEPS
+    if n_conv != 14 or launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if applied < 1 or not np.isfinite(ev["nll"]):
+        raise AssertionError(f"{applied} updates applied, val nll "
+                             f"{ev['nll']}")
+    box = [state]
+
+    def one(b):
+        box[0], _ = step(box[0], b, gen)
+    prof = profile_train(one, batches[RESNET_STEPS:])
+    return dict(launches={k: v // RESNET_STEPS for k, v in launches.items()},
+                p50_ms=p50, images_s=img_s, peak_gib=peak,
+                val_acc=ev["accuracy"], profile=prof)
+
+
+def resnet_parity(dev):
+    """One all-RNE ResNet step's loss and gradients (ResNetConfig(), B=256,
+    32x32, the loss scale 10000, bf16 compute params) run: kernels on the
+    card, twice (bitwise identical); kernel 5 pointed at its plain version
+    on the card; a planted kernel-5 fault (the B operand's last 64 padded K
+    rows zeroed where K exceeds 64), which must read above
+    RESNET_STEP_TOL. Kernels vs plain must read below it."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.data.pipeline import synthetic_image_batches
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    from repro_torch.models.resnet import init_resnet, resnet_loss
+    from repro_torch.optim.optimizers import tmap
+    cfg = resnet_cfg(rne=True)
+    params = init_resnet(cfg, seed=1, device=dev)
+    batch = next(synthetic_image_batches(batch_size=RESNET_B,
+                                         image_size=RESNET_IMAGE, seed=2,
+                                         noise=1.6))
+    scale = torch.tensor(10_000.0, device=dev)
+    launch = mm._launch
+
+    def run(*patches):
+        before = launch_counts()["fp8_matmul"]
+        with contextlib.ExitStack() as stack:
+            for obj, name, value in patches:
+                stack.enter_context(mock.patch.object(obj, name, value))
+            prm = tmap(lambda p: p.to(torch.bfloat16).requires_grad_(True),
+                       params)
+            loss, _ = resnet_loss(prm, batch, cfg=cfg, loss_scale=scale)
+            loss.backward()
+        grads = tmap(lambda p: p.grad.float(), prm)
+        return loss.item(), grads, launch_counts()["fp8_matmul"] - before
+
+    def zero_last_k(a, b, out_dtype):
+        """The kernel launched with B's last 64 K rows zeroed (K > 64)."""
+        k = a.shape[1]
+        if k > 64:
+            b = b.clone()
+            b.view(torch.uint8)[k - 64:] = 0
+        return launch(a, b, out_dtype)
+
+    def rel(x, y):
+        fx, fy = list(_leaves(x)), list(_leaves(y))
+        num = sum(float((p - q).double().pow(2).sum())
+                  for p, q in zip(fx, fy))
+        return (num / sum(float(q.double().pow(2).sum()) for q in fy)) ** 0.5
+
+    lk, gk, n_k = run()
+    lk2, gk2, _ = run()
+    lp, gp, n_p = run((mm, "fp8_matmul", mm_ref.fp8_matmul_ref))
+    lf, gf, n_f = run((mm, "_launch", zero_last_k))
+    if (n_k, n_p, n_f) != (14, 0, 14):
+        raise AssertionError(f"kernel-5 launches: kernels {n_k}, plain {n_p}"
+                             f", fault {n_f}")
+    if lk != lk2 or not all(torch.equal(x, y) for x, y in
+                            zip(_leaves(gk), _leaves(gk2))):
+        raise AssertionError("two kernel runs of the step differ")
+    r_kp, r_f = rel(gk, gp), rel(gf, gp)
+    log(f"resnet step parity (B={RESNET_B}, {RESNET_IMAGE}x{RESNET_IMAGE}, "
+        f"all-RNE), gradient rel L2 (tolerance {RESNET_STEP_TOL}): kernels "
+        f"vs plain on the card {r_kp:.3e} (loss {lk:.6f} vs {lp:.6f}); two "
+        f"kernel runs bitwise equal; planted fault 'kernel 5 without B's "
+        f"last 64 K rows' {r_f:.3e} (loss {lf:.6f})")
+    if not (r_kp < RESNET_STEP_TOL and abs(lk - lp) <= LOSS_TOL * abs(lp)):
+        raise AssertionError(f"kernels vs plain: rel L2 {r_kp}, loss {lk} "
+                             f"vs {lp}")
+    if r_f <= RESNET_STEP_TOL:   # NaN reads as seen
+        raise AssertionError(f"the planted kernel-5 fault reads {r_f:.3e}")
+    return dict(kernels_vs_plain=r_kp, fault=r_f)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the encoder-decoder paper-transformer
+# ---------------------------------------------------------------------------
+
+S2S_STEPS = 4
+# The paper-transformer's step parity (2 + 2 layers, full width, B=2): rel
+# L2 of the gradients of all leaves together, kernels vs plain versions on
+# the card and, all-RNE, card vs CPU, per recipe. Set between the H100
+# readings (PERF.md): 0.195-0.225 (a notch flipped by a summation order
+# grows through the e5m2 chain of 2 + 2 layers and the cross-attention),
+# and the planted faults, NaN (rd dropped), 0.869 (dgrad at 16x its
+# scale) and 0.926 (kernel 5 without its last K block).
+S2S_STEP_TOL = 0.4
+# Launches a step of the paper-transformer (6 + 6 layers): 108 projections
+# (the encoder's 7 a layer, the decoder's 11 with its cross-attention), each
+# through kernel 1 in every layout under the hybrid recipe; 18 attention
+# calls (encoder, decoder, cross); under the paper recipe kernel 5 runs the
+# forward projections and nothing runs the attention kernels.
+S2S_LAUNCHES = {"hybrid": {**{k: 0 for k in STEP_LAUNCHES},
+                           "fused_quant_matmul.nn": 108,
+                           "fused_quant_matmul.nt": 108,
+                           "fused_quant_matmul.tn": 108,
+                           "fp8_attention_fwd": 18,
+                           "fp8_attention_bwd_dq": 18,
+                           "fp8_attention_bwd_dkv": 18},
+                "paper": {**{k: 0 for k in STEP_LAUNCHES},
+                          "fp8_matmul": 108}}
+
+
+def s2s_cfg(recipe, n_layers=None, rne=False):
+    """The paper-transformer at full width under the hybrid delayed recipe
+    (the fused path) or the paper's (PAPER_FP8, the unfused path), on the
+    kernel backend, no remat; n_layers cuts encoder and decoder alike."""
+    import dataclasses
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.registry import build_config
+    quant = (QuantConfig(recipe="hybrid", scaling="delayed",
+                         backend="pallas") if recipe == "hybrid"
+             else QuantConfig(backend="pallas"))
+    if rne:
+        quant = dataclasses.replace(quant, act_rounding="rne",
+                                    error_rounding="rne", grad_rounding="rne")
+    cfg = build_config("paper-transformer").replace(remat=False)
+    cfg = cfg.replace(policy=dataclasses.replace(cfg.policy, quant=quant))
+    return cfg if n_layers is None else cfg.replace(
+        n_layers=n_layers, n_encoder_layers=n_layers)
+
+
+def s2s_batches(n, batch_size=T5_B, seed=0):
+    from repro_torch.data.pipeline import DataConfig, synthetic_seq2seq_batches
+    data = synthetic_seq2seq_batches(DataConfig(
+        vocab_size=32000, seq_len=256, batch_size=batch_size, seed=seed),
+        d_model=1024)
+    return [next(data) for _ in range(n)]
+
+
+def _train_s2s(dev, recipe):
+    """S2S_STEPS steps of the paper-transformer at full width and depth
+    (6 + 6 layers) on B=8 synthetic pairs of 256 source frames and 255
+    target tokens, Adam (lr 1e-4) through the fp16-master optimizer with
+    transformer_scaler(); the hybrid recipe with DelayedScaling, or the
+    paper's without. Launch counts set to 0 just before the steps and
+    read just after, against S2S_LAUNCHES; then a profile of two more
+    steps."""
+    import numpy as np
+    import torch
+    from repro_torch.core.loss_scale import transformer_scaler
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = s2s_cfg(recipe)
+    params = init_lm(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    batches = s2s_batches(S2S_STEPS + 2)
+    opt = make_optimizer_for(cfg, learning_rate=1e-4,
+                             scaler=transformer_scaler())
+    ds = None
+    if recipe == "hybrid":
+        reg = discover_lm_sites(cfg, params, {
+            k: v[:1, :64] for k, v in batches[0].items()})
+        ds = DelayedScaling(reg, qcfg=cfg.policy.quant)
+        log(f"seq2seq {recipe}: {len(reg)} scale sites")
+    state = opt.init(params)
+    del params
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt, scaling=ds)
+    box = [state, ds.init() if ds is not None else None]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(b):
+        if ds is None:
+            box[0], m = step(box[0], b, gen)
+        else:
+            (box[0], box[1]), m = step(box[0], box[1], b, gen)
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times, applied = [], [], 0
+    for i in range(S2S_STEPS):
+        t0 = time.perf_counter()
+        m = one(batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        applied += m["grads_finite"]
+        log(f"seq2seq {recipe} step {i}: loss {m['loss']:.4f}, loss scale "
+            f"{m['loss_scale']:.0f}, overflows {m['overflow_count']:.0f}, "
+            f"grad_norm {m['grad_norm']:.4f}, {times[-1] * 1e3:.1f} ms")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50 = float(np.median(times)) * 1e3
+    tgt = T5_B * 255
+    log(f"seq2seq {recipe} train ({n_params / 1e6:.1f} M params): step p50 "
+        f"{p50:.1f} ms (first {times[0] * 1e3:.1f} ms), {tgt / p50 * 1e3:.0f}"
+        f" target tokens/s ({(tgt + T5_B * 256) / p50 * 1e3:.0f} source + "
+        f"target), max_memory_allocated {peak:.2f} GiB, {int(applied)} of "
+        f"{S2S_STEPS} updates applied [{CARD}]")
+    log(f"seq2seq {recipe} train: launches per step "
+        f"{ {k: v / S2S_STEPS for k, v in launches.items()} }")
+    if not all(np.isfinite(losses)) or applied < 1:
+        raise AssertionError(f"losses {losses}, {applied} updates applied")
+    want = {k: v * S2S_STEPS for k, v in S2S_LAUNCHES[recipe].items()}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    prof = profile_train(one, batches[S2S_STEPS:])
+    return dict(launches={k: v // S2S_STEPS for k, v in launches.items()},
+                p50_ms=p50, tokens_s=tgt / p50 * 1e3, peak_gib=peak,
+                losses=losses, profile=prof)
+
+
+def train_s2s_hybrid(dev):
+    """Phase 11a: the paper-transformer under the hybrid delayed recipe on
+    the fused path (kernels 1-4)."""
+    return _train_s2s(dev, "hybrid")
+
+
+def train_s2s_paper(dev):
+    """Phase 11b: the paper-transformer under the paper's recipe on the
+    unfused path (kernel 5)."""
+    return _train_s2s(dev, "paper")
+
+
+def s2s_step_parity(dev):
+    """Phase 11c: one training step's loss and gradients of the
+    paper-transformer at full width, 2 + 2 layers, B=2 (256 source frames,
+    255 target tokens), per recipe, run: kernels on the card, twice
+    (bitwise identical); the plain versions on the card with the same
+    generator seeds; planted faults, which must read above
+    S2S_STEP_TOL (hybrid: the softmax VJP's rd dropped from dS, the
+    dgrad quantized at 16x its site's scale; paper: kernel 5 without its
+    last 64-wide K block); and, all-RNE, kernels on the card against the
+    plain versions on the CPU. Kernels vs plain and card vs CPU must read
+    below S2S_STEP_TOL. The hybrid runs start from the ScaleState one
+    kernel step produced."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.core import qlinear as qlin
+    from repro_torch.kernels.fp8_attention import ref as at_ref
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim.optimizers import tmap
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    batch = s2s_batches(1, batch_size=2, seed=1)[0]
+    ds_block, fused_gemm, launch = at_ref._ds_block, qlin._fused_gemm, \
+        mm._launch
+
+    def ds_without_rd(p_d, dp_d, rd, bits, **kw):
+        return ds_block(p_d, dp_d, torch.zeros_like(rd), bits, **kw)
+
+    def dgrad_x16(x8, w8, sx, sw, s_out, c, out_cls, dims, generator=None):
+        if dims == "nt":
+            s_out = s_out * np.float32(16)
+        return fused_gemm(x8, w8, sx, sw, s_out, c, out_cls, dims, generator)
+
+    def drop_last_k(a, b, out_dtype):
+        k = a.shape[1] - 64
+        return launch(a[:, :k].contiguous(), b[:k].contiguous(), out_dtype)
+
+    def rel(a, b):
+        fa, fb = list(_leaves(a)), list(_leaves(b))
+        num = sum(float((x - y).double().pow(2).sum()) for x, y in zip(fa, fb))
+        return (num / sum(float(y.double().pow(2).sum()) for y in fb)) ** 0.5
+
+    out = {}
+    for recipe in ("hybrid", "paper"):
+        cfg = s2s_cfg(recipe, 2)
+        params = init_lm(cfg, seed=0, device=dev)
+        cpu_params = _to_cpu(params)
+        scaling = None
+        if recipe == "hybrid":
+            reg = discover_lm_sites(cfg, params, batch)
+            scaling = DelayedScaling(reg, qcfg=cfg.policy.quant)
+            opt = make_optimizer_for(cfg)
+            (_, ss1), _ = make_train_step(cfg, opt, scaling=scaling)(
+                opt.init(params), scaling.init(), batch,
+                torch.Generator(device=dev).manual_seed(5))
+            plain = plain_patches()
+            faults = {"attention rd dropped":
+                      [*plain, (at_ref, "_ds_block", ds_without_rd)],
+                      "dgrad at 16x its scale":
+                      [*plain, (qlin, "_fused_gemm", dgrad_x16)]}
+        else:
+            plain = [(mm, "fp8_matmul", mm_ref.fp8_matmul_ref)]
+            faults = {"kernel 5 drops its last K block":
+                      [(mm, "_launch", drop_last_k)]}
+
+        def run(c, p, d, *patches):
+            before = launch_counts()
+            with contextlib.ExitStack() as stack:
+                for obj, name, value in patches:
+                    stack.enter_context(mock.patch.object(obj, name, value))
+                o = make_optimizer_for(c)
+                st = o.init(p)
+                prm = tmap(lambda x: x.requires_grad_(True),
+                           o.compute_params(st))
+                collect = contextlib.nullcontext() if scaling is None else \
+                    DelayedScaling(reg, qcfg=c.policy.quant).collect(ss1)
+                with collect:
+                    loss, _ = lm_loss(prm, batch, cfg=c,
+                                      qgen=torch.Generator(
+                                          device=d).manual_seed(0),
+                                      loss_scale=st.loss_scale.scale)
+                    loss.backward()
+                grads = tmap(lambda x: x.grad.float().cpu(), prm)
+            launched = sum(launch_counts()[k] - before[k] for k in before)
+            return loss.item(), grads, launched
+
+        lk, gk, n_k = run(cfg, params, dev)
+        lk2, gk2, _ = run(cfg, params, dev)
+        lp, gp, n_p = run(cfg, params, dev, *plain)
+        if n_k <= 0 or n_p != 0:
+            raise AssertionError(f"{recipe}: launches: kernels {n_k}, plain "
+                                 f"{n_p}")
+        if lk != lk2 or not all(torch.equal(x, y) for x, y in
+                                zip(_leaves(gk), _leaves(gk2))):
+            raise AssertionError(f"{recipe}: two kernel runs differ")
+        rcfg = s2s_cfg(recipe, 2, rne=True)
+        lr_, gr, _ = run(rcfg, params, dev)
+        lc, gc, _ = run(rcfg, cpu_params, "cpu")
+        r_kp, r_cpu = rel(gk, gp), rel(gr, gc)
+        log(f"seq2seq {recipe} step parity (2 + 2 layers, full width, B=2), "
+            f"gradient rel L2 (tolerance {S2S_STEP_TOL}): kernels vs plain"
+            f" on the card {r_kp:.3e} (loss {lk:.6f} vs {lp:.6f}); two kernel"
+            f" runs bitwise equal; all-RNE card vs CPU {r_cpu:.3e} (loss "
+            f"{lr_:.6f} vs {lc:.6f})")
+        weak = []
+        for name, pt in faults.items():
+            lf, gf, _ = run(cfg, params, dev, *pt)
+            r_f = rel(gf, gp)
+            log(f"  planted fault '{name}': vs plain {r_f:.3e} (loss "
+                f"{lf:.6f})")
+            if r_f <= S2S_STEP_TOL:   # NaN reads as seen
+                weak.append(f"'{name}' reads {r_f:.3e}")
+        if not (r_kp < S2S_STEP_TOL and abs(lk - lp) <= LOSS_TOL * abs(lp)):
+            raise AssertionError(f"{recipe} kernels vs plain: rel L2 {r_kp}, "
+                                 f"loss {lk} vs {lp}")
+        if not (r_cpu < S2S_STEP_TOL
+                and abs(lr_ - lc) <= LOSS_TOL * abs(lc)):
+            raise AssertionError(f"{recipe} card vs CPU: rel L2 {r_cpu}, "
+                                 f"loss {lr_} vs {lc}")
+        if weak:
+            raise AssertionError(f"{recipe}: a planted fault goes unseen: "
+                                 + "; ".join(weak))
+        out[recipe] = dict(kernels_vs_plain=r_kp, card_vs_cpu=r_cpu)
+        del params, cpu_params
+        gc_collect()
+    return out
+
+
+def gc_collect():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -2854,6 +3545,15 @@ def main() -> int:
     phase(check_attention_bwd_overflow, dev)
     phase(check_dkv_schedule, dev, dkv_probe)
     attn_rows = phase(time_attention_bwd, dev)
+    # The paper's workloads' shapes: kernel 1 at the paper-transformer's
+    # M = 2040 projections, and the times of kernel 5 at the ResNet's conv
+    # GEMMs and the paper-transformer's projections and of kernels 2-4 at
+    # its attention (their checks run in the calls above).
+    conv_rows = phase(time_fp8_matmul, dev, resnet_conv_shapes())
+    phase(check_gemm_train, dev, T5_M, T5_PROJ, 21)
+    t5_gemm_rows = phase(time_gemm_train, dev, T5_M, T5_PROJ)
+    t5_mm_rows = phase(time_fp8_matmul, dev, T5_MM_SHAPES)
+    t5_attn_rows = phase(time_attention_shapes, dev)
     calib = phase(calibrate_full, dev)
     if calib is not None:
         cfg, params, frozen, formats = calib
@@ -2874,6 +3574,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase(train_paper_parity, dev)
+    gc_collect()
+    resnet = phase(train_resnet, dev)
+    phase(resnet_parity, dev)
+    gc_collect()
+    s2s_hybrid = phase(train_s2s_hybrid, dev)
+    gc_collect()
+    s2s_paper = phase(train_s2s_paper, dev)
+    gc_collect()
+    phase(s2s_step_parity, dev)
     if failures:
         log(f"{len(failures)} phase(s) failed:\n  " + "\n  ".join(failures))
         return 1
@@ -2949,9 +3658,34 @@ def main() -> int:
              **{k: attn_rows["dq_long"][k] for k in keys})]
     # Kernel 4's two kernels, each by its device time (profiler).
     kernels[3]["parts"] = attn_rows["dkv"]["parts"]
+    # Each kernel's launches a step on every path that trains, and its
+    # rows at the paper's workloads' shapes.
+    paths = {"qwen2-1.5b hybrid": {k: v // TRAIN_STEPS for k, v in
+                                   trained["launches"].items()},
+             "qwen2-1.5b paper": {k: v // TRAIN_STEPS for k, v in
+                                  paper["launches"].items()},
+             "paper-resnet paper": resnet["launches"],
+             "paper-transformer hybrid": s2s_hybrid["launches"],
+             "paper-transformer paper": s2s_paper["launches"]}
+    other = [[dict(r, shape=f"{r['dims']} M={r['m']} K={r['c']} N={r['n']}")
+              for r in t5_gemm_rows],
+             [r["fwd"] for r in t5_attn_rows],
+             [r["dq"] for r in t5_attn_rows],
+             [r["dkv"] for r in t5_attn_rows],
+             conv_rows + t5_mm_rows, [], []]
+    for entry, rows in zip(kernels, other):
+        name = entry["name"]
+        entry["launches_by_path"] = {
+            path: sum(v for k, v in counts.items() if k.startswith(name)
+                      and (k == name or k[len(name)] == "."))
+            for path, counts in paths.items()}
+        entry["other_shapes"] = rows
     log(f"total {time.perf_counter() - t_all:.1f} s; training "
         f"{trained['tokens_s']:.0f} tokens/s (hybrid, delayed scaling), "
-        f"{paper['tokens_s']:.0f} tokens/s (paper recipe) on {card}")
+        f"{paper['tokens_s']:.0f} tokens/s (paper recipe); ResNet "
+        f"{resnet['images_s']:.0f} images/s; paper-transformer "
+        f"{s2s_hybrid['tokens_s']:.0f} (hybrid) and "
+        f"{s2s_paper['tokens_s']:.0f} (paper) target tokens/s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

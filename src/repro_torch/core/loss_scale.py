@@ -121,3 +121,38 @@ class LossScaler:
                                      torch.zeros_like(ok_count)),
             step=state.step + 1,
             overflow_count=state.overflow_count + bad)
+
+
+# The paper's scalers ---------------------------------------------------------
+
+def convnet_scaler(scale: float = 10_000.0) -> LossScaler:
+    """Constant scaling: ResNets train under e5m2 at 10000, not 1000."""
+    return LossScaler(mode="constant", init_scale=scale)
+
+
+def gnmt_scaler() -> LossScaler:
+    """Dynamic scaling with a minimum rising to 8K at 40K steps and 32K at
+    150K."""
+    return LossScaler(mode="enhanced")
+
+
+def transformer_scaler() -> LossScaler:
+    return LossScaler(mode="enhanced", init_scale=2.0 ** 13)
+
+
+def underflow_fraction(tree, *, threshold: float) -> torch.Tensor:
+    """0-d f32 tensor: the fraction of the nonzero floating entries of
+    `tree` whose magnitude RNE would flush to zero in a format whose
+    smallest subnormal is `threshold` (below half of it)."""
+    num = tot = None
+    for g in _leaves(tree):
+        if not g.is_floating_point():
+            continue
+        gf = g.float().abs()
+        nz = gf > 0
+        under = (nz & (gf < threshold / 2)).sum()
+        num = under if num is None else num + under
+        tot = nz.sum() if tot is None else tot + nz.sum()
+    if num is None:
+        return torch.zeros((), dtype=torch.float32)
+    return num.to(torch.float32) / torch.clamp_min(tot, 1).to(torch.float32)

@@ -1,6 +1,6 @@
 """GQA attention block with FP8 GEMMs, the fused FP8 flash kernel and KV
-caches (counterpart of `repro.models.attention`, modes 'train',
-'prefill', 'decode' and 'chunk').
+caches (counterpart of `repro.models.attention`, modes 'train', 'encode',
+'cross', 'prefill', 'decode' and 'chunk').
 
 The projections go through qeinsum. Under a kernel backend with delayed
 scaling, attention goes through the fused kernel with K/V left unrepeated
@@ -11,6 +11,11 @@ repeat gets its own SR bits), the two 4-D contractions as qeinsum (sites
 qk / pv), an f32 softmax between them; training and prefill sequences past
 `attn_chunk_threshold` (or a window) go through
 `chunked_causal_attention`'s static-prefix q chunks.
+
+The encoder-decoder's modes attend without a mask ('full' in the kernel):
+'encode' is the encoder's bidirectional self-attention (RoPE applied),
+'cross' the decoder's attention to the encoder output `kv_x`, which
+supplies K and V (no RoPE; the query and key lengths differ).
 
 KV caches hold bf16, or FP8 (`policy.kv_cache_format` e5m2 / e4m3: RNE,
 saturating, at the frozen '.../kv/{k,v}#A' scales). The fused serving
@@ -270,12 +275,16 @@ def _sdpa_cached(q, k_cache, v_cache, mask, *, k_scale, v_scale,
 
 def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
               qcfg: QuantConfig, positions: torch.Tensor, mode: str = "train",
-              cache_layer=None, window: int = 0,
+              cache_layer=None, kv_x: Optional[torch.Tensor] = None,
+              window: int = 0,
               page: Optional[dict] = None,
               qgen: Optional[torch.Generator] = None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """modes:
       train   — causal self-attention, no cache;
+      encode  — bidirectional self-attention (the encoder), no cache;
+      cross   — queries from x, keys / values from kv_x (the encoder's
+                output), no mask, no RoPE, no cache;
       prefill — causal self-attention; the prompt's K/V written into the
                 `init_cache` cache `cache_layer` in place (only batch row
                 page["slot"] when `page` is given);
@@ -284,47 +293,57 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
                 (updated in place), indirection in `page`: write_slots
                 (B,T), read_slots/slot_pos (B,C), chunk_pos (B,2).
     qgen: the generator SR bits come from (training), or None.
-    Returns (y, cache) — None in train mode."""
+    Returns (y, cache) — None in train, encode and cross modes."""
     b, sq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     groups = h // hkv
     scale = 1.0 / (dh ** 0.5)
     fused = fuse_attention(qcfg)
-    if mode not in ("train", "prefill", "decode", "chunk"):
-        raise ValueError(f"attention mode {mode!r} is not ported "
-                         "(train, prefill, decode, chunk)")
-    if mode != "train" and cache_layer is None or \
+    if mode not in ("train", "encode", "cross", "prefill", "decode",
+                    "chunk"):
+        raise ValueError(f"attention mode {mode!r} is not ported (train, "
+                         "encode, cross, prefill, decode, chunk)")
+    if mode in ("prefill", "decode", "chunk") and cache_layer is None or \
             mode == "chunk" and page is None:
         raise ValueError(f"mode {mode!r} needs cache_layer"
                          + (" and page" if mode == "chunk" else ""))
+    if (mode == "cross") != (kv_x is not None):
+        raise ValueError("kv_x is given with mode 'cross', and only then")
 
     q = qeinsum("bsd,dn->bsn", x, params["wq"], cfg=qcfg, site="wq",
                 generator=qgen)
-    k = qeinsum("bsd,dn->bsn", x, params["wk"], cfg=qcfg, site="wk",
+    src = x if kv_x is None else kv_x
+    k = qeinsum("bsd,dn->bsn", src, params["wk"], cfg=qcfg, site="wk",
                 generator=qgen)
-    v = qeinsum("bsd,dn->bsn", x, params["wv"], cfg=qcfg, site="wv",
+    v = qeinsum("bsd,dn->bsn", src, params["wv"], cfg=qcfg, site="wv",
                 generator=qgen)
     if cfg.qkv_bias:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    q = apply_rope(q.reshape(b, sq, h, dh), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, sq, hkv, dh), positions, cfg.rope_theta)
-    v = v.reshape(b, sq, hkv, dh)
+    q = q.reshape(b, sq, h, dh)
+    k = k.reshape(b, -1, hkv, dh)
+    v = v.reshape(b, -1, hkv, dh)
+    if mode != "cross":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     k_scale, v_scale = _observe_kv(cfg, k, v)
     qt = q.transpose(1, 2)
     kv_kw = dict(k_scale=k_scale, v_scale=v_scale)
     new_cache = None
 
-    if mode in ("train", "prefill"):
+    if mode in ("train", "encode", "cross", "prefill"):
         if fused:
+            mm = "full" if mode in ("encode", "cross") else "causal"
             o = fp8_sdpa(qt, k.transpose(1, 2), v.transpose(1, 2), cfg=qcfg,
-                         sm_scale=scale, mask_mode="causal", window=window,
+                         sm_scale=scale, mask_mode=mm, window=window,
                          site="sdpa", generator=qgen)
         else:
             kt = _repeat_kv(k.transpose(1, 2), groups)
             vt = _repeat_kv(v.transpose(1, 2), groups)
-            if sq > cfg.attn_chunk_threshold or window:
+            if mode in ("encode", "cross"):
+                o = _sdpa(qt, kt, vt, None, scale, qcfg, qgen)
+            elif sq > cfg.attn_chunk_threshold or window:
                 o = chunked_causal_attention(
                     qt, kt, vt, chunk=min(cfg.attn_chunk_size, sq),
                     scale=scale, qcfg=qcfg, qgen=qgen, window=window,

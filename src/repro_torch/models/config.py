@@ -10,8 +10,9 @@ from repro_torch.core.precision_policy import PAPER_POLICY, PrecisionPolicy
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Same fields and defaults as the reference. The port runs the dense
-    attention decoder; the other families' fields are kept so configs read
-    alike, and are refused where they would change the computation."""
+    attention decoder and the encoder-decoder; the other families' fields
+    are kept so configs read alike, and are refused where they would
+    change the computation."""
     arch: str = "custom"
     family: str = "dense"
     n_layers: int = 4
@@ -68,10 +69,18 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-    def check_ported(self):
-        """Raise for what this slice of the port does not run."""
+    def check_ported(self, *, serving: bool = False):
+        """Raise for what this slice of the port does not run: families
+        other than the dense decoder and the encoder-decoder, and serving
+        (or calibrating for serving) an encoder-decoder."""
         bad = [k for k in self.pattern() if k != "attn"]
-        if bad or self.n_experts or self.is_encoder_decoder or self.frontend:
+        if bad or self.n_experts or self.frontend:
             raise NotImplementedError(
                 f"arch {self.arch!r}: the port runs dense attention decoders "
-                "only so far; the other families are queued in ROADMAP.md")
+                "and encoder-decoders only so far; the other families are "
+                "queued in ROADMAP.md")
+        if serving and self.is_encoder_decoder:
+            raise NotImplementedError(
+                f"arch {self.arch!r}: serving an encoder-decoder (encode in "
+                "prefill, cross-attention decode) is not ported yet "
+                "(ROADMAP.md, queue 1)")

@@ -5,8 +5,11 @@ transformer.init_lm` returns, as nested dicts of numpy arrays (the caller
 converts with `jax.tree_util.tree_map(np.asarray, params)`), and returns
 the port's parameter dict on `device`. Scanned stacks (`stack_{p}`, with a
 leading group axis) are split into the unscanned `layer_{i}` layout the
-port runs; `layer_{i}` / `rem_{i}` trees pass through. Nothing is padded:
-the embedding already has `padded_vocab_size` rows.
+port runs, in the decoder and, for an encoder-decoder, in the encoder
+(whose one-kind stack holds `n_encoder_layers` groups); `layer_{i}` /
+`rem_{i}` trees pass through, as do `enc_norm` and each decoder layer's
+`cross_norm` / `cross_attn`. Nothing is padded: the embedding already has
+`padded_vocab_size` rows.
 """
 from __future__ import annotations
 
@@ -25,22 +28,23 @@ def _to_torch(tree, device):
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 
-def _split_stacks(decoder: Dict[str, Any], cfg: ModelConfig):
-    pat = cfg.pattern()
+def _split_stacks(stack: Dict[str, Any], n_layers: int, n_kinds: int):
+    """A stack's `stack_{p}` entries (n_layers // n_kinds groups each) as
+    `layer_{i}` entries; other entries pass through."""
     out: Dict[str, Any] = {}
-    for key, sub in decoder.items():
+    for key, sub in stack.items():
         if not key.startswith("stack_"):
             out[key] = sub
             continue
         pos = int(key[len("stack_"):])
-        n_groups = cfg.n_layers // len(pat)
+        n_groups = n_layers // n_kinds
 
         def take(t, g):
             return {k: take(v, g) for k, v in t.items()} \
                 if isinstance(t, dict) else np.asarray(t)[g]
 
         for g in range(n_groups):
-            out[f"layer_{g * len(pat) + pos}"] = take(sub, g)
+            out[f"layer_{g * n_kinds + pos}"] = take(sub, g)
     return out
 
 
@@ -49,7 +53,11 @@ def from_jax_params(tree, cfg: ModelConfig, device=None):
     cfg.check_ported()
     dev = resolve_device(device)
     tree = dict(tree)
-    tree["decoder"] = _split_stacks(dict(tree["decoder"]), cfg)
+    tree["decoder"] = _split_stacks(dict(tree["decoder"]), cfg.n_layers,
+                                    len(cfg.pattern()))
+    if cfg.is_encoder_decoder:
+        tree["encoder"] = _split_stacks(dict(tree["encoder"]),
+                                        cfg.n_encoder_layers, 1)
     emb = np.asarray(tree["embed"]["table"])
     if emb.shape != (cfg.padded_vocab_size, cfg.d_model):
         raise ValueError(f"embedding {emb.shape} does not match the config "

@@ -53,16 +53,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def activation(name: str):
+    """The reference's activations; its gelu is jax.nn.gelu's default, the
+    tanh approximation."""
+    fns = {"silu": torch.nn.functional.silu,
+           "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+           "relu": torch.relu}
+    if name not in fns:
+        raise ValueError(f"unknown activation {name!r}")
+    return fns[name]
+
+
 def mlp(params, x: torch.Tensor, *, act: str, qcfg: QuantConfig,
         qgen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Gated (SiLU) MLP with all three GEMMs in FP8 (SR bits from qgen)."""
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r} is not ported (silu)")
+    """Gated MLP (activation `act` on the gate, in f32) with all three
+    GEMMs in FP8 (SR bits from qgen)."""
     up = qeinsum("bsd,df->bsf", x, params["up"], cfg=qcfg, site="up",
                  generator=qgen)
     gate = qeinsum("bsd,df->bsf", x, params["gate"], cfg=qcfg, site="gate",
                    generator=qgen)
-    h = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+    h = activation(act)(gate.float()).to(up.dtype) * up
     return qeinsum("bsf,fd->bsd", h, params["down"], cfg=qcfg, site="down",
                    generator=qgen)
 

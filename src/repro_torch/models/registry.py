@@ -5,7 +5,7 @@ from __future__ import annotations
 import importlib
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["qwen2-1.5b"]
+ARCHS = ["qwen2-1.5b", "paper-resnet", "paper-transformer"]
 
 
 def _module(arch: str):

@@ -1,10 +1,14 @@
-"""Dense decoder LM assembly (counterpart of `repro.models.transformer`).
+"""Dense decoder and encoder-decoder LM assembly (counterpart of
+`repro.models.transformer`).
 
 Parameters are nested dicts of tensors laid out like the reference's
-unscanned tree: {"embed": {"table"}, "final_norm": {"scale"},
-"decoder": {"layer_{i}": {...}}}. Layers run in a plain
-Python loop (the reference's lax.scan), each under the site scope of its
-key, so scale-site keys are the reference's `scan_layers=False` keys.
+unscanned tree: {"embed": {"table"[, "head"]}, "final_norm": {"scale"},
+"decoder": {"layer_{i}": {...}}}, and for an encoder-decoder also
+"encoder": {"layer_{i}": {...}} and "enc_norm", with "cross_norm" /
+"cross_attn" in each decoder layer. Layers run in a plain Python loop (the
+reference's lax.scan), each under the site scope of its key, so scale-site
+keys are the reference's `scan_layers=False` keys (the encoder's under
+"encoder/", a decoder layer's cross-attention under ".../cross_attn/").
 
 `lm_loss` is the training objective (the reference's `lm_loss` with its
 sequence-chunked cross-entropy `_chunked_ce`): the 16-bit logits head, a
@@ -35,15 +39,22 @@ def _layer_names(cfg: ModelConfig):
     return [f"layer_{i}" for i in range(cfg.n_layers)]
 
 
-def init_layer(cfg: ModelConfig, *, generator, device):
+def init_layer(cfg: ModelConfig, *, generator, device,
+               cross: bool = False):
+    """One layer: self-attention and the gated MLP, with a cross-attention
+    block between them for an encoder-decoder's decoder (cross=True)."""
     kw = dict(generator=generator, device=device)
     ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
-    return {"norm1": {"scale": ones.clone()},
-            "attn": init_attention(cfg, **kw),
-            "norm2": {"scale": ones.clone()},
-            "mlp": {"up": dense_init(cfg.d_model, cfg.d_ff, **kw),
-                    "down": dense_init(cfg.d_ff, cfg.d_model, scale=0.5, **kw),
-                    "gate": dense_init(cfg.d_model, cfg.d_ff, **kw)}}
+    p = {"norm1": {"scale": ones.clone()},
+         "attn": init_attention(cfg, **kw)}
+    if cross:
+        p["cross_norm"] = {"scale": ones.clone()}
+        p["cross_attn"] = init_attention(cfg, **kw)
+    p["norm2"] = {"scale": ones.clone()}
+    p["mlp"] = {"up": dense_init(cfg.d_model, cfg.d_ff, **kw),
+                "down": dense_init(cfg.d_ff, cfg.d_model, scale=0.5, **kw),
+                "gate": dense_init(cfg.d_model, cfg.d_ff, **kw)}
+    return p
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
@@ -57,9 +68,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
                                       generator=gen, device=dev)},
         "final_norm": {"scale": torch.ones((cfg.d_model,),
                                            dtype=torch.float32, device=dev)},
-        "decoder": {name: init_layer(cfg, generator=gen, device=dev)
+        "decoder": {name: init_layer(cfg, generator=gen, device=dev,
+                                     cross=cfg.is_encoder_decoder)
                     for name in _layer_names(cfg)},
     }
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            f"layer_{i}": init_layer(cfg, generator=gen, device=dev)
+            for i in range(cfg.n_encoder_layers)}
+        params["enc_norm"] = {"scale": torch.ones(
+            (cfg.d_model,), dtype=torch.float32, device=dev)}
     if not cfg.tie_embeddings:
         params["embed"]["head"] = dense_init(
             cfg.d_model, cfg.padded_vocab_size, scale=0.5, generator=gen,
@@ -71,7 +89,7 @@ def init_stack_state(cfg: ModelConfig, batch: int, max_len: int, *,
                      device=None):
     """Per-layer fixed-slot KV caches (`init_cache`), keyed like the
     decoder params."""
-    cfg.check_ported()
+    cfg.check_ported(serving=True)
     dev = resolve_device(device)
     return {name: {"kv": init_cache(cfg, batch, max_len, device=dev)}
             for name in _layer_names(cfg)}
@@ -79,7 +97,7 @@ def init_stack_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def init_paged_stack_state(cfg: ModelConfig, n_slots: int, *, device=None):
     """Per-layer paged KV pools, keyed like the decoder params."""
-    cfg.check_ported()
+    cfg.check_ported(serving=True)
     dev = resolve_device(device)
     return {name: {"kv": init_paged_pool(cfg, n_slots, device=dev)}
             for name in _layer_names(cfg)}
@@ -87,8 +105,11 @@ def init_paged_stack_state(cfg: ModelConfig, n_slots: int, *, device=None):
 
 def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
                 positions: torch.Tensor, mode: str, state=None, page=None,
+                enc_out: Optional[torch.Tensor] = None,
                 qgen: Optional[torch.Generator] = None):
-    """One 'attn' decoder layer. Returns (h, new_state)."""
+    """One layer: a decoder layer ('attn' kind; with enc_out, its
+    cross-attention block too) or, with mode 'encode', an encoder layer.
+    Returns (h, new_state)."""
     with scale_ctx.scope("attn"):
         a, cache = attention(
             p["attn"], rmsnorm(p["norm1"], h, eps=cfg.norm_eps), cfg=cfg,
@@ -96,6 +117,14 @@ def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
             cache_layer=None if state is None else state["kv"], page=page,
             qgen=qgen)
     h = h + a
+    if "cross_attn" in p and enc_out is not None:
+        with scale_ctx.scope("cross_attn"):
+            ca, _ = attention(
+                p["cross_attn"], rmsnorm(p["cross_norm"], h,
+                                         eps=cfg.norm_eps),
+                cfg=cfg, qcfg=qcfg, positions=positions, mode="cross",
+                kv_x=enc_out, qgen=qgen)
+        h = h + ca
     with scale_ctx.scope("mlp"):
         f = mlp(p["mlp"], rmsnorm(p["norm2"], h, eps=cfg.norm_eps),
                 act=cfg.act, qcfg=qcfg, qgen=qgen)
@@ -104,7 +133,7 @@ def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
 
 
 def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
-              positions, page, qgen):
+              positions, page, qgen, enc_out=None):
     """Embedding and decoder layers. Returns (h, new_states)."""
     qcfg = cfg.policy.quant
     h = embed(params["embed"], tokens)
@@ -119,10 +148,31 @@ def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
                     params["decoder"][name], h, cfg=cfg, qcfg=qcfg,
                     positions=positions, mode=mode,
                     state=None if states is None else states[name],
-                    page=page, qgen=qgen)
+                    page=page, enc_out=enc_out, qgen=qgen)
             if states is not None:
                 new_states[name] = ns
     return h, new_states
+
+
+def encode(params, enc_inputs, *, cfg: ModelConfig,
+           qgen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Encoder forward: enc_inputs (B, T, D) precomputed frame embeddings
+    (f32, numpy or a tensor) -> the normalized encoder output (B, T, D)
+    bf16. The encoder's layers are the 'enc_attn' kind: bidirectional
+    attention (mode 'encode') under the scope "encoder"."""
+    qcfg = cfg.policy.quant
+    dev = params["enc_norm"]["scale"].device
+    h = torch.as_tensor(enc_inputs).to(device=dev).to(torch.bfloat16)
+    b, t, _ = h.shape
+    positions = torch.arange(t, device=dev)[None].expand(b, t)
+    with scale_ctx.scope("encoder"):
+        for i in range(cfg.n_encoder_layers):
+            name = f"layer_{i}"
+            with scale_ctx.scope(name):
+                h, _ = apply_layer(params["encoder"][name], h, cfg=cfg,
+                                   qcfg=qcfg, positions=positions,
+                                   mode="encode", qgen=qgen)
+    return rmsnorm(params["enc_norm"], h, eps=cfg.norm_eps)
 
 
 def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
@@ -141,8 +191,8 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     block-table indirection). last_only: logits of the last position only
     (prefill). gather_rows: (B,) row per request at which to compute
     logits (the chunk's last valid token). qgen: the generator SR bits
-    come from."""
-    cfg.check_ported()
+    come from. An encoder-decoder is refused: serving it is not ported."""
+    cfg.check_ported(serving=True)
     head_cfg = cfg.policy.quant_for_layer(is_head=True)
     h, new_states = _backbone(params, tokens, cfg=cfg, mode=mode,
                               states=states, positions=positions, page=page,
@@ -180,11 +230,16 @@ def _chunked_ce(params, h, labels, mask, *, cfg: ModelConfig,
 def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
             qgen: Optional[torch.Generator] = None,
             loss_scale: Optional[torch.Tensor] = None):
-    """Causal-LM cross-entropy. batch: {"tokens", "labels"} (B, S) int and
-    an optional "loss_mask" (B, S), tensors on the params' device or numpy.
-    Returns (loss, metrics); with `loss_scale` (a 0-d tensor) the loss is
-    multiplied by it (scale before backprop, unscale in the optimizer)."""
+    """Causal-LM (or seq2seq) cross-entropy. batch: {"tokens", "labels"}
+    (B, S) int and an optional "loss_mask" (B, S), tensors on the params'
+    device or numpy; an encoder-decoder's batch also holds "enc_inputs"
+    (B, T, D), which `encode` turns into the decoder's cross-attention
+    input (the encoder runs first, as in the reference). Returns (loss,
+    metrics); with `loss_scale` (a 0-d tensor) the loss is multiplied by
+    it (scale before backprop, unscale in the optimizer)."""
     cfg.check_ported()
+    enc_out = encode(params, batch["enc_inputs"], cfg=cfg, qgen=qgen) \
+        if cfg.is_encoder_decoder else None
     head_cfg = cfg.policy.quant_for_layer(is_head=True)
     dev = params["embed"]["table"].device
 
@@ -197,7 +252,7 @@ def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
     mask = torch.ones(labels.shape, dtype=torch.float32, device=dev) \
         if mask is None else on_dev(mask, torch.float32)
     h, _ = _backbone(params, tokens, cfg=cfg, mode="train", states=None,
-                     positions=None, page=None, qgen=qgen)
+                     positions=None, page=None, qgen=qgen, enc_out=enc_out)
     h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
     denom = torch.clamp_min(mask.sum(), 1.0)
     nll_sum = _chunked_ce(params, h, labels, mask, cfg=cfg,

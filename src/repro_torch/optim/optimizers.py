@@ -40,6 +40,30 @@ def _bias_correction(beta: float, count: torch.Tensor) -> torch.Tensor:
                                       device=c.device), c)
 
 
+def l2_regularization_loss(params, weight_decay: float) -> torch.Tensor:
+    """The paper's L2_loss = weight_decay * sum_i w_i^2 over every floating
+    leaf, squares summed in f32, leaves in the reference's order (sorted
+    keys, as jax.tree_util.tree_leaves walks a dict)."""
+    total = None
+    for p in _sorted_leaves(params):
+        if p.is_floating_point():
+            sq = torch.sum(torch.square(p.float()))
+            total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32)
+    return weight_decay * total
+
+
+def warmup_rsqrt_schedule(base_lr: float, warmup_steps: int = 4000):
+    """The Transformer learning-rate schedule: linear warm-up, then
+    1/sqrt(step); count (an integer tensor) -> 0-d f32 tensor."""
+    def sched(count: torch.Tensor) -> torch.Tensor:
+        c = torch.clamp_min(count.to(torch.float32), 1.0)
+        return base_lr * torch.minimum(c * warmup_steps ** -1.5,
+                                       torch.pow(c, -0.5))
+    return sched
+
+
 # ---------------------------------------------------------------------------
 # Momentum SGD
 # ---------------------------------------------------------------------------
@@ -174,5 +198,13 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _sorted_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k])
     else:
         yield tree

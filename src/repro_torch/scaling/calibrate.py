@@ -81,6 +81,7 @@ def calibrate(params, cfg: ModelConfig, batches: Iterable, *,
     """Populate amax history from forward batches of {"tokens": (B, S)}
     (int tensors on the params' device, or numpy). Returns the
     DelayedScaling bundle and the converged ScaleState."""
+    cfg.check_ported(serving=True)
     ecfg = _delayed_eval_cfg(cfg)
     device = params["embed"]["table"].device
     batches = [torch.as_tensor(np.asarray(b["tokens"]) if not

@@ -135,7 +135,7 @@ class ServeEngine:
         from repro_torch.train.step import (make_serve_decode,
                                             make_serve_prefill)
         self.device = resolve_device(device)
-        cfg.check_ported()
+        cfg.check_ported(serving=True)
         self.cfg = cfg
         self.params = params
         self.serve = serve
@@ -303,7 +303,7 @@ class PagedServeEngine:
         from repro_torch.train.step import make_serve_chunk
 
         self.device = resolve_device(device)
-        cfg.check_ported()
+        cfg.check_ported(serving=True)
         self.cfg = cfg
         self.params = params
         self.serve = serve
