@@ -109,6 +109,7 @@ import ctypes
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1550,7 +1551,16 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
     given): one-hot q and dO rows, k and v rows constant across the
     head dim (k: 4, or 32 x the kv block index for 'stepped', on a random
     half of the columns and -224 elsewhere; v: +-1, +-2), so every exp is
-    1 or 0, l is a count and every f32 sum is exact in any order."""
+    1 or 0, l is a count and every f32 sum is exact in any order.
+
+    'saturating' is 'uniform' with scales that drive each quantized tile
+    to its format's max normal: f_s = 256 (S of -224 lands on e5m2's max,
+    57344, and every e4m3 S saturates to +-448, exps still 1 or 0),
+    f_p = 2^16 (every unnormalized P of 1 saturates; in the backward P =
+    2^16 / l saturates where l is small), dO = +-7 x 2^-r (r < 4) and
+    f_dp = 2^12 (dP of +-7 x 2 lands on 57344, the rest below it; every
+    sum stays exact), f_ds = 2^12 (the largest dS pass the max, to
+    e5m2's max or, unsaturated, to inf)."""
     import torch
     from repro_torch.core.fp8_formats import get_format
     ta, te = get_format(fmt_a).dtype, get_format(fmt_e).dtype
@@ -1567,10 +1577,19 @@ def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
     vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)
     v = vals[torch.randint(0, 4, (b, hkv, s, 1), generator=gen,
                            device=dev)] * torch.ones(d, device=dev)
-    dval = fp8_tensor((b, h, q_len, 1), fmt_e, gen, dev, True).float() * 4
+    if kind == "saturating":
+        sign = torch.randint(0, 2, (b, h, q_len, 1), generator=gen,
+                             device=dev).float() * 2 - 1
+        dval = sign * 7.0 * torch.exp2(-torch.randint(
+            0, 4, (b, h, q_len, 1), generator=gen, device=dev).float())
+        scal = [256.0, 1.0, 2.0 ** 16, 2.0 ** -16, 2.0 ** 12, 2.0 ** -12,
+                2.0 ** 21, 1.0, 1.0, 1.0]
+    else:
+        dval = fp8_tensor((b, h, q_len, 1), fmt_e, gen, dev, True).float() \
+            * 4
+        scal = [1.0, 1.0, 1.0, 1.0, 2.0 ** -6, 64.0, 256.0, 1.0, 1.0, 1.0]
     do = eye[torch.randint(0, d, (b, h, q_len), generator=gen, device=dev)] \
         * dval
-    scal = [1.0, 1.0, 1.0, 1.0, 2.0 ** -6, 64.0, 256.0, 1.0, 1.0, 1.0]
     return q.to(ta), k.to(ta), v.to(ta), do.to(te), scal
 
 
@@ -2114,6 +2133,215 @@ def time_attention_bwd_long(dev, gen):
     return dict(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
                 plain_ms=plain, library_ms=lib, shape=f"causal B={b} H={h} "
                 f"Hkv={hkv} S={s} D={d}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the count variants of kernels 2 and 3 (precision-health counts of
+# S / P in the forward and of dP / dS in the dQ kernel)
+# ---------------------------------------------------------------------------
+
+# Shapes of the count variants' checks: the training shape (the dQ
+# kernel's stash variant), the long-span variant (causal S=2048), and the
+# paper-transformer's decoder and cross shapes at D = 64.
+COUNT_SHAPES = (TRAIN_ATTN, ("causal", 1, 12, 2, 2048, 2048, 128, "long")) \
+    + T5_BWD_SHAPES[1:]
+
+
+def check_attention_counts(dev):
+    """The count variants of kernel 2 (forward) and kernel 3 (both dQ
+    variants) over COUNT_SHAPES, both recipes, RNE and SR: on the exact
+    fixtures and on general inputs the [saturated, flushed, observed]
+    counts equal the plain version's, and on the 'saturating' fixture the
+    saturated counts of S, P, dP and dS are above 0; every output (o and
+    the amaxes; dq, m, l, rd and the amaxes of the dQ kernel; the whole
+    backward) bit for bit the same with counts on and off; each count
+    variant launched; planted faults (S, P, dP and dS saturated counts and
+    the dS flushed count, each off by one) fail the comparison. Returns the
+    number of cases."""
+    import torch
+    from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_attention import ref as at_ref
+    gen = torch.Generator(device=dev).manual_seed(31)
+    # A generator of its own: the general inputs stay those read before.
+    sat_gen = torch.Generator(device=dev).manual_seed(33)
+    n, planted = 0, []
+    for shape in COUNT_SHAPES:
+        mask, b, h, hkv, q_len, s, d, variant = shape
+        lens = dict(q_len=q_len, s_len=s)
+        for recipe, (fa, fe) in BWD_RECIPES.items():
+            for kind in ("uniform", "stepped", "general", "saturating"):
+                if kind == "general":
+                    q, k, v = attn_train_inputs(dev, gen, fa, shape)
+                    do = torch.randn(q.shape, generator=gen,
+                                     device=dev).to(fp8_dtype(fe))
+                    scal = bwd_scalars(d)
+                else:
+                    q, k, v, do, scal = bwd_fixture(
+                        kind, fa, fe, sat_gen if kind == "saturating"
+                        else gen, dev, b=b, h=h, hkv=hkv, s=s, d=d,
+                        q_len=q_len)
+                fscal = scal[:4]
+                padded = bwd_padded(q, k, v, do)
+                for rnd in ("rne", "sr"):
+                    fkw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa,
+                               rounding_s=rnd, rounding_p=rnd)
+                    kw = dict(fkw, fmt_e=fe, rounding_e=rnd,
+                              saturate_e=False)
+                    tag = (f"attention counts {shape_tag(shape)} {recipe} "
+                           f"{kind} {rnd}")
+                    f_on0 = at.fp8_attention_fwd.launches_with_counts
+                    q_on0 = at.fp8_attention_bwd_dq.launches_with_counts
+                    off = at.fp8_attention_fwd(q, k, v, 7, fscal, **fkw)
+                    on = at.fp8_attention_fwd(q, k, v, 7, fscal,
+                                              with_counts=True, **fkw)
+                    want = at_ref.fp8_attention_fwd_ref(
+                        q, k, v, 7, fscal, with_counts=True, **fkw)[3]
+                    d_off = at.fp8_attention_bwd_dq(
+                        *padded, 7, scal, variant=variant, **lens, **kw)
+                    d_on = at.fp8_attention_bwd_dq(
+                        *padded, 7, scal, variant=variant, counts=True,
+                        **lens, **kw)
+                    b_off = at.fp8_attention_bwd(q, k, v, do, 7, scal, **kw)
+                    b_on = at.fp8_attention_bwd(q, k, v, do, 7, scal,
+                                                with_counts=True, **kw)
+                    b_want = at_ref.fp8_attention_bwd_ref(
+                        q, k, v, do, 7, scal, with_counts=True, **kw)[5]
+                    torch.cuda.synchronize()
+                    if (at.fp8_attention_fwd.launches_with_counts != f_on0 + 1
+                            or at.fp8_attention_bwd_dq.launches_with_counts
+                            != q_on0 + 2):
+                        raise AssertionError(f"{tag}: a count variant was "
+                                             "not launched")
+                    if not all(same_bits(x, y) for x, y in
+                               zip(tuple(off) + tuple(d_off) + tuple(b_off),
+                                   tuple(on[:3]) + tuple(d_on[:6])
+                                   + tuple(b_on[:5]))):
+                        raise AssertionError(f"{tag}: outputs differ with "
+                                             "counts on and off")
+                    fwd_c, dq_c = on[3], at.tile_counts(d_on[6])
+                    if not torch.equal(dq_c, b_on[5]):
+                        raise AssertionError(f"{tag}: the wrapper's dP/dS "
+                                             "counts are not the dQ "
+                                             "kernel's")
+                    for what, got, ref in (("S/P", fwd_c, want),
+                                           ("dP/dS", dq_c, b_want)):
+                        if not torch.equal(got, ref):
+                            raise AssertionError(
+                                f"{tag}: {what} counts {got.tolist()}, plain "
+                                f"{ref.tolist()}")
+                        if kind == "saturating" and not bool(
+                                (ref[:, 0] > 0).all()):
+                            raise AssertionError(
+                                f"{tag}: the fixture left a {what} tile "
+                                f"unsaturated: {ref.tolist()}")
+                    if kind == "saturating" and not planted:
+                        for got, ref, at_ in ((fwd_c, want, (0, 0)),
+                                              (fwd_c, want, (1, 0)),
+                                              (dq_c, b_want, (0, 0)),
+                                              (dq_c, b_want, (1, 0)),
+                                              (dq_c, b_want, (1, 1))):
+                            bad = got.clone()
+                            bad[at_] += 1
+                            planted.append(torch.equal(bad, ref))
+                    n += 1
+        if variant == "stash" and mask == "causal":
+            # Both dQ variants count alike (the training shape, on the
+            # last fixture: 'saturating', SR).
+            runs = [at.tile_counts(at.fp8_attention_bwd_dq(
+                *padded, 7, scal, variant=var, counts=True, **lens,
+                **kw)[6]) for var in ("stash", "long")]
+            if not torch.equal(*runs):
+                raise AssertionError(f"{shape_tag(shape)}: the dQ variants "
+                                     f"count {runs[0].tolist()} and "
+                                     f"{runs[1].tolist()}")
+    if not planted or any(planted):
+        raise AssertionError(f"a planted count fault passed the check: "
+                             f"{planted}")
+    log(f"attention counts: {n} cases ({[shape_tag(x) + ' ' + x[7] for x in COUNT_SHAPES]}"
+        f"; uniform, stepped, general, saturating; both recipes; RNE and "
+        f"SR): S/P and dP/dS counts equal to the plain version's in every "
+        f"case, the saturated counts of all four above 0 on the saturating "
+        f"fixture; outputs bitwise equal with counts on and off; both dQ "
+        f"variants count alike; {len(planted)} planted count faults (S, P, "
+        f"dP, dS saturated and dS flushed, each off by one) caught")
+    return n
+
+
+def time_attention_counts(dev):
+    """Kernels 2 and 3 with counts on and off, in turns (off, on, on, off),
+    at the training shape, the long-span dQ variant's shape and the
+    paper-transformer's decoder shape (hybrid recipe, SR): the forward by
+    wrapper call, the dQ kernel by direct launch on the padded operands;
+    the plain versions with counts; the bounds (the counts add 24 bytes a
+    query tile). Returns the count variants' rows at the training shape
+    (for the kernels line) and every reading."""
+    import torch
+    from repro_torch.kernels.fp8_attention import ops as at
+    from repro_torch.kernels.fp8_attention import ref as at_ref
+    gen = torch.Generator(device=dev).manual_seed(32)
+    readings = []
+    for shape in (TRAIN_ATTN, COUNT_SHAPES[1], T5_BWD_SHAPES[1]):
+        mask, b, h, hkv, q_len, s, d, variant = shape
+        q, k, v = attn_train_inputs(dev, gen, "e4m3", shape)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(
+            torch.float8_e5m2)
+        scal = bwd_scalars(d)
+        fkw = dict(mask_mode=mask, fmt_s="e4m3", fmt_p="e4m3",
+                   rounding_s="sr", rounding_p="sr")
+        kw = dict(fkw, fmt_e="e5m2", rounding_e="sr", saturate_e=False)
+        lens = dict(q_len=q_len, s_len=s)
+        padded = bwd_padded(q, k, v, do)
+        iters = 5 if s > 1024 else 20
+        t = {"fwd": {False: [], True: []}, "dq": {False: [], True: []}}
+        for on in (False, True, True, False):
+            t["fwd"][on].append(cuda_ms(lambda: at.fp8_attention_fwd(
+                q, k, v, 7, scal[:4], with_counts=on, **fkw), iters=iters))
+            t["dq"][on].append(cuda_ms(lambda: at.fp8_attention_bwd_dq(
+                *padded, 7, scal, counts=on, **lens, **kw), iters=iters))
+        plain_f = cuda_ms(lambda: at_ref.fp8_attention_fwd_ref(
+            q, k, v, 7, scal[:4], with_counts=True, **fkw), iters=2)
+        plain_b = cuda_ms(lambda: at_ref.fp8_attention_bwd_ref(
+            q, k, v, do, 7, scal, with_counts=True, **kw), iters=2)
+        got_f = at.fp8_attention_fwd(q, k, v, 7, scal[:4], with_counts=True,
+                                     **fkw)
+        want_f = at_ref.fp8_attention_fwd_ref(q, k, v, 7, scal[:4],
+                                              with_counts=True, **fkw)
+        got_b = at.fp8_attention_bwd(q, k, v, do, 7, scal, with_counts=True,
+                                     **kw)
+        want_b = at_ref.fp8_attention_bwd_ref(q, k, v, do, 7, scal,
+                                              with_counts=True, **kw)
+        err_f = (got_f[3] - want_f[3]).abs().max().item()
+        err_b = (got_b[5] - want_b[5]).abs().max().item()
+        nq = -(-q_len // 128)
+        b_f = fwd_bound(q, k, mask)
+        b_dq = bwd_bounds(q, k, do, mask)[0]
+        extra = 24 * b * h * nq / HBM_BYTES_PER_S * 1e3
+        tag = shape_tag(shape)
+        row = {"shape": tag, "variant": variant,
+               "fwd": dict(shape=tag, ms=min(t["fwd"][True]),
+                           off_ms=min(t["fwd"][False]), runs=t["fwd"],
+                           plain_ms=plain_f, bound_ms=b_f[0] + extra,
+                           bound_by=b_f[1], max_abs_err=err_f,
+                           library_ms=None),
+               "dq": dict(shape=tag, ms=min(t["dq"][True]),
+                          off_ms=min(t["dq"][False]), runs=t["dq"],
+                          plain_ms=plain_b, bound_ms=b_dq[0] + 2 * extra,
+                          bound_by=b_dq[1], max_abs_err=err_b,
+                          library_ms=None)}
+        readings.append(row)
+        log(f"attention counts time {tag} ({variant} dQ variant): forward "
+            f"{row['fwd']['off_ms']:.4f} ms counts off, "
+            f"{row['fwd']['ms']:.4f} ms on (runs off {t['fwd'][False]}, on "
+            f"{t['fwd'][True]}; plain with counts {plain_f:.4f}; bound "
+            f"{row['fwd']['bound_ms']:.4f} {b_f[1]}; counts "
+            f"{got_f[3].tolist()}, {err_f} from the plain version's); dQ "
+            f"kernel {row['dq']['off_ms']:.4f} ms off, {row['dq']['ms']:.4f}"
+            f" ms on (runs off {t['dq'][False]}, on {t['dq'][True]}; plain "
+            f"whole backward with counts {plain_b:.4f}; bound "
+            f"{row['dq']['bound_ms']:.4f} {b_dq[1]}; counts "
+            f"{got_b[5].tolist()}, {err_b} from the plain version's) "
+            f"[{CARD}]")
+    return readings
 
 
 # ---------------------------------------------------------------------------
@@ -3410,6 +3638,223 @@ def s2s_step_parity(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the trainer (launch/train.py's TrainLoop: checkpoint / resume,
+# metrics, precision-health tracking, gradient accumulation)
+# ---------------------------------------------------------------------------
+
+TRAINER_STEPS = 4
+TRAINER_MICROBATCHES = 2
+# Launches a step of the trainer's main path (28 layers, two microbatches):
+# every projection in each layout per microbatch, each attention kernel
+# per layer per microbatch, the forward and the dQ kernel as their count
+# variants (track_health).
+TRAINER_STEP_LAUNCHES = {
+    **{k: v * TRAINER_MICROBATCHES for k, v in STEP_LAUNCHES.items()},
+    "fp8_attention_fwd_counts": 28 * TRAINER_MICROBATCHES,
+    "fp8_attention_bwd_dq_counts": 28 * TRAINER_MICROBATCHES}
+
+
+def trainer_launch_counts():
+    from repro_torch.kernels.fp8_attention import ops as at
+    out = launch_counts()
+    out.update(
+        fp8_attention_fwd_counts=at.fp8_attention_fwd.launches_with_counts,
+        fp8_attention_bwd_dq_counts=(
+            at.fp8_attention_bwd_dq.launches_with_counts))
+    return out
+
+
+def trainer_loop(ckpt_dir, steps, n_layers=None, metrics_path=None):
+    """launch/train.py's TrainLoop for qwen2-1.5b at full width: the hybrid
+    recipe, delayed scaling with track_health, two microbatches over
+    B=4 x S=512, HealthConfig(), checkpoints only at the end."""
+    from repro_torch.launch.train import build_loop
+    from repro_torch.obs.health import HealthConfig
+    return build_loop(arch="qwen2-1.5b", n_layers=n_layers, steps=steps,
+                      batch=TRAIN_B, seq=TRAIN_S, lr=1e-4,
+                      microbatches=TRAINER_MICROBATCHES, recipe="hybrid",
+                      track_health=True, ckpt_dir=str(ckpt_dir),
+                      checkpoint_every=10 ** 6, metrics_path=metrics_path,
+                      health=HealthConfig(), log_every=1)
+
+
+def train_trainer(dev):
+    """Phase 12a: the trainer at 28 layers. TRAINER_STEPS steps of a fresh
+    loop (launch counts set to 0 just before and read just after), its
+    final save into a temporary directory; then a fresh loop restores it
+    and takes one more step. Prints step p50, tokens/s,
+    max_memory_allocated, the save's and the restore's seconds and bytes,
+    the free disk space, the health keys and events, and the launches."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    tmp = tempfile.mkdtemp(prefix="trainer_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"trainer: checkpoint directory {tmp}, {free / 2 ** 30:.1f} GiB "
+            "free; the state is about 1.54 G parameters x (2 bytes of fp16 "
+            "master + 8 of Adam moments), ~15 GB a save")
+        t0 = time.perf_counter()
+        loop = trainer_loop(tmp, TRAINER_STEPS,
+                            metrics_path=os.path.join(tmp, "metrics.jsonl"))
+        records = []
+        loop.on_metrics = lambda step, rec: records.append(rec)
+        log(f"trainer: loop built in {time.perf_counter() - t0:.1f} s "
+            f"({len(loop.scaling.registry)} scale sites)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = loop.run()
+        launches = trainer_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for rec in records:
+            log(f"trainer step {rec['step']}: loss {rec['loss']}, loss "
+                f"scale {rec['loss_scale']}, grads_finite "
+                f"{rec['grads_finite']}, {rec['step_time_s'] * 1e3:.1f} ms, "
+                f"health churn {rec['health/scale_churn']}, events "
+                f"{rec.get('health_events', [])}")
+        times = [r["step_time_s"] for r in records[1:]]
+        p50 = float(np.median(times)) * 1e3
+        tok_s = TRAIN_B * TRAIN_S / (p50 / 1e3)
+        n_health = sum(k.startswith("health/") for k in records[-1])
+        events = [e for r in records for e in r.get("health_events", [])]
+        save_s, save_b = loop.ckpt.last_save_s, loop.ckpt.last_save_bytes
+        per_step = {k: v / TRAINER_STEPS for k, v in launches.items()}
+        log(f"trainer: step p50 {p50:.1f} ms (steps 1-{TRAINER_STEPS - 1}; "
+            f"first {records[0]['step_time_s'] * 1e3:.1f} ms), {tok_s:.0f} "
+            f"tokens/s, max_memory_allocated {peak:.2f} GiB, save "
+            f"{save_s:.1f} s for {save_b / 1e9:.2f} GB on disk, "
+            f"{n_health} health/* keys a record, {len(events)} health events "
+            f"({sorted({e['kind'] for e in events})}) [{CARD}]")
+        log(f"trainer: launches per step {per_step}")
+        want = {k: v * TRAINER_STEPS for k, v in TRAINER_STEP_LAUNCHES.items()}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        if not all(np.isfinite(r["loss"]) for r in records):
+            raise AssertionError("non-finite loss")
+        if n_health < len(loop.scaling.registry) or out["last_step"] != \
+                TRAINER_STEPS:
+            raise AssertionError(f"{n_health} health keys, last step "
+                                 f"{out['last_step']}")
+        # Where a step's time goes: one more step of the loop's step
+        # function under the profiler (after the save: it updates the
+        # state in place).
+        from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+        box = [out["state"], out["scale_state"]]
+        batch = next(synthetic_lm_batches(DataConfig(
+            vocab_size=loop.cfg.vocab_size, seq_len=TRAIN_S,
+            batch_size=TRAIN_B, seed=0), start_step=TRAINER_STEPS))
+
+        def one(b):
+            (box[0], box[1]), _ = loop._step_fn(
+                box[0], box[1], b, torch.Generator(device=dev).manual_seed(1))
+        prof = profile_train(one, [batch])
+        del loop, out, box
+        gc_collect()
+        loop = trainer_loop(tmp, TRAINER_STEPS + 1)
+        out = loop.run()
+        restore_s = loop.ckpt.last_restore_s
+        rec = out["metrics"]
+        log(f"trainer: a fresh loop restored step {TRAINER_STEPS} in "
+            f"{restore_s:.1f} s and took step {rec['step']}: loss "
+            f"{rec['loss']}, {rec['step_time_s'] * 1e3:.1f} ms; its save "
+            f"{loop.ckpt.last_save_s:.1f} s [{CARD}]")
+        if out["last_step"] != TRAINER_STEPS + 1 or rec["step"] != \
+                TRAINER_STEPS or not np.isfinite(rec["loss"]):
+            raise AssertionError(f"resumed run ended at {out['last_step']}")
+        del loop, out
+        return dict(launches=launches, per_step=per_step, p50_ms=p50,
+                    tokens_s=tok_s, peak_gib=peak, save_s=save_s,
+                    save_bytes=save_b, restore_s=restore_s,
+                    n_health=n_health, events=len(events), profile=prof)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc_collect()
+
+
+def trainer_resume_parity(dev):
+    """Phase 12b: at 2 layers of the same widths, TRAINER_STEPS steps in
+    one loop against half of them, a fresh loop's restore and the rest:
+    final master weights, optimizer and loss-scale state, ScaleState and
+    every step's loss and health pairs bit for bit. A second uninterrupted
+    run first shows whether every op of the step repeats bit for bit on
+    the card; a planted fault (the restore skips ScaleState) must break
+    the equality."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    tmp = tempfile.mkdtemp(prefix="trainer_resume_")
+    half = TRAINER_STEPS // 2
+
+    def run(name, stops, unpack=None):
+        recs, out = [], None
+        for total in stops:
+            loop = trainer_loop(os.path.join(tmp, name), total, n_layers=2)
+            if unpack is not None and total != stops[0]:
+                loop._unpack = unpack.__get__(loop)
+            loop.on_metrics = lambda step, rec: recs.append(
+                {k: v for k, v in rec.items()
+                 if not k.startswith(("step_time_s", "span/", "stragglers"))})
+            out = loop.run()
+        return recs, out
+
+    def flat(out):
+        st = out["state"]
+        tree = {"master": st.master, "opt": st.opt_state,
+                "ls": {f: getattr(st.loss_scale, f) for f in
+                       ("scale", "growth_count", "step", "overflow_count")}}
+        flat_ = {}
+
+        def walk(t, p):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{p}/{k}")
+            else:
+                flat_[p] = t
+        walk(tree, "")
+        ss = out["scale_state"]
+        return flat_, (ss.amax_history, ss.scale, ss.step)
+
+    def same(a, b):
+        (fa, sa), (fb, sb) = flat(a[1]), flat(b[1])
+        state = all(torch.equal(fa[k], fb[k]) for k in fa)
+        scales = all(np.array_equal(x, y) for x, y in zip(sa, sb))
+        return state and scales and a[0] == b[0], state, scales
+
+    def skip_scale_state(self, tree):
+        return tree["train"], self.scaling.init()
+
+    try:
+        full = run("full", [TRAINER_STEPS])
+        again = run("again", [TRAINER_STEPS])
+        resumed = run("resumed", [half, TRAINER_STEPS])
+        faulty = run("faulty", [half, TRAINER_STEPS], skip_scale_state)
+        repeat = same(full, again)
+        got = same(full, resumed)
+        fault = same(full, faulty)
+        losses = [r["loss"] for r in full[0]]
+        log(f"trainer resume (2 layers, full width): uninterrupted losses "
+            f"{losses}; a second uninterrupted run bitwise equal: "
+            f"{repeat[0]}; {half} + restore + {TRAINER_STEPS - half} steps "
+            f"bitwise equal (records, state, ScaleState): {got}; planted "
+            f"fault (ScaleState not restored): {fault} [{CARD}]")
+        if not repeat[0]:
+            raise AssertionError("two uninterrupted runs differ: an op of "
+                                 "the step does not repeat bit for bit")
+        if not got[0]:
+            raise AssertionError(f"the resumed run differs: {got}")
+        if fault[0]:
+            raise AssertionError("the planted fault (ScaleState not "
+                                 "restored) passed")
+        return losses
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc_collect()
+
+
 def gc_collect():
     import torch
     gc.collect()
@@ -3477,14 +3922,16 @@ def main() -> int:
     failures = []
     info = (ctypes.c_int * 4)()
     cap = at.STASH_BLOCKS
-    err = bwd.attn_bwd_dq_stash_info(cap, info)
-    log(f"fp8_attention_bwd dQ stash variant at its cap of {cap} kv blocks: "
-        f"{info[0]} bytes of dynamic shared memory, {info[1]} registers and "
-        f"{info[2]} local (spill) bytes a thread, {info[3]} blocks per SM "
-        f"(cudaError {err})")
-    if err or info[3] < 2:
-        failures.append(f"dQ stash variant: cudaError {err}, {info[3]} "
-                        "blocks per SM (2 expected)")
+    for counts in (0, 1):
+        what = " (count variant)" if counts else ""
+        err = bwd.attn_bwd_dq_stash_info(cap, counts, info)
+        log(f"fp8_attention_bwd dQ stash variant{what} at its cap of {cap} kv "
+            f"blocks: {info[0]} bytes of dynamic shared memory, {info[1]} "
+            f"registers and {info[2]} local (spill) bytes a thread, "
+            f"{info[3]} blocks per SM (cudaError {err})")
+        if err or info[3] < 2:
+            failures.append(f"dQ stash variant{what}: cudaError {err}, "
+                            f"{info[3]} blocks per SM (2 expected)")
     dkv_info = (ctypes.c_int * 6)()
     err = bwd.attn_bwd_dkv_info(dkv_info)
     log(f"fp8_attention_bwd dK/dV kernel (attn_bwd_dkv_kernel_head): "
@@ -3500,13 +3947,17 @@ def main() -> int:
                         f"{dkv_info[3]} blocks per SM "
                         f"({DKV_BLOCKS_PER_SM} expected)")
     nk = TRAIN_S // at.LANE
-    err = kbuild.load("fp8_attention_fwd").attn_fwd_info(nk, info)
-    log(f"fp8_attention_fwd at S={TRAIN_S}: {info[0]} bytes of dynamic shared "
-        f"memory, {info[1]} registers and {info[2]} local (spill) bytes a "
-        f"thread, {info[3]} blocks per SM (cudaError {err})")
-    if err or info[2] or info[3] < 1:
-        failures.append(f"attention forward: cudaError {err}, {info[2]} spill "
-                        f"bytes (0 expected), {info[3]} blocks per SM")
+    for counts in (0, 1):
+        what = " (count variant)" if counts else ""
+        err = kbuild.load("fp8_attention_fwd").attn_fwd_info(nk, counts, info)
+        log(f"fp8_attention_fwd{what} at S={TRAIN_S}: {info[0]} bytes of "
+            f"dynamic shared memory, {info[1]} registers and {info[2]} local "
+            f"(spill) bytes a thread, {info[3]} blocks per SM (cudaError "
+            f"{err})")
+        if err or info[2] or info[3] < 1:
+            failures.append(f"attention forward{what}: cudaError {err}, "
+                            f"{info[2]} spill bytes (0 expected), {info[3]} "
+                            "blocks per SM")
     gemm_info = gemm_variant_info(kbuild.load("fused_quant_matmul"))
     for v in gemm_info:
         log(f"fused_quant_matmul variant {v['name']}: {v['smem']} bytes of "
@@ -3545,6 +3996,8 @@ def main() -> int:
     phase(check_attention_bwd_overflow, dev)
     phase(check_dkv_schedule, dev, dkv_probe)
     attn_rows = phase(time_attention_bwd, dev)
+    phase(check_attention_counts, dev)
+    count_rows = phase(time_attention_counts, dev)
     # The paper's workloads' shapes: kernel 1 at the paper-transformer's
     # M = 2040 projections, and the times of kernel 5 at the ResNet's conv
     # GEMMs and the paper-transformer's projections and of kernels 2-4 at
@@ -3583,6 +4036,9 @@ def main() -> int:
     s2s_paper = phase(train_s2s_paper, dev)
     gc_collect()
     phase(s2s_step_parity, dev)
+    gc_collect()
+    trainer = phase(train_trainer, dev)
+    phase(trainer_resume_parity, dev)
     if failures:
         log(f"{len(failures)} phase(s) failed:\n  " + "\n  ".join(failures))
         return 1
@@ -3618,11 +4074,30 @@ def main() -> int:
          paper["sr_path"]["sr_quantize_onchip"],
          sr_rows["sr_quantize_onchip"]),
     ]
+    # The count variants of kernels 2 and 3 (phase 12, the trainer's main
+    # path, launches them): their rows at the training shape. No PyTorch
+    # call computes the counts: library_ms is null.
+    entries += [
+        ("fp8_attention_fwd_counts", src + "fp8_attention_fwd.cu",
+         pal + "fp8_attention/kernel.py:273",
+         trainer["launches"]["fp8_attention_fwd_counts"],
+         count_rows[0]["fwd"]),
+        ("fp8_attention_bwd_dq_counts", src + "fp8_attention_bwd.cu",
+         pal + "fp8_attention/kernel.py:384",
+         trainer["launches"]["fp8_attention_bwd_dq_counts"],
+         count_rows[0]["dq"])]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
                     launches=n, **{k: row[k] for k in keys})
                for name, source, rep, n, row in entries]
+    for entry, rows in zip(kernels[7:], ("fwd", "dq")):
+        entry["off_ms"] = count_rows[0][rows]["off_ms"]
+        entry["launches_by_path"] = {
+            "qwen2-1.5b trainer (hybrid, track_health, 2 microbatches)":
+                trainer["per_step"][entry["name"]]}
+        entry["other_shapes"] = [dict(r[rows], variant=r["variant"])
+                                 for r in count_rows[1:]]
     # Kernel 3's two variants: the stash one at the training shape (phase
     # 6's launches), the long-span one where the host selects it.
     # The GEMM's tile widths: launches from phase 6 (kernel 1) and phase 8
@@ -3666,14 +4141,16 @@ def main() -> int:
                                   paper["launches"].items()},
              "paper-resnet paper": resnet["launches"],
              "paper-transformer hybrid": s2s_hybrid["launches"],
-             "paper-transformer paper": s2s_paper["launches"]}
+             "paper-transformer paper": s2s_paper["launches"],
+             "qwen2-1.5b trainer (hybrid, track_health, 2 microbatches)":
+                 trainer["per_step"]}
     other = [[dict(r, shape=f"{r['dims']} M={r['m']} K={r['c']} N={r['n']}")
               for r in t5_gemm_rows],
              [r["fwd"] for r in t5_attn_rows],
              [r["dq"] for r in t5_attn_rows],
              [r["dkv"] for r in t5_attn_rows],
              conv_rows + t5_mm_rows, [], []]
-    for entry, rows in zip(kernels, other):
+    for entry, rows in zip(kernels[:7], other):
         name = entry["name"]
         entry["launches_by_path"] = {
             path: sum(v for k, v in counts.items() if k.startswith(name)
@@ -3685,7 +4162,8 @@ def main() -> int:
         f"{paper['tokens_s']:.0f} tokens/s (paper recipe); ResNet "
         f"{resnet['images_s']:.0f} images/s; paper-transformer "
         f"{s2s_hybrid['tokens_s']:.0f} (hybrid) and "
-        f"{s2s_paper['tokens_s']:.0f} (paper) target tokens/s on {card}")
+        f"{s2s_paper['tokens_s']:.0f} (paper) target tokens/s; the trainer "
+        f"{trainer['tokens_s']:.0f} tokens/s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

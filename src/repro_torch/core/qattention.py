@@ -16,6 +16,11 @@ in-kernel #qk.A / #p.A, and the error sites #E (dO), #dp.E, #ds.E.
 The in-kernel SR seed is a uint32 drawn per call from the caller's
 generator (on its device, so it never reaches the host); a config without
 SR needs no generator and uses seed 0.
+
+Under `track_health` (delayed scaling) `fp8_sdpa` runs the count variants
+of the forward and the dQ kernel and records health pairs beside the
+amaxes: q / k / v from their payload bits and S / P from the forward's
+counts; dO from its payload, dP / dS from the dQ kernel's counts.
 """
 from __future__ import annotations
 
@@ -26,8 +31,10 @@ import torch
 from repro_torch.core.fp8_formats import FP8_DTYPES
 from repro_torch.core.precision_policy import (ACT, ERROR, QuantConfig,
                                                dtype_of)
-from repro_torch.core.qlinear import _observe, _quant_operand, kernel_backend
+from repro_torch.core.qlinear import (_health, _observe, _quant_operand,
+                                      _track, kernel_backend)
 from repro_torch.core.quantize import f32
+from repro_torch.obs.counters import counts_to_frac
 from repro_torch.scaling import context as scale_ctx
 
 _ORDER = ("q", "k", "v", "s", "p", "do", "dp", "ds")
@@ -101,17 +108,25 @@ class _FP8SDPA(torch.autograd.Function):
         k8 = _quant_operand(k, ACT, cfg, scales["k"], gen)
         v8 = _quant_operand(v, ACT, cfg, scales["v"], gen)
         seed = _seed(cfg, gen)
-        o, amax_s, amax_p = attn_ops.fp8_attention_fwd(
+        track = _track(cfg)
+        o, amax_s, amax_p, *counts = attn_ops.fp8_attention_fwd(
             q8.data, k8.data, v8.data, seed,
             _fwd_factors(scales["q"], scales["k"], scales["v"], scales["s"],
                          scales["p"], sm_scale),
-            mask_mode=mask_mode, window=window, **_kernel_kwargs(cfg))
+            mask_mode=mask_mode, window=window, with_counts=track,
+            **_kernel_kwargs(cfg))
         if keys is not None and sctx.mode in ("collect", "calibrate"):
             sctx.record(keys["q"], _observe(q8))
             sctx.record(keys["k"], _observe(k8))
             sctx.record(keys["v"], _observe(v8))
             sctx.record(keys["s"], amax_s * float(scales["s"]))
             sctx.record(keys["p"], amax_p * float(scales["p"]))
+            if track:
+                hs, hp = counts_to_frac(counts[0])
+                for n, x in (("q", q8), ("k", k8), ("v", v8)):
+                    sctx.record_health(keys[n], _health(x, cfg, ACT))
+                sctx.record_health(keys["s"], hs)
+                sctx.record_health(keys["p"], hp)
         ctx.save_for_backward(q8.data, k8.data, v8.data)
         ctx.meta = meta
         ctx.seed = seed
@@ -124,15 +139,22 @@ class _FP8SDPA(torch.autograd.Function):
         q8, k8, v8 = ctx.saved_tensors
         cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen = ctx.meta
         qdo = _quant_operand(dy, ERROR, cfg, scales["do"], gen)
-        dq, dk, dv, amax_dp, amax_ds = attn_ops.fp8_attention_bwd(
+        track = _track(cfg)
+        dq, dk, dv, amax_dp, amax_ds, *counts = attn_ops.fp8_attention_bwd(
             q8, k8, v8, qdo.data, ctx.seed, _bwd_factors(scales, sm_scale),
             mask_mode=mask_mode, window=window, fmt_e=cfg.format_for(ERROR),
             rounding_e=cfg.rounding_for(ERROR),
-            saturate_e=cfg.saturate_for(ERROR), **_kernel_kwargs(cfg))
+            saturate_e=cfg.saturate_for(ERROR), with_counts=track,
+            **_kernel_kwargs(cfg))
         if keys is not None and sctx.mode == "collect":
             sctx.record_bwd(keys["do"], _observe(qdo))
             sctx.record_bwd(keys["dp"], amax_dp * float(scales["dp"]))
             sctx.record_bwd(keys["ds"], amax_ds * float(scales["ds"]))
+            if track:
+                hdp, hds = counts_to_frac(counts[0])
+                sctx.record_bwd_health(keys["do"], _health(qdo, cfg, ERROR))
+                sctx.record_bwd_health(keys["dp"], hdp)
+                sctx.record_bwd_health(keys["ds"], hds)
         qd, kd, vd = ctx.dtypes
         return dq.to(qd), dk.to(kd), dv.to(vd), None
 

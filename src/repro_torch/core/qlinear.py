@@ -37,6 +37,12 @@ card (`torch.backends.cuda.matmul.allow_tf32`, off by default).
 Stochastic rounding draws its bits from the `generator` the caller passes
 (the training step's), never from torch's global generator; a config
 that asks for SR raises without one.
+
+Under `track_health` (delayed scaling only, `_track`) the fused path also
+records precision-health pairs beside its amaxes: the operands' from their
+payload bits (`obs.counters.payload_health`), each GEMM output's from
+kernel 1's count epilogue (`with_counts=True`) — forward at #a / #b / #y,
+backward at #E, #G and #da.E.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ from repro_torch.core.precision_policy import (ACT, ERROR, GRAD, WEIGHT,
 from repro_torch.core.quantize import QTensor, fp8_amax_bits, f32
 from repro_torch.core.quantize import dequantize as _dequantize
 from repro_torch.core.quantize import quantize as _quantize
+from repro_torch.obs.counters import payload_health
 from repro_torch.scaling import context as scale_ctx
 
 N_SCALES = 6   # [a, b, E, G, Y, dA_err], the reference's scale layout
@@ -119,18 +126,32 @@ def _fused_epilogue(spec: str, classes: Tuple[str, str],
             and _pallas_matmul_spec(spec))
 
 
+def _track(cfg: QuantConfig) -> bool:
+    """Precision-health counters on? (delayed scaling only: the counters
+    ride the delayed-scaling observations.)"""
+    return cfg.track_health and cfg.delayed
+
+
+def _health(q: QTensor, cfg: QuantConfig, cls: str) -> torch.Tensor:
+    """(sat_frac, flush_frac) of a quantized operand's payload."""
+    return payload_health(q.data, cfg.format_for(cls))
+
+
 def _fused_gemm(x8, w8, sx, sw, s_out, cfg: QuantConfig, out_cls: str,
                 dims: str, generator=None):
     """One fused output-quantizing GEMM: out8 = Q((x8.w8) / (s_out/(sx*sw)))
-    plus the output amax in real units (grid amax * s_out)."""
+    plus the output amax in real units (grid amax * s_out), and the
+    output's (2,) health pair from the kernel's count epilogue under
+    `_track(cfg)` (else None)."""
     from repro_torch.kernels.fused_quant_matmul import ops as fq_ops
     kscale = f32(s_out) / (f32(sx) * f32(sw))
-    out8, amax_grid = fq_ops.fused_quant_matmul(
+    res = fq_ops.fused_quant_matmul(
         x8, w8, kscale, dims=dims, out_format=cfg.format_for(out_cls),
         rounding=cfg.rounding_for(out_cls),
         saturate=cfg.saturate_for(out_cls), generator=generator,
-        with_amax=True)
-    return out8, amax_grid * float(f32(s_out))
+        with_amax=True, with_counts=_track(cfg))
+    health = res[2] if _track(cfg) else None
+    return res[0], res[1] * float(f32(s_out)), health
 
 
 def _fused_dequant(out8: torch.Tensor, s_out, cfg: QuantConfig) -> torch.Tensor:
@@ -183,14 +204,18 @@ class _QEinsum(torch.autograd.Function):
         qa = _quant_operand(a, classes[0], cfg, scales[0], gen)
         qb = _quant_operand(b, classes[1], cfg, scales[1], gen)
         a2 = qa.data.reshape((-1, qa.data.shape[-1]))
-        y8, obs_y = _fused_gemm(a2, qb.data, qa.scale, qb.scale, scales[4],
-                                cfg, ACT, "nn", gen)
+        y8, obs_y, h_y = _fused_gemm(a2, qb.data, qa.scale, qb.scale,
+                                     scales[4], cfg, ACT, "nn", gen)
         y = _fused_dequant(y8, scales[4], cfg).reshape(
             qa.data.shape[:-1] + (qb.data.shape[-1],))
         if keys is not None and sctx.mode in ("collect", "calibrate"):
             sctx.record(keys["a"], _observe(qa))
             sctx.record(keys["b"], _observe(qb))
             sctx.record(fkeys["y"], obs_y)
+            if _track(cfg):
+                sctx.record_health(keys["a"], _health(qa, cfg, classes[0]))
+                sctx.record_health(keys["b"], _health(qb, cfg, classes[1]))
+                sctx.record_health(fkeys["y"], h_y)
         ctx.save_for_backward(qa.data, qb.data)
         ctx.meta = meta
         ctx.qscales = (qa.scale, qb.scale)
@@ -212,28 +237,38 @@ class _QEinsum(torch.autograd.Function):
         s_da = scales[3] if cls_a == GRAD else scales[5]
         s_db = scales[3] if cls_b == GRAD else scales[5]
         # dA = Q(dY . W^T): (M, N) x (K, N) -> (M, K)
-        da8, obs_da = _fused_gemm(dy2, qb_data, qdy.scale, sb, s_da, cfg,
-                                  cls_a, "nt", gen)
+        da8, obs_da, h_da = _fused_gemm(dy2, qb_data, qdy.scale, sb, s_da,
+                                        cfg, cls_a, "nt", gen)
         da = _fused_dequant(da8, s_da, cfg).reshape(qa_data.shape)
         # dW = Q(A^T . dY): (M, K) x (M, N) -> (K, N)
-        db8, obs_db = _fused_gemm(a2, dy2, sa, qdy.scale, s_db, cfg, cls_b,
-                                  "tn", gen)
+        db8, obs_db, h_db = _fused_gemm(a2, dy2, sa, qdy.scale, s_db, cfg,
+                                        cls_b, "tn", gen)
         db = _fused_dequant(db8, s_db, cfg).reshape(qb_data.shape)
         if keys is not None and sctx.mode == "collect":
+            track = _track(cfg)
             zero = torch.zeros((), device=dy.device)
             obs_g, obs_err = zero, zero
+            h_g = torch.zeros(2, device=dy.device) if track else None
+            h_err = None
             if cls_a == GRAD:
                 obs_g = torch.maximum(obs_g, obs_da)
+                h_g = torch.maximum(h_g, h_da) if track else None
             else:
-                obs_err = obs_da
+                obs_err, h_err = obs_da, h_da
             if cls_b == GRAD:
                 obs_g = torch.maximum(obs_g, obs_db)
+                h_g = torch.maximum(h_g, h_db) if track else None
             else:
-                obs_err = obs_db
+                obs_err, h_err = obs_db, h_db
             sctx.record_bwd(keys["E"], _observe(qdy))
             sctx.record_bwd(keys["G"], obs_g)
             if "err" in fkeys:
                 sctx.record_bwd(fkeys["err"], obs_err)
+            if track:
+                sctx.record_bwd_health(keys["E"], _health(qdy, cfg, ERROR))
+                sctx.record_bwd_health(keys["G"], h_g)
+                if "err" in fkeys:
+                    sctx.record_bwd_health(fkeys["err"], h_err)
         return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 

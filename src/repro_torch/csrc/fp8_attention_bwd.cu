@@ -3,7 +3,11 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/fp8_attention/kernel.py::fp8_attention_bwd_kernel
-// — its stats + dQ pallas_call (body _bwd_dq_body, grid (B, H, Q/bq, 4 nk))
+// — its stats + dQ pallas_call (body _bwd_dq_body, grid (B, H, Q/bq, 4 nk);
+// with COUNTS, both dQ variants' template switch, _bwd_dq_body_counts: the
+// saturated / flushed / observed dP8 and dS8 values of each q tile, summed
+// over the block in integers; the dK/dV kernel counts nothing, as in the
+// reference)
 // and its dK/dV pallas_call (body _bwd_dkv_body, grid (B, Hkv, nk, g nq)) —
 // and computes the functions of ref.bwd_q_tile / ref.bwd_tile_dkv_stripe,
 // per 128-column kv block in ascending order:
@@ -166,6 +170,8 @@ struct Args {
   float* rd;
   float* amax_dp;      // (B, H, nq)
   float* amax_ds;
+  int* counts;         // (B, H, nq, 6): dP then dS [saturated, flushed,
+                       // observed] (the dQ kernels' count variants), or null
   float* dk;           // (B, Hkv, S, D)
   float* dv;
   int B, H, Hkv, Q, S, q_len, s_len, causal, window;
@@ -261,6 +267,17 @@ __device__ __forceinline__ void pack_a(uint32_t frag[8][4], int nt,
   frag[ks][hi ? 3 : 1] = fp8::pack_bf16(v[2], v[3]);
 }
 
+// A q tile's counts [dP sat, dP flush, dS sat, dS flush, observed] as
+// its (2, 3) row [dP; dS] x [saturated, flushed, observed].
+__device__ __forceinline__ void write_counts(int* c, const int (&s)[5]) {
+  c[0] = s[0];
+  c[1] = s[1];
+  c[2] = s[4];
+  c[3] = s[2];
+  c[4] = s[3];
+  c[5] = s[4];
+}
+
 __device__ __forceinline__ float warp_sum4(float x) {
   x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -285,6 +302,11 @@ struct SmemDQ {
   float red[2][4];
 };
 
+// COUNTS (both dQ variants): also count the saturated, flushed and
+// observed dP8 and dS8 values of each q tile (the reference counts them in
+// its dQ kernel only); the variant without it is the same code with the
+// counting left out, and both compute the same outputs.
+template <bool COUNTS>
 __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemDQ& sm = *reinterpret_cast<SmemDQ*>(smem_raw);
@@ -311,6 +333,11 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
   float dsafe[2] = {1.f, 1.f};
   float amax_dp = 0.f, amax_ds = 0.f;
+  // Health counts of this thread's observed values: dP saturated,
+  // flushed, dS saturated, flushed, observed.
+  uint32_t cnt[5] = {0u, 0u, 0u, 0u, 0u};
+  const float maxn_e = p.fmt_e == fp8::E4M3 ? 448.f : 57344.f;
+  const float minn_e = p.fmt_e == fp8::E4M3 ? 0.015625f : 6.103515625e-05f;
   const __nv_bfloat16* qw = &sm.q[warp * 16][0];
   const __nv_bfloat16* dow = &sm.dO[warp * 16][0];
 
@@ -399,6 +426,12 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
           if (phase == 2) {
             rsum[hf] = __fadd_rn(rsum[hf], __fmul_rn(s[nt][e], dpd));
             if (obs) amax_dp = fp8::nanmax(amax_dp, fabsf(dpv));
+            if constexpr (COUNTS) {
+              // Saturated: at or past max normal, or not finite.
+              cnt[0] += (obs && !(fabsf(dpv) < maxn_e)) ? 1u : 0u;
+              cnt[1] += (obs && fabsf(dpv) < minn_e) ? 1u : 0u;
+              cnt[4] += obs ? 1u : 0u;
+            }
           } else {
             rnd = p.sr_e ? fp8::hash_bits(seed, SALT_DS, bh, row, col) : 0u;
             const float ds = __fmul_rn(s[nt][e], __fsub_rn(dpd, rd[hf]));
@@ -406,6 +439,10 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
                 fp8::quant(__fmul_rn(ds, p.f_ds), rnd, p.fmt_e, p.sr_e,
                            p.sat_e), p.fmt_e);
             if (obs) amax_ds = fp8::nanmax(amax_ds, fabsf(dsq[e]));
+            if constexpr (COUNTS) {
+              cnt[2] += (obs && !(fabsf(dsq[e]) < maxn_e)) ? 1u : 0u;
+              cnt[3] += (obs && fabsf(dsq[e]) < minn_e) ? 1u : 0u;
+            }
           }
         }
         if (phase == 3) pack_a(dsf, nt, dsq);
@@ -488,6 +525,14 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
     const long long idx = (long long)(b * p.H + h) * gridDim.x + iq;
     p.amax_dp[idx] = a;
     p.amax_ds[idx] = c;
+  }
+  if constexpr (COUNTS) {
+    int sums[5];
+    fp8::block_counts<5, 4>(cnt, reinterpret_cast<uint32_t*>(&sm.kt[0][0]),
+                            sums);
+    if (tid == 0)
+      write_counts(p.counts + ((long long)(b * p.H + h) * gridDim.x + iq) * 6,
+                   sums);
   }
 }
 
@@ -606,6 +651,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #endif
 
 
+template <bool COUNTS>
 __global__ void __launch_bounds__(128, 2)
     attn_bwd_dq_kernel_stash(Args p, QConsts qc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -675,6 +721,11 @@ __global__ void __launch_bounds__(128, 2)
   // instruction cache.
   float m[2] = {-1e30f, -1e30f};
   float amax_dp = 0.f, amax_ds = 0.f;
+  // Health counts of this thread's observed values: dP saturated,
+  // flushed, dS saturated, flushed, observed.
+  uint32_t cnt[5] = {0u, 0u, 0u, 0u, 0u};
+  const uint32_t sat_e = fp8::sat_bits(p.fmt_e);
+  const uint32_t flush_e = fp8::flush_bits(p.fmt_e);
   for (int j = jmin; j <= jmax; ++j) {
     const int jl = j - jmin;
     __syncthreads();  // the tile's previous contents consumed
@@ -747,6 +798,10 @@ __global__ void __launch_bounds__(128, 2)
             amax_dp = obs ? fp8::nanmax(amax_dp,
                                         fabsf(byte_to_f32(q8, p.fmt_e)))
                           : amax_dp;
+            if constexpr (COUNTS) {
+              fp8::count_health(q8, obs, sat_e, flush_e, cnt);
+              cnt[4] += obs ? 1u : 0u;
+            }
           }
           dp8w[(jl * 16 + nt) * 128 + tid] = word;
         }
@@ -850,13 +905,14 @@ __global__ void __launch_bounds__(128, 2)
             const float ds = __fmul_rn(
                 __fmul_rn(pv[e], p.s_p),
                 __fsub_rn(__fmul_rn(dpv[e], p.s_dp), rd[hf]));
-            dsq[n][e] = byte_to_f32(
-                quant_bf<decltype(sr)::value>(
-                    __fmul_rn(ds, p.f_ds),
-                    decltype(sr)::value ? hash_col(hds[hf], col) : 0u, qc.e),
-                p.fmt_e);
+            const uint32_t d8 = quant_bf<decltype(sr)::value>(
+                __fmul_rn(ds, p.f_ds),
+                decltype(sr)::value ? hash_col(hds[hf], col) : 0u, qc.e);
+            dsq[n][e] = byte_to_f32(d8, p.fmt_e);
             const bool obs = col >= lo[hf] && col <= hi_obs[hf];
             amax_ds = obs ? fp8::nanmax(amax_ds, fabsf(dsq[n][e])) : amax_ds;
+            if constexpr (COUNTS)
+              fp8::count_health(d8, obs, sat_e, flush_e, cnt + 2);
           }
         }
         const uint32_t a[4] = {fp8::pack_bf16(dsq[0][0], dsq[0][1]),
@@ -918,6 +974,14 @@ __global__ void __launch_bounds__(128, 2)
     const long long idx = (long long)(b * p.H + h) * gridDim.z + iq;
     p.amax_dp[idx] = a;
     p.amax_ds[idx] = c;
+  }
+  if constexpr (COUNTS) {
+    // The tile is free from here on: its words hold the block's sums.
+    int sums[5];
+    fp8::block_counts<5, 4>(cnt, reinterpret_cast<uint32_t*>(tile), sums);
+    if (tid == 0)
+      write_counts(p.counts + ((long long)(b * p.H + h) * gridDim.z + iq) * 6,
+                   sums);
   }
 #ifdef DQ_PROBE
   const unsigned bid = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
@@ -1382,8 +1446,9 @@ cudaError_t dkv_prepare() {
 Args make_args(const void* q, const void* k, const void* v, const void* dO,
                const void* seed, void* dq, void* m, void* l, void* rd,
                void* amax_dp, void* amax_ds, void* dk, void* dv, const int* iv,
-               const float* fv) {
+               const float* fv, void* counts = nullptr) {
   Args p;
+  p.counts = static_cast<int*>(counts);
   p.q = static_cast<const uint8_t*>(q);
   p.k = static_cast<const uint8_t*>(k);
   p.v = static_cast<const uint8_t*>(v);
@@ -1425,14 +1490,56 @@ int span_blocks(const Args& p) {
 
 int stash_smem_bytes(int blocks) { return TILE_BYTES + 32 + blocks * 2 * STASH_WORDS * 4; }
 
+template <bool COUNTS>
 cudaError_t stash_prepare(int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel_stash, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      attn_bwd_dq_kernel_stash<COUNTS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(attn_bwd_dq_kernel_stash,
+  return cudaFuncSetAttribute(attn_bwd_dq_kernel_stash<COUNTS>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+template <bool COUNTS>
+int dq_launch(const Args& p, cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(SmemDQ));
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_kernel<COUNTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.Q + BQ - 1) / BQ, p.H, p.B);
+  attn_bwd_dq_kernel<COUNTS><<<grid, 128, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool COUNTS>
+int stash_launch(const Args& p, int smem, cudaStream_t st) {
+  cudaError_t err = stash_prepare<COUNTS>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const QConsts qc{make_qconst(p.fmt_s, p.sat_s), make_qconst(p.fmt_p, p.sat_p),
+                   make_qconst(p.fmt_e, p.sat_e)};
+  dim3 grid(p.H, p.B, (p.Q + BQ - 1) / BQ);
+  attn_bwd_dq_kernel_stash<COUNTS><<<grid, 128, smem, st>>>(p, qc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool COUNTS>
+int stash_info(int blocks, int* out) {
+  const int smem = stash_smem_bytes(blocks);
+  cudaError_t err = stash_prepare<COUNTS>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, attn_bwd_dq_kernel_stash<COUNTS>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, attn_bwd_dq_kernel_stash<COUNTS>, 128, smem);
+  out[0] = smem;
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = resident;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1446,21 +1553,17 @@ extern "C" int attn_bwd_dq_smem_bytes() { return static_cast<int>(sizeof(SmemDQ)
 // and S a multiple of 128 (the wrapper pads). Return cudaGetLastError().
 
 // Kernel 1, long-span variant: grid (ceil(Q/64), H, B). Writes dq, m, l,
-// rd, amax_dp/ds.
+// rd, amax_dp/ds, and with a non-null `counts` (the count variant) the
+// (B, H, ceil(Q/64), 6) int32 dP / dS counts.
 extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dO, const void* seed, void* dq,
                                   void* m, void* l, void* rd, void* amax_dp,
-                                  void* amax_ds, const int* iv,
+                                  void* amax_ds, void* counts, const int* iv,
                                   const float* fv, void* stream) {
   Args p = make_args(q, k, v, dO, seed, dq, m, l, rd, amax_dp, amax_ds,
-                     nullptr, nullptr, iv, fv);
-  const int smem = static_cast<int>(sizeof(SmemDQ));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Q + BQ - 1) / BQ, p.H, p.B);
-  attn_bwd_dq_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                     nullptr, nullptr, iv, fv, counts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return counts ? dq_launch<true>(p, st) : dq_launch<false>(p, st);
 }
 
 // Kernel 2: grid (H, B, S/64) of attn_bwd_dkv_kernel_head, then, for a
@@ -1527,42 +1630,26 @@ extern "C" int attn_bwd_dq_stash_launch(const void* q, const void* k,
                                         const void* v, const void* dO,
                                         const void* seed, void* dq, void* m,
                                         void* l, void* rd, void* amax_dp,
-                                        void* amax_ds, const int* iv,
-                                        const float* fv, void* stream) {
+                                        void* amax_ds, void* counts,
+                                        const int* iv, const float* fv,
+                                        void* stream) {
   Args p = make_args(q, k, v, dO, seed, dq, m, l, rd, amax_dp, amax_ds,
-                     nullptr, nullptr, iv, fv);
+                     nullptr, nullptr, iv, fv, counts);
   const int blocks = span_blocks(p);
   if (blocks < 1 || blocks > STASH_BLOCKS)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = stash_smem_bytes(blocks);
-  cudaError_t err = stash_prepare(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const QConsts qc{make_qconst(p.fmt_s, p.sat_s), make_qconst(p.fmt_p, p.sat_p),
-                   make_qconst(p.fmt_e, p.sat_e)};
-  dim3 grid(p.H, p.B, (p.Q + BQ - 1) / BQ);
-  attn_bwd_dq_kernel_stash<<<grid, 128, smem,
-                             static_cast<cudaStream_t>(stream)>>>(p, qc);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return counts ? stash_launch<true>(p, smem, st)
+                : stash_launch<false>(p, smem, st);
 }
 
-// The stash variant at a span of `blocks` kv blocks: out = {dynamic shared
-// memory bytes, registers a thread, local (spill) bytes a thread, blocks
-// resident per SM}. Returns a cudaError_t.
-extern "C" int attn_bwd_dq_stash_info(int blocks, int* out) {
-  const int smem = stash_smem_bytes(blocks);
-  cudaError_t err = stash_prepare(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, attn_bwd_dq_kernel_stash);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int resident = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, attn_bwd_dq_kernel_stash, 128, smem);
-  out[0] = smem;
-  out[1] = a.numRegs;
-  out[2] = static_cast<int>(a.localSizeBytes);
-  out[3] = resident;
-  return static_cast<int>(err);
+// The stash variant (its count variant if `counts`) at a span of `blocks`
+// kv blocks: out = {dynamic shared memory bytes, registers a thread, local
+// (spill) bytes a thread, blocks resident per SM}. Returns a cudaError_t.
+extern "C" int attn_bwd_dq_stash_info(int blocks, int counts, int* out) {
+  return counts ? stash_info<true>(blocks, out)
+                : stash_info<false>(blocks, out);
 }
 
 #ifdef DQ_PROBE

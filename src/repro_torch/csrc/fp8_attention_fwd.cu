@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/fp8_attention/kernel.py::fp8_attention_fwd_kernel
-//   (bodies _fwd_body, _masked_none_fwd, _fwd_body_chunk)
+//   (bodies _fwd_body, _masked_none_fwd, _fwd_body_chunk, and with
+//   attn_fwd_kernel<true> the count variant _fwd_body_counts)
 // and computes the same function, ref.fwd_stripe_online per 128-column
 // block in ascending order:
 //   S8 = Q_A((q8 . k8^T) * f_s);  x = valid ? S8 * s_s : -1e30
@@ -57,6 +58,16 @@
 //    call).
 // Shared memory: Q, K and V f16 tiles (96 KB), the ring (65 KB), the stash
 // (16 KB), column keys and the live-block list: one block of 8 warps an SM.
+//
+// The count variant (COUNTS, the template switch; the wrapper's
+// with_counts) also counts, per q tile, the observed S8 and E8 values
+// that saturate (|q| >= max normal, or not finite) or flush (|q| < min
+// normal) and the observed ones (valid columns of rows < Q): per
+// fragment word, by byte-wise compares of the four magnitudes and a
+// population count, then summed over the block in integers (no atomics:
+// the counts do not depend on the order). The variant without it is the
+// same code with the counting left out, and o and the amaxes do not
+// depend on the switch.
 //
 // What bounds it (H100 SXM, 700 W; chip_smoke.py and
 // kernels/fp8_attention/probe.py --fwd): the per-score epilogue, about 110
@@ -133,6 +144,8 @@ struct Args {
   __nv_bfloat16* o;   // (B, H, Q, D)
   float* amax_s;      // (B, H, nq)
   float* amax_p;
+  int* counts;        // (B, H, nq, 6): S then P [saturated, flushed,
+                      // observed] (with_counts), or null
   int B, H, Hkv, Q, S, s_len, mask, window;
   int q_fmt, k_fmt, v_fmt, fmt_s, fmt_p, sr_s, sr_p, sat_s, sat_p;
   float f_s, s_s, f_p, f_o;
@@ -211,6 +224,11 @@ __device__ __forceinline__ void with_qnode(int sr, int sat, int fmt, bool up,
   });
 }
 
+// COUNTS: the count variant (the reference's _fwd_body_counts) also
+// counts the saturated, flushed and observed S8 and E8 values of each q
+// tile, next to the amaxes; the variant without it is the same code with
+// the counting left out, and both compute the same o and amaxes.
+template <bool COUNTS>
 __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -343,6 +361,10 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
   // inf and NaN above every finite one, so the largest byte decodes to
   // the NaN-propagating max of |S8| (|E8|) over the valid scores.
   uint32_t mag_s = 0, mag_p = 0;
+  // Health counts of this thread's observed scores, in bits (8 a score,
+  // a word's four bytes counted at once): S saturated, flushed, observed,
+  // P saturated, flushed.
+  uint32_t cnt[5] = {0u, 0u, 0u, 0u, 0u};
   const int2* ck2 = reinterpret_cast<const int2*>(ck);
   const uint32_t sq = sbase + QH + wg * 64 * 128;
   const uint32_t sk = sbase + KH, sv = sbase + VH;
@@ -401,7 +423,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
           for (int f = 0; f < NCH / 8; ++f) {
             const int nt = c * (NCH / 8) + f;
             const int2 key = ck2[nt * 4 + t];
-            uint32_t word = 0;
+            uint32_t word = 0, okw = 0;
 #pragma unroll
             for (int e = 0; e < NE; ++e) {
               const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
@@ -412,10 +434,14 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
               const int kv = (e & 1) ? key.y : key.x;
               const bool ok = kv >= lo[hf] && kv <= hi[hf];
               mag_s = max(mag_s, ok ? (q8 & 0x7Fu) : 0u);
+              if constexpr (COUNTS) okw |= ok ? 0xFFu << (8 * e) : 0u;
               const float v = byte_to_f32(q8, QN::FMT);
               mx[hf] = fp8::nanmax(mx[hf], ok ? __fmul_rn(v, p.s_s) : -1e30f);
             }
             stash[nt * THREADS + tid] = word;
+            if constexpr (COUNTS)
+              fp8::count_word<true>(word, okw, fp8::sat_bits(QN::FMT),
+                                    fp8::flush_bits(QN::FMT), cnt);
           }
         }
         FWD_TICK(P_SEPI)
@@ -450,7 +476,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
             const int2 key = ck2[nt * 4 + t];
             float sv8[4];
             word_to_f32(stash[nt * THREADS + tid], p.fmt_s, sv8);
-            uint32_t word = 0;
+            uint32_t word = 0, okw = 0;
 #pragma unroll
             for (int e = 0; e < NE; ++e) {
               const int hf = e >> 1, col = j * LANE + nt * 8 + 2 * t + (e & 1);
@@ -465,8 +491,12 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
                   QN::SR ? hash_col(hp[hf], col) : 0u, qc);
               word |= p8 << (8 * e);
               mag_p = max(mag_p, ok ? (p8 & 0x7Fu) : 0u);
+              if constexpr (COUNTS) okw |= ok ? 0xFFu << (8 * e) : 0u;
             }
             stash[nt * THREADS + tid] = word;
+            if constexpr (COUNTS)
+              fp8::count_word<false>(word, okw, fp8::sat_bits(QN::FMT),
+                                     fp8::flush_bits(QN::FMT), cnt + 3);
           }
         }
       });
@@ -555,6 +585,20 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
     p.amax_s[idx] = byte_to_f32(mag_s, p.fmt_s);
     p.amax_p[idx] = byte_to_f32(mag_p, p.fmt_p);
   }
+  if constexpr (COUNTS) {
+    // The stash is free from here on: its words hold the block's sums.
+    int sums[5];
+    fp8::block_counts<5, THREADS / 32>(cnt, stash, sums);
+    if (tid == 0) {
+      int* c = p.counts + ((long long)(b * p.H + h) * gridDim.z + iq) * 6;
+      c[0] = sums[0] / 8;
+      c[1] = sums[1] / 8;
+      c[2] = sums[2] / 8;
+      c[3] = sums[3] / 8;
+      c[4] = sums[4] / 8;
+      c[5] = sums[2] / 8;
+    }
+  }
 #ifdef FWD_PROBE
   FWD_TICK(P_STORE)
   const int bid =
@@ -579,26 +623,24 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
 #endif
 }
 
+template <bool COUNTS>
 cudaError_t prepare(int smem) {
-  return cudaFuncSetAttribute(
-      attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return cudaFuncSetAttribute(attn_fwd_kernel<COUNTS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
 }
 
-}  // namespace
-
-// The kernel at nk kv blocks: out = {dynamic shared memory bytes,
-// registers a thread, local (spill) bytes a thread, blocks resident per
-// SM}. Returns a cudaError_t.
-extern "C" int attn_fwd_info(int nk, int* out) {
+template <bool COUNTS>
+int info(int nk, int* out) {
   const int smem = smem_bytes(nk);
-  cudaError_t err = prepare(smem);
+  cudaError_t err = prepare<COUNTS>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, attn_fwd_kernel);
+  err = cudaFuncGetAttributes(&a, attn_fwd_kernel<COUNTS>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int resident = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, attn_fwd_kernel, THREADS, smem);
+      &resident, attn_fwd_kernel<COUNTS>, THREADS, smem);
   out[0] = smem;
   out[1] = a.numRegs;
   out[2] = static_cast<int>(a.localSizeBytes);
@@ -606,29 +648,47 @@ extern "C" int attn_fwd_info(int nk, int* out) {
   return static_cast<int>(err);
 }
 
+template <bool COUNTS>
+int launch(const Args& p, int B, int H, int Q, int S, cudaStream_t stream) {
+  const int smem = smem_bytes(S / LANE);
+  cudaError_t err = prepare<COUNTS>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(H, B, (Q + BQ - 1) / BQ);
+  attn_fwd_kernel<COUNTS><<<grid, THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The kernel at nk kv blocks, the count variant if `counts`: out =
+// {dynamic shared memory bytes, registers a thread, local (spill) bytes a
+// thread, blocks resident per SM}. Returns a cudaError_t.
+extern "C" int attn_fwd_info(int nk, int counts, int* out) {
+  return counts ? info<true>(nk, out) : info<false>(nk, out);
+}
+
 // Launch on `stream`: grid (H, B, ceil(Q/128)), 256 threads, ~178 KB of
 // dynamic shared memory at S = 512. D must be 128 and S a multiple of 128
-// (the wrapper pads). Returns cudaGetLastError().
+// (the wrapper pads). A non-null `counts` launches the count variant.
+// Returns cudaGetLastError().
 extern "C" int attn_fwd_launch(
     const void* q, const void* k, const void* v, const int* kvm,
-    const int* chunk, void* o, float* amax_s, float* amax_p, int B, int H,
+    const int* chunk, void* o, float* amax_s, float* amax_p, int* counts,
+    int B, int H,
     int Hkv, int Q, int S, int s_len, int mask, int window,
     int q_fmt, int k_fmt, int v_fmt, int fmt_s, int fmt_p, int sr_s, int sr_p,
     int sat_s, int sat_p, float f_s, float s_s, float f_p, float f_o,
     const void* seed, void* stream) {
   Args p{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), kvm, chunk,
-         static_cast<__nv_bfloat16*>(o), amax_s, amax_p, B, H, Hkv, Q, S,
+         static_cast<__nv_bfloat16*>(o), amax_s, amax_p, counts, B, H, Hkv,
+         Q, S,
          s_len, mask, window, q_fmt, k_fmt, v_fmt, fmt_s, fmt_p, sr_s,
          sr_p, sat_s, sat_p, f_s, s_s, f_p, f_o,
          static_cast<const uint32_t*>(seed)};
-  const int smem = smem_bytes(S / LANE);
-  cudaError_t err = prepare(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(H, B, (Q + BQ - 1) / BQ);
-  attn_fwd_kernel<<<grid, THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return counts ? launch<true>(p, B, H, Q, S, st)
+                : launch<false>(p, B, H, Q, S, st);
 }
 
 #ifdef FWD_PROBE

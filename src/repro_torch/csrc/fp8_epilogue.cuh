@@ -215,4 +215,64 @@ __device__ __forceinline__ float div_rn(float a, float b) {
   return mul_rcp(a, rcp_rn(b));
 }
 
+// Precision-health counts of quantized bytes (the reference's
+// ref._health_counts), by the magnitude bits, which order like the
+// values: saturated at or above the max-normal pattern (inf and NaN lie
+// above it), flushed below the min-normal pattern (zeros and subnormals).
+__host__ __device__ constexpr uint32_t sat_bits(int fmt) {
+  return fmt == E4M3 ? 0x7Eu : 0x7Bu;
+}
+
+__host__ __device__ constexpr uint32_t flush_bits(int fmt) {
+  return fmt == E4M3 ? 0x08u : 0x04u;
+}
+
+// Adds byte q8's [saturated, flushed] to c[0], c[1] where it is observed.
+__device__ __forceinline__ void count_health(uint32_t q8, bool obs,
+                                             uint32_t sat, uint32_t flush,
+                                             uint32_t* c) {
+  const uint32_t mag = q8 & 0x7Fu;
+  c[0] += (obs && mag >= sat) ? 1u : 0u;
+  c[1] += (obs && mag < flush) ? 1u : 0u;
+}
+
+// The same for the four bytes of a word at once: `okw` holds 0xFF in each
+// byte whose value is observed. Adds 8 a value to c[0] (saturated), c[1]
+// (flushed) and, with OBS, c[2] (observed): counts in bits, which the
+// caller divides by 8.
+template <bool OBS>
+__device__ __forceinline__ void count_word(uint32_t w, uint32_t okw,
+                                           uint32_t sat, uint32_t flush,
+                                           uint32_t* c) {
+  const uint32_t mag = w & 0x7F7F7F7Fu;
+  c[0] += __popc(__vcmpgeu4(mag, sat * 0x01010101u) & okw);
+  c[1] += __popc(__vcmpltu4(mag, flush * 0x01010101u) & okw);
+  if constexpr (OBS) c[2] += __popc(okw);
+}
+
+// A block's per-thread counts c[0..N) summed into out[0..N) by thread 0,
+// through WARPS * N words of shared `scratch` that no thread reads or
+// writes from the call on. Every thread of the block calls it. Integer
+// sums: the result does not depend on the order.
+template <int N, int WARPS>
+__device__ __forceinline__ void block_counts(const uint32_t (&c)[N],
+                                             uint32_t* scratch, int* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // every thread is done with the scratch's old contents
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint32_t s = __reduce_add_sync(0xffffffffu, c[k]);
+    if (lane == 0) scratch[k * WARPS + warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      uint32_t s = 0;
+      for (int w = 0; w < WARPS; ++w) s += scratch[k * WARPS + w];
+      out[k] = static_cast<int>(s);
+    }
+  }
+}
+
 }  // namespace fp8

@@ -9,12 +9,22 @@ attended region) out.
 of `repro.kernels.fp8_attention.ops.fp8_attention_bwd`: dq / dk / dv in
 f32 plus the scalar dP / dS amaxes.
 
+`with_counts=True` (training masks) runs the count variants of the forward
+and of the dQ kernel (the reference's `_fwd_body_counts` and
+`_bwd_dq_body_counts`) and also returns the precision-health counts of the
+in-kernel quantized S / P (forward) or dP / dS (backward) values: a (2, 3)
+int64 tensor, one row per tensor, [saturated, flushed, observed] over the
+attended region. The dK/dV kernel counts nothing (it recomputes the dQ
+kernel's dP / dS), as in the reference. Counting leaves every other output
+bit for bit as it is.
+
 Dispatch: CPU tensors take the plain versions (ref.py); CUDA tensors launch
 the hand-written Hopper kernels (csrc/fp8_attention_fwd.cu,
 csrc/fp8_attention_bwd.cu) or raise. `fp8_attention_fwd.launches`,
 `fp8_attention_bwd_dq.launches` and `fp8_attention_bwd_dkv.launches`
 count the launches of the three kernels (the forward's also by mask,
-`launches_by_mask`; the dQ kernel's also by variant,
+`launches_by_mask`; the forward's and the dQ kernel's count variants also
+in `launches_with_counts`; the dQ kernel's also by variant,
 `launches_by_variant`: 'stash' for spans of up to STASH_BLOCKS kv blocks,
 'long' past them, chosen by `dq_variant`). `fwd_tile_order`,
 `fwd_live_blocks` and `fwd_dead_warps` state the forward kernel's
@@ -45,7 +55,7 @@ LANE = _ref.LANE
 HEAD_DIM = 128
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _MASK_ID = {"causal": 0, "full": 1, "kv": 2, "chunk": 3}
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 17
              + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
 
 
@@ -151,10 +161,12 @@ def fwd_live_blocks(iq: int, b: int, *, q_rows: int, s_len: int,
 
 def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
             s_len, fmt_s, fmt_p, rounding_s, rounding_p, saturate_s,
-            saturate_p, lib=None):
+            saturate_p, lib=None, counts=False):
     """Kernel 2 on padded CUDA payloads (D = 128, S a multiple of 128),
     through `lib` (a probe build) or the package's library. Returns (o,
-    amaxes (2, B, H, tiles): the S and P amax of each query tile)."""
+    amaxes (2, B, H, tiles): the S and P amax of each query tile), and with
+    `counts` (the count variant) also the (B, H, tiles, 2, 3) int32 S / P
+    [saturated, flushed, observed] counts of each query tile."""
     b_, h_, q_rows, d = q8.shape
     hkv, s_pad = k8.shape[1], k8.shape[2]
     if d != HEAD_DIM or s_pad % LANE:
@@ -165,6 +177,8 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
     amax = torch.empty((2, b_, h_, nq), dtype=torch.float32, device=dev)
     amax_s = amax.data_ptr()
     amax_p = amax_s + 4 * b_ * h_ * nq
+    cnt = (torch.empty((b_, h_, nq, 2, 3), dtype=torch.int32, device=dev)
+           if counts else None)
     fn = (lib or _build.load("fp8_attention_fwd")).attn_fwd_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -174,6 +188,7 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
              kvm.data_ptr() if kvm is not None else None,
              chunk_pos.data_ptr() if chunk_pos is not None else None,
              o.data_ptr(), amax_s, amax_p,
+             cnt.data_ptr() if cnt is not None else None,
              b_, h_, hkv, q_rows, s_pad, s_len, _MASK_ID[mask_mode],
              window, _FMT_ID[format_of_dtype(q8.dtype).name],
              _FMT_ID[format_of_dtype(k8.dtype).name],
@@ -184,6 +199,9 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
     _build.check(err, "fp8_attention_fwd")
     fp8_attention_fwd.launches += 1
     fp8_attention_fwd.launches_by_mask[mask_mode] += 1
+    fp8_attention_fwd.launches_with_counts += int(counts)
+    if counts:
+        return o, amax, cnt
     return o, amax
 
 
@@ -191,7 +209,8 @@ def _fwd_cuda(q8, k8, v8, seed, scal, *, mask_mode, window, kv_mask,
               chunk_pos, lib=None, **kw):
     """Kernel 2 on CUDA payloads of the wrapper's arguments, padded to
     D = 128 and S a multiple of 128, through `lib` (a probe build) or the
-    package's library. Returns _launch's (o, per-tile amaxes)."""
+    package's library. Returns _launch's (o, per-tile amaxes[, per-tile
+    counts])."""
     s_len = k8.shape[2]
     qp = aligned(_pad_bytes(q8.contiguous(), 3, HEAD_DIM))
     kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
@@ -214,7 +233,8 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       window: int = 0, kv_mask=None, chunk_pos=None,
                       fmt_s: str = "e5m2", fmt_p: str = "e5m2",
                       rounding_s: str = "sr", rounding_p: str = "sr",
-                      saturate_s: bool = True, saturate_p: bool = True):
+                      saturate_s: bool = True, saturate_p: bool = True,
+                      with_counts: bool = False):
     """Fused FP8 attention forward on logical payloads.
 
     q8 (B,H,Q,D); k8/v8 (B,Hkv,S,D), any fp8 dtypes; seed: int or integer
@@ -222,9 +242,14 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     scal: 4 host f32 [f_s, s_s, f_p, f_o]. kv_mask (B,S): validity for
     mask_mode='kv', int slot positions (-1 = hole) for 'chunk', which also
     takes chunk_pos (B,2) int [start, n_valid]. Returns (o (B,H,Q,D) bf16,
-    amax_s, amax_p) with 0-d f32 amaxes in grid units."""
+    amax_s, amax_p) with 0-d f32 amaxes in grid units; with_counts=True
+    (training masks only) also the (2, 3) int64 S / P counts (module
+    docstring)."""
     if mask_mode not in _MASK_ID:
         raise ValueError(f"unknown mask mode {mask_mode!r}")
+    if with_counts and mask_mode not in ("causal", "full"):
+        raise ValueError("with_counts supports the training masks "
+                         f"(causal/full), not {mask_mode!r}")
     for x in (q8, k8, v8):
         if x.dtype not in FP8_DTYPES or x.dim() != 4:
             raise TypeError(f"fp8 (B,H,S,D) payloads required, got {x.dtype} "
@@ -248,31 +273,42 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if dev == "cpu":
         return _ref.fp8_attention_fwd_ref(
             q8, k8, v8, seed, scal, mask_mode=mask_mode, window=window,
-            kv_mask=kv_mask, chunk_pos=chunk_pos, **kw)
+            kv_mask=kv_mask, chunk_pos=chunk_pos, with_counts=with_counts,
+            **kw)
     if dev != "cuda":
         raise ValueError(f"fp8_attention_fwd: unsupported device {q8.device}")
     if d > HEAD_DIM:
         raise ValueError(f"head dim {d} > {HEAD_DIM} is not supported")
-    o, amax = _fwd_cuda(q8, k8, v8, seed, scal, mask_mode=mask_mode,
-                        window=window, kv_mask=kv_mask, chunk_pos=chunk_pos,
-                        **kw)
+    out = _fwd_cuda(q8, k8, v8, seed, scal, mask_mode=mask_mode,
+                    window=window, kv_mask=kv_mask, chunk_pos=chunk_pos,
+                    counts=with_counts, **kw)
+    o, amax = out[:2]
     if d != HEAD_DIM:
         o = o[..., :d].contiguous()
     amax = torch.amax(amax.view(2, -1), dim=1)
+    if with_counts:
+        return o, amax[0], amax[1], tile_counts(out[2])
     return o, amax[0], amax[1]
+
+
+def tile_counts(per_tile: torch.Tensor) -> torch.Tensor:
+    """A kernel's per-tile (..., 2, 3) counts summed into the (2, 3)
+    int64 totals (integer sums: the order does not matter)."""
+    return per_tile.reshape(-1, 2, 3).sum(dim=0, dtype=torch.int64)
 
 
 fp8_attention_fwd.launches = 0
 fp8_attention_fwd.launches_by_mask = dict.fromkeys(_MASK_ID, 0)
+fp8_attention_fwd.launches_with_counts = 0
 
 
 # ---------------------------------------------------------------------------
 # backward: the dQ kernel and the dK/dV kernel (csrc/fp8_attention_bwd.cu)
 # ---------------------------------------------------------------------------
 
-_BWD_DQ_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int),
-                                              ctypes.POINTER(ctypes.c_float),
-                                              ctypes.c_void_p]
+_BWD_DQ_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_int),
+                                               ctypes.POINTER(ctypes.c_float),
+                                               ctypes.c_void_p]
 _BWD_DKV_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int),
                                                ctypes.POINTER(ctypes.c_float),
                                                ctypes.c_void_p]
@@ -329,10 +365,13 @@ def dq_variant(q_rows: int, s_pad: int, mask_mode: str,
         <= STASH_BLOCKS else "long"
 
 
-def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None, **kw):
+def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None,
+                         counts=False, **kw):
     """Kernel 1 of the backward on padded CUDA payloads (D = 128, S a
     multiple of 128): returns (dq (B,H,Q,D) f32, m, l, rd (B,H,Q) f32,
-    amax_dp, amax_ds (B,H,ceil(Q/64)) f32 per q tile). `kw`: mask_mode,
+    amax_dp, amax_ds (B,H,ceil(Q/64)) f32 per q tile), and with `counts`
+    (the count variant) also the (B,H,ceil(Q/64),2,3) int32 dP / dS
+    [saturated, flushed, observed] counts per q tile. `kw`: mask_mode,
     window, q_len, s_len and the S/P/E format, rounding, saturate knobs.
     `variant` ('stash' / 'long') overrides `dq_variant`, for holding the
     two variants against each other; both compute the same function."""
@@ -349,6 +388,8 @@ def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None, **kw):
     nq = -(-q_rows // 64)
     amax_dp, amax_ds = (torch.empty((b_, h_, nq), dtype=torch.float32,
                                     device=dev) for _ in range(2))
+    cnt = (torch.empty((b_, h_, nq, 2, 3), dtype=torch.int32, device=dev)
+           if counts else None)
     seed_t = seed_tensor(seed, dev)
     lib = _build.load("fp8_attention_bwd")
     fn = {"stash": lib.attn_bwd_dq_stash_launch,
@@ -357,11 +398,15 @@ def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None, **kw):
     fn.restype = ctypes.c_int
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
              seed_t.data_ptr(), dq.data_ptr(), m.data_ptr(), l.data_ptr(),
-             rd.data_ptr(), amax_dp.data_ptr(), amax_ds.data_ptr(), iv, fv,
+             rd.data_ptr(), amax_dp.data_ptr(), amax_ds.data_ptr(),
+             cnt.data_ptr() if cnt is not None else None, iv, fv,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"fp8_attention_bwd_dq ({variant})")
     fp8_attention_bwd_dq.launches += 1
     fp8_attention_bwd_dq.launches_by_variant[variant] += 1
+    fp8_attention_bwd_dq.launches_with_counts += int(counts)
+    if counts:
+        return dq, m, l, rd, amax_dp, amax_ds, cnt
     return dq, m, l, rd, amax_dp, amax_ds
 
 
@@ -427,6 +472,7 @@ def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, lib=None,
 
 fp8_attention_bwd_dq.launches = 0
 fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
+fp8_attention_bwd_dq.launches_with_counts = 0
 fp8_attention_bwd_dkv.launches = 0
 
 
@@ -437,14 +483,15 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       fmt_e: str = "e5m2", rounding_s: str = "sr",
                       rounding_p: str = "sr", rounding_e: str = "sr",
                       saturate_s: bool = True, saturate_p: bool = True,
-                      saturate_e: bool = False):
+                      saturate_e: bool = False, with_counts: bool = False):
     """Fused FP8 attention backward (training masks 'causal' / 'full').
 
     q8/do8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads (do8: the
     error-quantized output cotangent); seed: int or integer tensor (the
     forward's); scal: 10 host f32 [f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds,
     f_dq, f_dk, f_dv]. Returns (dq (B,H,Q,D), dk, dv (B,Hkv,S,D) f32,
-    amax_dp, amax_ds) with 0-d f32 amaxes in grid units.
+    amax_dp, amax_ds) with 0-d f32 amaxes in grid units; with_counts=True
+    also the (2, 3) int64 dP / dS counts (module docstring).
 
     CPU tensors take the plain version (ref.py); CUDA tensors run the dQ
     kernel, then the dK/dV kernel (each counts its launches), or raise.
@@ -473,7 +520,8 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
               saturate_p=saturate_p, saturate_e=saturate_e)
     dev = q8.device.type
     if dev == "cpu":
-        return _ref.fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, **kw)
+        return _ref.fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal,
+                                          with_counts=with_counts, **kw)
     if dev != "cuda":
         raise ValueError(f"fp8_attention_bwd: unsupported device {q8.device}")
     if d > HEAD_DIM:
@@ -483,8 +531,8 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
     vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, HEAD_DIM), 2, LANE))
     kw.update(q_len=q_rows, s_len=s_len)
-    dq, m, l, rd, amax_dp, amax_ds = fp8_attention_bwd_dq(
-        qp, kp, vp, dop, seed, scal, **kw)
+    dq, m, l, rd, amax_dp, amax_ds, *cnt = fp8_attention_bwd_dq(
+        qp, kp, vp, dop, seed, scal, counts=with_counts, **kw)
     dk, dv = fp8_attention_bwd_dkv(qp, kp, vp, dop, seed, scal, m, l, rd,
                                    **kw)
     if d != HEAD_DIM:
@@ -492,13 +540,16 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if d != HEAD_DIM or kp.shape[2] != s_len:
         dk = dk[:, :, :s_len, :d].contiguous()
         dv = dv[:, :, :s_len, :d].contiguous()
-    return dq, dk, dv, torch.amax(amax_dp), torch.amax(amax_ds)
+    out = (dq, dk, dv, torch.amax(amax_dp), torch.amax(amax_ds))
+    return out + (tile_counts(cnt[0]),) if with_counts else out
 
 
 def reset_launches():
     """Set the launch counts of the three attention kernels to 0."""
     fp8_attention_fwd.launches = 0
     fp8_attention_fwd.launches_by_mask = dict.fromkeys(_MASK_ID, 0)
+    fp8_attention_fwd.launches_with_counts = 0
     fp8_attention_bwd_dq.launches = 0
     fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
+    fp8_attention_bwd_dq.launches_with_counts = 0
     fp8_attention_bwd_dkv.launches = 0

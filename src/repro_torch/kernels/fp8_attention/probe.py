@@ -118,7 +118,7 @@ def launch(lib, q, k, v, do, scal, kw):
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     seed.data_ptr(), dq.data_ptr(), m.data_ptr(),
                     l.data_ptr(), rd.data_ptr(), am[0].data_ptr(),
-                    am[1].data_ptr(), iv, fv,
+                    am[1].data_ptr(), None, iv, fv,
                     torch.cuda.current_stream().cuda_stream), "probe")
 
 
@@ -277,7 +277,7 @@ def fwd_main(card):
         print(f"card: {card}")
         for var, (lib, log) in libs.items():
             info = (ctypes.c_int * 4)()
-            _build.check(lib.attn_fwd_info(4, info), "probe")
+            _build.check(lib.attn_fwd_info(4, 0, info), "probe")
             print(f"{var} build: ptxas {ptxas_line(log, 'attn_fwd_kernel')}; "
                   f"{info[0]} bytes of shared memory at S=512, {info[1]} "
                   f"registers, {info[2]} local bytes, {info[3]} blocks per "
@@ -504,7 +504,7 @@ def main():
         print("ptxas (probe build):", ptxas_line(log, "stash"))
         info = (ctypes.c_int * 4)()
         _build.check(lib.attn_bwd_dq_stash_info(
-            ops.dq_span_blocks(s, s, "causal"), info), "probe")
+            ops.dq_span_blocks(s, s, "causal"), 0, info), "probe")
         resident = info[3]
         print(f"{info[0]} bytes of shared memory, {resident} blocks per SM")
         plain = _build.load("fp8_attention_bwd")

@@ -43,6 +43,14 @@ contributions of skipped pairs are zeroed explicitly (`_live`). The
 reference skips at the granularity of its kv stripe (block_kv columns),
 so it visits more masked blocks; results differ only where a masked,
 visited position's dP overflows (ROADMAP.md queue 3).
+
+Health counts (`with_counts=True`, the reference's `_health_counts` in its
+count kernels): per quantized tensor — S and P (the forward's unnormalized
+E8) in the forward, dP and dS in the backward — the number of observed
+values that saturate (|q| at or above max normal, or not finite), that
+flush (|q| below min normal, zeros included), and that are observed at
+all, over the attended region (row < q_len and valid), as a (2, 3) int64
+tensor [[sat, flush, observed] of the first tensor, of the second].
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ import torch
 
 from repro_torch.core.fp8_formats import get_format
 from repro_torch.core.quantize import quantize_rne, sr_fp8_via_f16
+from repro_torch.obs.counters import value_masks
 
 LANE = 128
 TQ = 128   # query rows per dK/dV contribution (the reference's TQ)
@@ -144,11 +153,22 @@ def sblock(qf, kf_blk, rows, cols, bh, qpos, kvm, *, seed, f_s, s_s,
     return sv, valid, x, (rows < q_len) & valid
 
 
+def health_counts(vals: torch.Tensor, obs: torch.Tensor,
+                  fmt_name: str) -> torch.Tensor:
+    """(3,) int64 [saturated, flushed, observed] of quantized values
+    `vals` (f32) over the observed positions `obs` (broadcast to vals),
+    by `obs.counters.value_masks`' rule."""
+    obs = obs.expand_as(vals)
+    sat, flush = value_masks(vals, get_format(fmt_name))
+    return torch.stack([(obs & sat).sum(), (obs & flush).sum(), obs.sum()])
+
+
 def fwd_stripe_online(sv, valid, x, obs, vf_blk, carry, p_bits, *, f_p,
-                      fmt_p, rounding_p, saturate_p):
+                      fmt_p, rounding_p, saturate_p, health=None):
     """One step of the one-pass online softmax over a column block:
     carry (m, l, acc, amax_s, amax_p) -> the updated carry, with the probs
-    quantized unnormalized against the running max."""
+    quantized unnormalized against the running max. `health`: None, or a
+    (2, 3) int64 tensor to which the block's P counts add (row 1)."""
     m, l, acc, amax_s, amax_p = carry
     zero = torch.zeros_like(sv)
     amax_s = torch.maximum(amax_s, torch.where(obs, sv.abs(), zero).max())
@@ -157,6 +177,8 @@ def fwd_stripe_online(sv, valid, x, obs, vf_blk, carry, p_bits, *, f_p,
     e = torch.where(valid, torch.exp(x - m_new), zero)
     pf = _quant(e * f_p, p_bits, fmt_p, rounding_p, saturate_p).float()
     amax_p = torch.maximum(amax_p, torch.where(obs, pf.abs(), zero).max())
+    if health is not None:
+        health[1] += health_counts(pf, obs, fmt_p)
     l = l * corr + e.sum(dim=-1, keepdim=True)
     acc = acc * corr + pf @ vf_blk
     return m_new, l, acc, amax_s, amax_p
@@ -166,12 +188,14 @@ def fp8_attention_fwd_ref(q8, k8, v8, seed, scal, *, mask_mode="causal",
                           window: int = 0, kv_mask=None, chunk_pos=None,
                           fmt_s="e5m2", fmt_p="e5m2", rounding_s="sr",
                           rounding_p="sr", saturate_s=True, saturate_p=True,
-                          q_len: Optional[int] = None):
+                          q_len: Optional[int] = None,
+                          with_counts: bool = False):
     """q8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads; seed int; scal 4 host
     f32 [f_s, s_s, f_p, f_o]. kv_mask (B,S): validity ('kv') or int slot
     positions ('chunk', -1 = hole) with chunk_pos (B,2) [start, n_valid].
     Returns (o (B,H,Q,D) bf16, amax_s, amax_p) — 0-d f32 amaxes in grid
-    units over the attended region (row < q_len, default Q)."""
+    units over the attended region (row < q_len, default Q) — and,
+    with_counts=True, the (2, 3) int64 S / P health counts."""
     if mask_mode not in MASK_MODES:
         raise ValueError(f"unknown mask mode {mask_mode!r}")
     b_, h_, q_rows, d = q8.shape
@@ -200,6 +224,8 @@ def fp8_attention_fwd_ref(q8, k8, v8, seed, scal, *, mask_mode="causal",
                saturate_s=saturate_s)
     pkw = dict(f_p=f_p, fmt_p=fmt_p, rounding_p=rounding_p,
                saturate_p=saturate_p)
+    health = torch.zeros((2, 3), dtype=torch.int64, device=dev) \
+        if with_counts else None
     m = torch.full((b_, hkv, g * q_rows, 1), -1e30, device=dev)
     carry = (m, torch.zeros_like(m),
              torch.zeros((b_, hkv, g * q_rows, d), device=dev),
@@ -211,14 +237,17 @@ def fp8_attention_fwd_ref(q8, k8, v8, seed, scal, *, mask_mode="causal",
             kv_mask, device=dev)[:, c0:c1].reshape(b_, 1, 1, -1).long()
         sv, valid, x, obs = sblock(qf, kf[:, :, c0:c1], rows, cols, bh, qpos,
                                    kvm, **skw)
+        if health is not None:
+            health[0] += health_counts(sv, obs, fmt_s)
         p_bits = sr_hash_bits(seed, SALT_P, bh, rows, cols) \
             if rounding_p == "sr" else None
         carry = fwd_stripe_online(sv, valid, x, obs, vf[:, :, c0:c1], carry,
-                                  p_bits, **pkw)
+                                  p_bits, health=health, **pkw)
     _, l, acc, amax_s, amax_p = carry
     d_safe = torch.where(l > 0, l, torch.ones_like(l))
     o = ((acc * f_o) / d_safe).to(torch.bfloat16)
-    return o.reshape(b_, h_, q_rows, d), amax_s, amax_p
+    out = (o.reshape(b_, h_, q_rows, d), amax_s, amax_p)
+    return out + (health,) if with_counts else out
 
 
 # ---------------------------------------------------------------------------
@@ -257,13 +286,15 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
                           rounding_s="sr", rounding_p="sr", rounding_e="sr",
                           saturate_s=True, saturate_p=True, saturate_e=False,
                           q_len: Optional[int] = None,
-                          with_stats: bool = False):
+                          with_stats: bool = False,
+                          with_counts: bool = False):
     """q8/do8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads; seed int or
     integer tensor; scal 10 host f32 [f_s, s_s, f_p, s_p, f_dp, s_dp,
     f_ds, f_dq, f_dk, f_dv]. Returns (dq (B,H,Q,D) f32, dk, dv (B,Hkv,S,D)
     f32, amax_dp, amax_ds) — 0-d f32 amaxes of the quantized dP / dS in
-    grid units over the attended region — and, with_stats=True, also the
-    per-row statistics (m, l, rd), each (B,H,Q) f32."""
+    grid units over the attended region — then, with_counts=True, the
+    (2, 3) int64 dP / dS health counts, and, with_stats=True, the per-row
+    statistics (m, l, rd), each (B,H,Q) f32."""
     if mask_mode not in ("causal", "full"):
         raise ValueError(f"the attention backward supports causal/full, not "
                          f"{mask_mode!r}")
@@ -311,6 +342,8 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
 
     # Pass A: rd = rowsum(P * dP) and the dP observation.
     zero = torch.zeros((), device=dev)
+    health = torch.zeros((2, 3), dtype=torch.int64, device=dev) \
+        if with_counts else None
     rd = torch.zeros_like(m)
     amax_dp = zero
     pdp = []
@@ -326,6 +359,8 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
         rd = rd + _keep(live, p_d * dp_d).sum(dim=-1, keepdim=True)
         amax_dp = torch.maximum(amax_dp, torch.where(
             obs, dp8.float().abs(), torch.zeros_like(dp_d)).max())
+        if health is not None:
+            health[0] += health_counts(dp8.float(), obs, fmt_e)
         pdp.append((p8, p_d, dp_d))
 
     # Pass B: dS, dq, and the dS observation.
@@ -339,6 +374,8 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
                         saturate_e=saturate_e)
         amax_ds = torch.maximum(amax_ds, torch.where(
             obs, ds8.float().abs(), torch.zeros_like(p_d)).max())
+        if health is not None:
+            health[1] += health_counts(ds8.float(), obs, fmt_e)
         dsf = _keep(live, ds8.float())
         dq = dq + dsf @ kf[:, :, c0:c1]
         ds_all.append(dsf)
@@ -357,6 +394,8 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
             dv = dv + p_all[:, :, r].transpose(-1, -2) @ dof[:, :, r]
     out = ((dq * f_dq).reshape(b_, h_, q_rows, d), dk * f_dk, dv * f_dv,
            amax_dp, amax_ds)
+    if health is not None:
+        out += (health,)
     if with_stats:
         out += tuple(t.reshape(b_, h_, q_rows) for t in (m, l, rd))
     return out

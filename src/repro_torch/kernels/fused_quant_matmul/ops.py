@@ -190,9 +190,10 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor, scale=1.0, *,
     if with_counts:
         # A device divisor: torch turns `tensor / python_number` on CUDA into
         # a multiply by the reciprocal, which is not the reference's f32
-        # division.
-        return out, amax, counts / torch.tensor(float(m * n),
-                                                device=counts.device)
+        # division. Filled on the device: a host-to-device copy would make
+        # the host wait for the device.
+        return out, amax, counts / torch.full((), float(m * n),
+                                              device=counts.device)
     return out, amax
 
 

@@ -7,6 +7,8 @@ engine (the paged engine's oracle).
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --legacy \\
       --fp8-kv --device cpu
 
+`--ckpt-dir` restores the params from the newest committed checkpoint of a
+params tree there (`checkpoint.Checkpointer`), as the reference does.
 Without frozen scales the policy's recipe serves at unit scales (the
 paper's `PAPER_POLICY`: unfused attention). `--fp8-kv` stores K/V as e5m2.
 It runs on the CUDA device unless `--device cpu` asks for the kernels'
@@ -26,8 +28,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported: the checkpointer is ROADMAP.md "
-                         "slice 7")
+                    help="restore the params from the newest committed "
+                         "checkpoint of this directory (a checkpoint of the "
+                         "params tree), if it holds one")
     ap.add_argument("--legacy", action="store_true",
                     help="use the fixed-slot ServeEngine instead of the "
                          "paged engine")
@@ -52,10 +55,6 @@ def main(argv=None):
     ap.add_argument("--stats", action="store_true",
                     help="print the engine stats() snapshot at the end")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: the checkpointer is not ported yet (ROADMAP.md, "
-            "slice 7); serve seeded weights without it")
 
     from repro_torch.models.registry import build_config
     from repro_torch.models.transformer import init_lm
@@ -67,6 +66,12 @@ def main(argv=None):
         cfg = cfg.replace(policy=dataclasses.replace(
             cfg.policy, kv_cache_format="e5m2"))
     params = init_lm(cfg, seed=0, device=args.device)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import Checkpointer
+        ck = Checkpointer(args.ckpt_dir)
+        if ck.latest_step() is not None:
+            params, step = ck.restore(params)
+            print(f"restored params at step {step}")
     if args.legacy:
         eng = ServeEngine(cfg, params, ServeConfig(
             max_batch=args.max_batch, max_len=args.max_len,

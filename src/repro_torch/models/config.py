@@ -69,6 +69,38 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def layer_kinds(self) -> Tuple[str, ...]:
+        pat = self.pattern()
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + layers + head), the
+        reference's formula for every family."""
+        d, dh = self.d_model, self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        for kind in self.layer_kinds():
+            if kind in ("attn", "local_attn"):
+                per_layer += d * (self.n_heads * dh + 2 * self.n_kv_heads * dh)
+                per_layer += self.n_heads * dh * d
+            elif kind == "rglru":
+                w = self.lru_dim or self.d_model
+                per_layer += 2 * d * w + 3 * w + w * d
+            elif kind in ("mlstm", "slstm"):
+                inner = int(d * self.ssm_proj_factor)
+                per_layer += 2 * d * inner + 4 * inner * inner // 4 + inner * d
+            if kind not in ("mlstm", "slstm"):
+                if self.n_experts:
+                    per_layer += (self.n_experts * 3 * d * self.d_ff
+                                  + d * self.n_experts)
+                elif self.d_ff:
+                    per_layer += 3 * d * self.d_ff
+        enc = 0
+        if self.is_encoder_decoder:
+            enc = self.n_encoder_layers * (4 * d * d + 3 * d * self.d_ff
+                                           + 2 * d * d)
+        return emb + per_layer + enc
+
     def check_ported(self, *, serving: bool = False):
         """Raise for what this slice of the port does not run: families
         other than the dense decoder and the encoder-decoder, and serving

@@ -35,8 +35,16 @@ Modes:
                 also registers the sites).
     frozen    — serving: scales are python floats; nothing is recorded.
 
-Recorded values stay 0-d device tensors until `observations()`, which
-brings them all to the host in one device->host read.
+Precision-health observations (`QuantConfig.track_health`; the
+reference's health channels): (2,) [sat_frac, flush_frac] pairs per site.
+Forward pairs are max-combined over uses (`record_health`); backward pairs
+ride beside the backward amaxes (`record_bwd_health`), summed over uses and
+times 1/uses, as the reference divides the health tail of a token's summed
+cotangent by the site's use count. They are telemetry: they reach the
+step's metrics as `health/<site key>` and never enter ScaleState.
+
+Recorded values stay device tensors until `observations()` /
+`health_observations()`, which read them from one host copy.
 """
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ import numpy as np
 import torch
 
 _CLASS_LETTER = {"weight": "W", "act": "A", "error": "E", "grad": "G"}
+
+HEALTH_PREFIX = "health/"
 
 
 @dataclasses.dataclass
@@ -62,6 +72,11 @@ class ScaleContext:
     collected_bwd: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
     bwd_uses: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Health pairs: forward key -> max over uses; backward key -> sum over
+    # uses (divided by the key's bwd_uses when read).
+    health: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    health_bwd: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
     _scope: List[str] = dataclasses.field(default_factory=list)
 
     def site_key(self, site: str) -> str:
@@ -106,28 +121,70 @@ class ScaleContext:
             self.collected_bwd[key] = amax if prev is None else prev + amax
             self.bwd_uses[key] = self.bwd_uses.get(key, 0) + 1
 
+    def record_health(self, key: str, frac2: torch.Tensor):
+        """A forward (2,) [sat_frac, flush_frac] observation of `key`
+        (max-combined over uses: a high fraction in any use is the
+        signal)."""
+        if self.mode in ("collect", "calibrate"):
+            prev = self.health.get(key)
+            self.health[key] = frac2 if prev is None \
+                else torch.maximum(prev, frac2)
+
+    def record_bwd_health(self, key: str, frac2: torch.Tensor):
+        """A backward (2,) health pair of `key`, recorded beside its
+        `record_bwd` amax (summed over uses; read times 1/uses)."""
+        if self.mode == "collect":
+            prev = self.health_bwd.get(key)
+            self.health_bwd[key] = frac2 if prev is None else prev + frac2
+
     def pending(self) -> List[torch.Tensor]:
-        """Every recorded value, forward then backward, in key order —
-        what `observations` reads."""
-        return [self.collected[k] for k in sorted(self.collected)] + [
-            self.collected_bwd[k] for k in sorted(self.collected_bwd)]
+        """Every recorded value as flat f32 tensors, in read order:
+        forward amaxes, backward amax sums, forward health pairs, backward
+        health sums, each in key order. Concatenated, they are the vector
+        `observations` and `health_observations` read."""
+        vals = ([self.collected[k] for k in sorted(self.collected)]
+                + [self.collected_bwd[k] for k in sorted(self.collected_bwd)]
+                + [self.health[k] for k in sorted(self.health)]
+                + [self.health_bwd[k] for k in sorted(self.health_bwd)])
+        return [v.float().reshape(-1) for v in vals]
+
+    def _host(self, host_values):
+        if host_values is None:
+            vals = self.pending()
+            host_values = torch.cat(vals).cpu().numpy() if vals else []
+        return np.asarray(host_values, np.float32)
+
+    def _inv_uses(self, key: str) -> np.float32:
+        return np.float32(1.0 / max(1, self.bwd_uses.get(key, 1)))
 
     def observations(self, host_values=None) -> Dict[str, np.float32]:
         """{key: host f32 amax}: forward maxima as recorded, backward sums
         times 1/uses (the reference's `tok * (1 / uses)`). `host_values`
-        are the values of `pending()` already on the host (a caller that
-        reads them together with other step results); otherwise they are
+        is `pending()` already on the host as one vector (a caller
+        that reads it together with other step results); otherwise it is
         read here, in one device->host transfer."""
         fk, bk = sorted(self.collected), sorted(self.collected_bwd)
-        if host_values is None:
-            vals = self.pending()
-            host_values = torch.stack([v.float().reshape(()) for v in vals]
-                                      ).cpu().numpy() if vals else []
-        host_values = np.asarray(host_values, np.float32)
+        host_values = self._host(host_values)
         out = {k: np.float32(v) for k, v in zip(fk, host_values[:len(fk)])}
-        for k, v in zip(bk, host_values[len(fk):]):
-            inv = np.float32(1.0 / max(1, self.bwd_uses[k]))
-            out[k] = np.float32(np.float32(v) * inv)
+        for k, v in zip(bk, host_values[len(fk):len(fk) + len(bk)]):
+            out[k] = np.float32(np.float32(v) * self._inv_uses(k))
+        return out
+
+    def health_observations(self, host_values=None
+                            ) -> Dict[str, np.ndarray]:
+        """{HEALTH_PREFIX + key: (2,) host f32 [sat_frac, flush_frac]}:
+        forward maxima as recorded, backward sums times 1/uses. Reads the
+        same vector as `observations`."""
+        host_values = self._host(host_values)
+        i = len(self.collected) + len(self.collected_bwd)
+        out = {}
+        for k in sorted(self.health):
+            out[HEALTH_PREFIX + k] = host_values[i:i + 2].copy()
+            i += 2
+        for k in sorted(self.health_bwd):
+            out[HEALTH_PREFIX + k] = (host_values[i:i + 2]
+                                      * self._inv_uses(k)).astype(np.float32)
+            i += 2
         return out
 
 
@@ -162,6 +219,30 @@ def scope(name: str):
         yield
     finally:
         ctx._scope.pop()
+
+
+def combine_microbatches(ctxs: List[ScaleContext]) -> ScaleContext:
+    """One collect context holding the observations of a step's
+    microbatch contexts, as the reference's accumulation scan combines
+    them: forward amaxes and health pairs by maximum (as recorded), and the
+    backward sums by elementwise maximum over microbatches (the reference
+    max-combines the token cotangents, each a sum over the microbatch's
+    uses), divided by the uses of one microbatch when read."""
+    out = ScaleContext(mode=ctxs[0].mode, scales=ctxs[0].scales,
+                       bwd_uses=dict(ctxs[0].bwd_uses))
+    for name in ("collected", "collected_bwd", "health", "health_bwd"):
+        merged = getattr(out, name)
+        for ctx in ctxs:
+            for k, v in getattr(ctx, name).items():
+                merged[k] = v if k not in merged else torch.maximum(
+                    merged[k], v)
+    for ctx in ctxs:
+        out.discovered |= ctx.discovered
+        out.discovered_token_sites |= ctx.discovered_token_sites
+        if ctx.bwd_uses != out.bwd_uses:
+            raise ValueError("microbatches recorded backward observations "
+                             "a different number of times")
+    return out
 
 
 def discover_context() -> ScaleContext:

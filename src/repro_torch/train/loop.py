@@ -1,0 +1,241 @@
+"""Fault-tolerant training loop (counterpart of `repro.train.loop`).
+
+ * checkpoint/restart — periodic async checkpoints (atomic commit),
+   restore on start from the newest committed step; a killed and
+   relaunched run resumes where it stopped. The data source is a function
+   of the step (a callable seeks; an iterator is fast-forwarded) and each
+   step's SR generator is seeded from (seed, step), so a resumed run
+   computes what an uninterrupted one does.
+ * preemption — SIGTERM / SIGINT set a "stop after this step" flag; the
+   loop checkpoints and stops.
+ * stragglers — an EMA of the step's wall time; a step slower than
+   `straggler_factor` x EMA is counted and passed to `on_straggler`. The
+   EMA and the count ride the checkpoint manifest, so a resumed run keeps
+   its baseline.
+ * observability — each step's phases run inside `obs.trace.Tracer`
+   spans (data_wait, step_dispatch, device_sync, checkpoint), records go
+   through `obs.metrics.MetricsLogger` (versioned jsonl), and
+   `obs.health.HealthMonitor` attaches `health_events` to the record that
+   triggered them. `on_metrics` sees every serialized record.
+
+The step is `train.step.make_train_step` on `device` (CUDA unless the
+caller asks for the CPU). With `scaling` (a DelayedScaling) its ScaleState
+is checkpointed beside the optimizer state. `plan=` / `amax_sync=` are not
+ported and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import tempfile
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.core.master_weights import MixedPrecisionOptimizer
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import init_lm
+from repro_torch.obs.health import HealthConfig, HealthMonitor
+from repro_torch.obs.metrics import MetricsLogger, jsonable
+from repro_torch.obs.trace import Tracer
+from repro_torch.scaling.state import DelayedScaling
+from repro_torch.train.step import make_train_step
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int = 100
+    checkpoint_every: int = 50
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
+                                       "repro_torch_ckpt")
+    keep_last_k: int = 3
+    log_every: int = 10
+    metrics_path: Optional[str] = None
+    trace_path: Optional[str] = None
+    metrics_window: int = 64
+    straggler_factor: float = 3.0
+    straggler_ema: float = 0.95
+    n_microbatches: int = 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step `step`'s SR generator: a function of (seed, step)
+    alone (the reference's fold_in(PRNGKey(seed + 17), step))."""
+    return int(np.random.SeedSequence([seed + 17, step]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+class TrainLoop:
+    def __init__(self, cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
+                 data, loop: LoopConfig, *, seed: int = 0,
+                 on_straggler: Optional[Callable[[int, float], None]] = None,
+                 on_metrics: Optional[
+                     Callable[[int, Dict[str, Any]], None]] = None,
+                 health: Optional[HealthConfig] = None,
+                 scaling: Optional[DelayedScaling] = None,
+                 amax_sync=None, plan=None, device=None):
+        """data: an iterator of batches, or a callable data(start_step)
+        returning one that starts at that step. on_metrics(step, record):
+        every serialized record (health_events included)."""
+        if plan is not None or amax_sync is not None:
+            raise NotImplementedError(
+                "TrainLoop: a ParallelPlan and cross-replica amax sync are "
+                "not ported yet (ROADMAP.md, queue 1)")
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.data = data
+        self.loop = loop
+        self.seed = seed
+        self.on_straggler = on_straggler
+        self.on_metrics = on_metrics
+        self.scaling = scaling
+        self.device = resolve_device(device)
+        self.ckpt = Checkpointer(loop.checkpoint_dir,
+                                 keep_last_k=loop.keep_last_k)
+        self._stop = False
+        self._step_fn = make_train_step(
+            cfg, optimizer, n_microbatches=loop.n_microbatches,
+            scaling=scaling, device=self.device)
+        self.tracer = Tracer(loop.trace_path)
+        self.monitor = HealthMonitor(
+            health,
+            site_names=list(scaling.registry.keys) if scaling else None,
+            scaler=optimizer.scaler)
+
+    def _logger_meta(self) -> Dict[str, Any]:
+        quant = self.cfg.policy.quant
+        meta: Dict[str, Any] = {
+            "arch": self.cfg.arch,
+            "n_microbatches": self.loop.n_microbatches,
+            "total_steps": self.loop.total_steps,
+            "recipe": quant.recipe,
+            "track_health": bool(quant.track_health),
+        }
+        if self.scaling is not None:
+            # Row order of the dense health/amax_sites vector.
+            meta["sites"] = list(self.scaling.registry.keys)
+        return meta
+
+    def install_signal_handlers(self):
+        def handler(signum, frame):  # noqa: ARG001
+            print(f"[train] signal {signum}: will checkpoint and stop "
+                  "after the current step")
+            self._stop = True
+        signal.signal(signal.SIGTERM, handler)
+        signal.signal(signal.SIGINT, handler)
+
+    def _pack(self, state, scale_state):
+        if self.scaling is None:
+            return state
+        return {"train": state, "amax_scales": scale_state}
+
+    def _unpack(self, tree):
+        if self.scaling is None:
+            return tree, None
+        return tree["train"], tree["amax_scales"]
+
+    def run(self) -> Dict[str, Any]:
+        with MetricsLogger(self.loop.metrics_path, meta=self._logger_meta(),
+                           window=self.loop.metrics_window) as logger:
+            try:
+                return self._run(logger)
+            finally:
+                self.tracer.export()
+
+    def _run(self, logger: MetricsLogger) -> Dict[str, Any]:
+        dev = self.device
+        state = self.optimizer.init(init_lm(self.cfg, seed=self.seed,
+                                            device=dev))
+        scale_state = self.scaling.init() if self.scaling else None
+        start_step = 0
+        ema = None
+        stragglers = 0
+        if self.ckpt.latest_step() is not None:
+            tree, start_step = self.ckpt.restore(
+                self._pack(state, scale_state))
+            state, scale_state = self._unpack(tree)
+            extra = self.ckpt.manifest(start_step).get("extra", {}) or {}
+            ema = extra.get("straggler_ema")
+            stragglers = int(extra.get("stragglers", 0))
+            print(f"[train] restored checkpoint at step {start_step}")
+            # Fast-forward the data to the batches an uninterrupted run
+            # would consume next; a callable source seeks directly.
+            if callable(self.data):
+                self.data = self.data(start_step)
+            else:
+                for _ in range(start_step):
+                    next(self.data)
+        elif callable(self.data):
+            self.data = self.data(0)
+
+        last_metrics: Dict[str, Any] = {}
+        step = start_step
+        for step in range(start_step, self.loop.total_steps):
+            t0 = time.time()
+            with self.tracer.span("data_wait", step=step):
+                batch = next(self.data)
+            gen = torch.Generator(device=dev).manual_seed(
+                step_seed(self.seed, step))
+            with self.tracer.span("step_dispatch", step=step):
+                if self.scaling is None:
+                    state, metrics = self._step_fn(state, batch, gen)
+                else:
+                    (state, scale_state), metrics = self._step_fn(
+                        state, scale_state, batch, gen)
+            with self.tracer.span("device_sync", step=step):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            dt = time.time() - t0
+            # Straggler detection (the first step of a run is a warm-up).
+            if step > start_step:
+                if ema is not None and dt > self.loop.straggler_factor * ema:
+                    stragglers += 1
+                    print(f"[train] straggler step {step}: {dt:.3f}s vs "
+                          f"EMA {ema:.3f}s")
+                    if self.on_straggler:
+                        self.on_straggler(step, dt)
+                ema = dt if ema is None else \
+                    self.loop.straggler_ema * ema \
+                    + (1 - self.loop.straggler_ema) * dt
+
+            done = step + 1 >= self.loop.total_steps
+            save = self._stop or done or \
+                (step + 1) % self.loop.checkpoint_every == 0
+            if save:
+                with self.tracer.span("checkpoint", step=step):
+                    self.ckpt.save(step + 1, self._pack(state, scale_state),
+                                   extra={"straggler_ema": ema,
+                                          "stragglers": stragglers})
+
+            # Serialize first, then let the detectors see the exact record,
+            # so events land on the record whose metrics triggered them.
+            record = {k: jsonable(v) for k, v in metrics.items()}
+            record.update(step=step, step_time_s=round(dt, 4),
+                          stragglers=stragglers, **self.tracer.durations())
+            events = self.monitor.observe(step, record)
+            if events:
+                record["health_events"] = events
+            record = logger.log(record)
+            if self.on_metrics:
+                self.on_metrics(step, record)
+            last_metrics = record
+            if step % self.loop.log_every == 0:
+                # Non-finite metrics serialize as strings ("inf" / "nan").
+                loss = record.get("loss", 0)
+                scale = record.get("loss_scale", 0)
+                loss = f"{loss:.4f}" if isinstance(loss, float) else loss
+                scale = f"{scale:.0f}" if isinstance(scale, float) else scale
+                print(f"[train] step {step} loss={loss} scale={scale} "
+                      f"t={dt:.3f}s")
+            if self._stop and save:
+                print(f"[train] preempted: checkpointed at {step + 1}")
+                break
+        self.ckpt.wait()
+        return {"state": state, "scale_state": scale_state,
+                "last_step": step + 1, "metrics": last_metrics,
+                "stragglers": stragglers}

@@ -10,12 +10,21 @@ paper's recipe at unit scales) or, given a DelayedScaling, its
     step's generator) -> overflow probe -> unscale in f32 -> Adam in f32
     -> fp16 master store -> loss-scale update [-> delayed-scaling update]
 
-on one device with one microbatch. Under delayed scaling, forward amaxes
-and the backward's error / gradient amaxes are recorded by the call sites
-into the step's scaling context. Either way the step's loss, grad norm and
-overflow flag (and those observations) reach the host in ONE device->host
-read; with scaling the host then updates ScaleState (numpy f32, the
-reference's arithmetic) for the next step.
+on one device. Under delayed scaling, forward amaxes and the backward's
+error / gradient amaxes are recorded by the call sites into the step's
+scaling context, and with `track_health` the precision-health pairs beside
+them. Either way the step's loss, grad norm and overflow flag (and those
+observations) reach the host in ONE device->host read; with scaling the
+host then updates ScaleState (numpy f32, the reference's arithmetic) for
+the next step.
+
+Gradient accumulation (`n_microbatches` > 1, the reference's scan): the
+batch splits on its leading axis; each microbatch runs its forward and
+backward in turn, drawing its SR bits from the step's generator in order,
+into its own scaling context; gradients accumulate in f32 as g / n;
+forward observations, backward observation sums and health pairs combine
+by maximum over microbatches (`scaling.context.combine_microbatches`);
+the loss and nll are the microbatches' mean.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import contextlib
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.loss_scale import LossScaler
@@ -77,64 +87,98 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     unscaled), grad_norm (of the unscaled gradients), loss_scale (after
     the update), grads_finite, overflow_count.
 
+    With scaling, the model's `track_health` adds the reference's
+    `health/<site key>` metrics, (2,) [sat_frac, flush_frac] arrays, and
+    `scaling.qcfg.track_health` `health/scale_churn` (the share of sites
+    whose scale moved) and `health/amax_sites` (the newest amax of every
+    site, in registry order).
+
     The master weights and optimizer state are updated in place (see
-    core.master_weights). Not ported (each raises): n_microbatches > 1, a
-    ParallelPlan / fp8 wire, amax_sync, track_health, remat."""
+    core.master_weights). Not ported (each raises): a ParallelPlan / fp8
+    wire, amax_sync, remat."""
     dev = resolve_device(device)
-    if n_microbatches != 1:
-        raise _not_ported("gradient accumulation (n_microbatches > 1)")
+    if n_microbatches < 1:
+        raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
     if plan is not None:
         raise _not_ported("a ParallelPlan / fp8-on-the-wire collective")
     if amax_sync is not None:
         raise _not_ported("cross-replica amax sync")
-    if cfg.policy.quant.track_health or (
-            scaling is not None and scaling.qcfg.track_health):
-        raise _not_ported("precision-health tracking (track_health)")
     if cfg.remat:
         raise _not_ported("activation recomputation (remat=True); pass "
                           "remat=False")
     cfg.check_ported()
 
+    def grads_of(params, batch, generator, scale, collect):
+        """The loss pass of one step: (scaled loss, nll, gradients, the
+        scaling context or None). Over microbatches: f32 gradients
+        accumulated as g / n, the losses' mean, the contexts combined.
+        `collect` makes a fresh scaling context's manager (None without
+        scaling)."""
+        def pass_(mb):
+            with (collect() if collect else contextlib.nullcontext()) as ctx:
+                loss, aux = lm_loss(params, mb, cfg=cfg, qgen=generator,
+                                    loss_scale=scale)
+                loss.backward()
+            return loss.detach(), aux["nll"], ctx
+
+        if n_microbatches == 1:
+            loss, nll, ctx = pass_(batch)
+            return loss, nll, tmap(lambda p: p.grad, params), ctx
+        div = torch.full((), float(n_microbatches), device=dev)
+        acc = tmap(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=dev), params)
+        losses, nlls, ctxs = [], [], []
+        for mb in split_batch(batch, n_microbatches):
+            loss, nll, ctx = pass_(mb)
+            with torch.no_grad():
+                tmap(lambda a, p: a.add_(p.grad.float() / div), acc, params)
+            for p in _leaves(params):
+                p.grad = None
+            losses.append(loss)
+            nlls.append(nll)
+            ctxs.append(ctx)
+        ctx = scale_ctx.combine_microbatches(ctxs) if collect else None
+        return (torch.stack(losses).mean(), torch.stack(nlls).mean(), acc,
+                ctx)
+
     def run(state: MixedPrecisionState, batch: Dict,
             generator: torch.Generator, collect):
-        """One step; `collect` is the scaling context's manager (or a null
-        one). Returns (new state, metrics, the context's observations)."""
+        """One step; `collect` makes a fresh scaling context's manager
+        (None without scaling). Returns (new state, metrics, the context's
+        observations, its health pairs)."""
         if state.loss_scale.scale.device.type != dev.type:
             raise ValueError(f"train state on {state.loss_scale.scale.device}"
                              f", step built for {dev}")
         params = tmap(lambda p: p.requires_grad_(True),
                       optimizer.compute_params(state))
-        scale = state.loss_scale.scale
-        with collect as ctx:
-            loss, aux = lm_loss(params, batch, cfg=cfg, qgen=generator,
-                                loss_scale=scale)
-            loss.backward()
-        grads = tmap(lambda p: p.grad, params)
+        loss, nll, grads, ctx = grads_of(params, batch, generator,
+                                         state.loss_scale.scale, collect)
         del params
         new_state, opt_m = optimizer.apply_gradients(state, grads)
         inv = optimizer.scaler.inverse(state.loss_scale)
         sq = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
-        step_vals = [loss.detach() * inv, aux["nll"], torch.sqrt(sq) * inv,
+        step_vals = [loss * inv, nll, torch.sqrt(sq) * inv,
                      opt_m["loss_scale"], opt_m["grads_finite"],
                      opt_m["overflow_count"]]
         n = len(step_vals)
         # The step's one device->host read: its scalars and every
-        # observation of the scaling context.
+        # observation of the scaling context (amaxes and health pairs).
         pending = ctx.pending() if ctx is not None else []
-        host = torch.stack([v.float().reshape(()) for v in
-                            step_vals + pending]).cpu().numpy()
+        host = torch.cat([v.float().reshape(-1) for v in step_vals]
+                         + pending).cpu().numpy()
         metrics = {k: float(v) for k, v in zip(
             ("loss", "nll", "grad_norm", "loss_scale", "grads_finite",
              "overflow_count"), host[:n])}
         metrics["grads_finite"] = bool(metrics["grads_finite"])
-        obs = ctx.observations(host[n:]) if ctx is not None else {}
-        return new_state, metrics, obs
+        if ctx is None:
+            return new_state, metrics, {}, {}
+        return (new_state, metrics, ctx.observations(host[n:]),
+                ctx.health_observations(host[n:]))
 
     if scaling is None:
         def train_step(state: MixedPrecisionState, batch: Dict,
                        generator: torch.Generator):
-            new_state, metrics, _ = run(state, batch, generator,
-                                        contextlib.nullcontext())
+            new_state, metrics, _, _ = run(state, batch, generator, None)
             return new_state, metrics
 
         return train_step
@@ -142,11 +186,32 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     def train_step_scaled(state: MixedPrecisionState,
                           scale_state: ScaleState, batch: Dict,
                           generator: torch.Generator):
-        new_state, metrics, obs = run(state, batch, generator,
-                                      scaling.collect(scale_state))
-        return (new_state, scaling.update(scale_state, obs)), metrics
+        new_state, metrics, obs, health = run(
+            state, batch, generator, lambda: scaling.collect(scale_state))
+        new_scale_state = scaling.update(scale_state, obs)
+        metrics.update(health)
+        if scaling.qcfg.track_health:
+            moved = np.count_nonzero(scale_state.scale
+                                     != new_scale_state.scale)
+            metrics["health/scale_churn"] = float(
+                np.float32(moved) / np.float32(scale_state.scale.size))
+            metrics["health/amax_sites"] = \
+                new_scale_state.amax_history[:, 0].copy()
+        return (new_state, new_scale_state), metrics
 
     return train_step_scaled
+
+
+def split_batch(batch: Dict, n: int):
+    """The n microbatches of a batch, each a dict of its leading-axis
+    slice (numpy arrays or tensors)."""
+    lead = len(next(iter(batch.values())))
+    if lead % n:
+        raise ValueError(f"batch of {lead} rows does not split into {n} "
+                         "microbatches")
+    m = lead // n
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            for i in range(n)]
 
 
 def _leaves(tree):

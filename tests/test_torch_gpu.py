@@ -288,7 +288,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
 def _bwd_case(kind, group, fmt_a, fmt_e, gen, s=200, d=64):
     """The exact backward fixture of tests/test_torch_attn_bwd.py (ragged
     length, head dim padded by the wrapper): one-hot q and dO rows, k and v
-    rows constant across the head dim; every f32 sum is exact."""
+    rows constant across the head dim; every f32 sum is exact.
+    'saturating': chip_smoke.py's fixture of that name (scales that drive
+    S, P, dP and dS to their formats' max normal)."""
     b, hkv = 2, 2
     h = hkv * group
     dt_a, dt_e = FP8[fmt_a][0], FP8[fmt_e][0]
@@ -301,9 +303,16 @@ def _bwd_case(kind, group, fmt_a, fmt_e, gen, s=200, d=64):
         * torch.ones(d)
     v = torch.tensor([-2.0, -1.0, 1.0, 2.0])[
         torch.randint(0, 4, (b, hkv, s, 1), generator=gen)] * torch.ones(d)
-    do = eye[torch.randint(0, d, (b, h, s), generator=gen)] \
-        * (4 * exact_fp8((b, h, s, 1), fmt_e, gen).float())
-    scal = [1.0, 1.0, 1.0, 1.0, 2.0 ** -6, 64.0, 256.0, 1.0, 1.0, 1.0]
+    if kind == "saturating":
+        sign = torch.randint(0, 2, (b, h, s, 1), generator=gen) * 2.0 - 1
+        dval = sign * 7.0 * torch.exp2(
+            -torch.randint(0, 4, (b, h, s, 1), generator=gen).float())
+        scal = [256.0, 1.0, 2.0 ** 16, 2.0 ** -16, 2.0 ** 12, 2.0 ** -12,
+                2.0 ** 21, 1.0, 1.0, 1.0]
+    else:
+        dval = 4 * exact_fp8((b, h, s, 1), fmt_e, gen).float()
+        scal = [1.0, 1.0, 1.0, 1.0, 2.0 ** -6, 64.0, 256.0, 1.0, 1.0, 1.0]
+    do = eye[torch.randint(0, d, (b, h, s), generator=gen)] * dval
     return q.to(dt_a), k.to(dt_a), v.to(dt_a), do.to(dt_e), scal
 
 
@@ -462,6 +471,53 @@ def test_attention_dkv_kernel_is_deterministic(card, recipe, rounding,
     torch.cuda.synchronize()
     for x, y in zip(one, two):
         assert _same_bits(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "stepped", "saturating"])
+@pytest.mark.parametrize("mask", ["causal", "full"])
+@pytest.mark.parametrize("recipe", [("e4m3", "e5m2"), ("e5m2", "e5m2")],
+                         ids=["hybrid", "paper"])
+@pytest.mark.parametrize("s, variant", [(200, "stash"), (700, "long")],
+                         ids=["stash", "long"])
+def test_attention_count_variants_match_plain(card, kind, mask, recipe, s,
+                                              variant):
+    """The count variants of the forward and of both dQ variants: the S / P
+    and dP / dS [saturated, flushed, observed] counts equal the plain
+    versions' on the exact fixtures ('saturating': every saturated count
+    above 0), and every other output is bit for bit the same with counts
+    on and off."""
+    from repro_torch.kernels.fp8_attention import ref
+    gen = torch.Generator().manual_seed(8)
+    fa, fe = recipe
+    q, k, v, do, scal = (x.to(card) if isinstance(x, torch.Tensor) else x
+                         for x in _bwd_case(kind, 2, fa, fe, gen, s=s))
+    fkw = dict(mask_mode=mask, fmt_s=fa, fmt_p=fa, rounding_s="sr",
+               rounding_p="sr")
+    kw = dict(fkw, fmt_e=fe, rounding_e="sr")
+    n_f = attn.fp8_attention_fwd.launches_with_counts
+    n_var = attn.fp8_attention_bwd_dq.launches_by_variant[variant]
+    off_f = attn.fp8_attention_fwd(q, k, v, 9, scal[:4], **fkw)
+    on_f = attn.fp8_attention_fwd(q, k, v, 9, scal[:4], with_counts=True,
+                                  **fkw)
+    off_b = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
+    on_b = attn.fp8_attention_bwd(q, k, v, do, 9, scal, with_counts=True,
+                                  **kw)
+    want_f = ref.fp8_attention_fwd_ref(q, k, v, 9, scal[:4],
+                                       with_counts=True, **fkw)
+    want_b = ref.fp8_attention_bwd_ref(q, k, v, do, 9, scal,
+                                       with_counts=True, **kw)
+    torch.cuda.synchronize()
+    assert attn.fp8_attention_fwd.launches_with_counts == n_f + 1
+    assert attn.fp8_attention_bwd_dq.launches_by_variant[variant] \
+        == n_var + 2
+    assert all(_same_bits(a, b) for a, b in zip(off_f, on_f[:3]))
+    assert all(_same_bits(a, b) for a, b in zip(off_b, on_b[:5]))
+    assert torch.equal(on_f[3], want_f[3])
+    assert torch.equal(on_b[5], want_b[5])
+    if kind == "saturating":
+        assert bool((want_f[3][:, 0] > 0).all()), want_f[3].tolist()
+        assert bool((want_b[5][:, 0] > 0).all()), want_b[5].tolist()
 
 
 @pytest.mark.gpu
