@@ -71,7 +71,24 @@ Phases, each of which raises on failure (there is no CPU fallback):
      (kernels 1-4) and under the paper's on the unfused path (kernel 5),
      counts reset around each run, a profile of each; then one step per
      recipe at 2 + 2 layers against the plain versions on the card and,
-     all-RNE, on the CPU, with planted faults.
+     all-RNE, on the CPU, with planted faults;
+  12. the trainer (launch/train.py's TrainLoop) at 28 layers with
+     checkpoint save / restore, and the 2-layer resume check;
+  13. serve the paper-transformer (6 + 6 layers, seeded weights):
+     calibrate on two B=8 x 256-frame batches with their enc_inputs (the
+     e5m2 KV cache's sites included), freeze with formats, then 8 sources
+     through make_serve_prefill / make_serve_decode (a 16-token target
+     prefix, 32 greedy tokens) on a bf16 and an e5m2 KV cache (kernels 1
+     and 2) and under the paper's recipe (kernel 5, unfused attention),
+     counts reset around each run; one decode step with the kernels
+     against the plain versions on the card from the same caches, within
+     DECODE_TOL, with planted faults;
+  14. the training step's options on qwen2-1.5b at full width: (a) 28
+     layers with remat=True (hybrid delayed), timed beside phase 6; (b) 2
+     layers, remat=True against remat=False bit for bit with SR on, and a
+     planted fault; (c) delayed scaling off the fused path and jit_amax,
+     each held at 2 layers against the plain versions with a planted
+     kernel-5 fault, then timed at 28 layers.
 Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
 against their plain versions and times them, holds the GEMM in every
 layout at ragged shapes that take each of its two tile widths (128x128,
@@ -85,7 +102,10 @@ paper's workloads' shapes: kernel 5 at the ResNet's seven conv GEMMs (K
 of 32-1152, N of 32-128, up to 262144 rows), kernel 1 at the
 paper-transformer's M = 2040 projections, kernels 2-4 at its attention
 (head dim 64, MHA, 'full' 256 x 256 and 255 x 256, 'causal' 255 x 255;
-exact fixtures, general inputs, the schedules), each timed beside its
+exact fixtures, general inputs, the schedules) and at its serving decode
+shapes (one query row: 'kv' over a 64-slot cache, 'full' over the 256
+encoder rows; q against K/V in the other format too), kernel 1 at its
+serving rows (M = 8 and 128, forward layout), each timed beside its
 bound and library call (where the wrapper pads, also the launch alone;
 the attention kernels also at head dim 128 on those shapes). The start of
 the run prints the shared memory, registers, spills and blocks per SM of
@@ -97,7 +117,8 @@ line before the last is a JSON object with one entry per kernel (kernel
 kernel 5's with their tile widths; launches: the fused GEMM's and the attention
 kernels' from phase 6, the unfused GEMM's from phase 8, the
 stochastic-rounding kernels' from the op's path; `launches_by_path`: a
-step's launches on each training path, phases 6, 8, 10 and 11;
+step's launches on each training path, phases 6, 8, 10, 11 and 14, and
+a served run's on each path of phase 13;
 `other_shapes`: its rows at the paper's workloads' shapes); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
@@ -363,7 +384,11 @@ def attn_inputs(dev, gen, mode, fmt, kv_fmt=None):
     of four ragged lengths), 'prefill' (the fixed-slot engine's: max_batch
     4 rows of the longest phase-4 prompt, 98 tokens, 'causal', a kv length
     short of one 128-column block), the paper-transformer's three (T5_ATTN:
-    'enc', 'dec', 'cross'; head dim 64, 16 heads without GQA), or a
+    'enc', 'dec', 'cross'; head dim 64, 16 heads without GQA), its two
+    decode shapes (phase 13: 's2s_decode', one query row per (b, h)
+    against a fixed-slot cache of S2S_CACHE slots under the 'kv' validity
+    of eight ragged lengths; 's2s_cross', one query row against the 256
+    encoder rows, 'full'), or a
     256-token batch under 'causal', 'window' (causal, window 100), 'full'
     or 'kv' (random column validity, one 128-column block fully masked). q
     in `fmt`, k and v in `kv_fmt` (default `fmt`)."""
@@ -371,13 +396,18 @@ def attn_inputs(dev, gen, mode, fmt, kv_fmt=None):
     from repro_torch.core.fp8_formats import get_format
     dt = get_format(fmt).dtype
     kdt = get_format(kv_fmt or fmt).dtype
-    if mode in T5_ATTN:
-        mask, q_len, s_len = T5_ATTN[mode]
+    if mode in T5_ATTN or mode in ("s2s_decode", "s2s_cross"):
+        mask, q_len, s_len = T5_ATTN.get(mode) or (
+            ("kv", 1, S2S_CACHE) if mode == "s2s_decode" else ("full", 1, 256))
         b, h, d = T5_B, T5_HEADS, T5_HEAD_DIM
         q = torch.randn((b, h, q_len, d), generator=gen, device=dev).to(dt)
         k, v = (torch.randn((b, h, s_len, d), generator=gen,
                             device=dev).to(kdt) for _ in range(2))
-        return q, k, v, dict(mask_mode=mask)
+        if mask != "kv":
+            return q, k, v, dict(mask_mode=mask)
+        lengths = torch.tensor([17, 48, 30, 1, 64, 16, 33, 40], device=dev)
+        valid = torch.arange(s_len, device=dev)[None] < lengths[:, None]
+        return q, k, v, dict(mask_mode="kv", kv_mask=valid.int())
     if mode == "holes":
         b, h, hkv, t, c = 4, 12, 2, 160, 640
         q = torch.randn((b, h, t, 128), generator=gen, device=dev).to(dt)
@@ -436,15 +466,22 @@ def attn_inputs(dev, gen, mode, fmt, kv_fmt=None):
 T5_B, T5_HEADS, T5_HEAD_DIM = 8, 16, 64
 T5_ATTN = {"enc": ("full", 256, 256), "dec": ("causal", 255, 255),
            "cross": ("full", 255, 256)}
+# The paper-transformer served (phase 13): B=8 sources of 256 frames, a
+# target prefix of S2S_PROMPT tokens, S2S_NEW greedy tokens, fixed-slot
+# caches of S2S_CACHE slots; its decode shapes in kernel 2 (one query row,
+# head dim 64): the self-attention's 'kv' over the cache, the
+# cross-attention's 'full' over the encoder's 256 rows.
+S2S_PROMPT, S2S_NEW, S2S_CACHE = 16, 32, 64
+S2S_ATTN = ("s2s_decode", "s2s_cross")
 # Every mask kernel 2 takes, the chunk layout with skipped kv blocks and
 # dead warps, the fixed-slot engine's decode step (one live row per
 # 128-row tile) and prefill (98 rows and kv columns), and the
 # paper-transformer's three (head dim 64, q_len != s_len in 'cross').
 ATTN_MODES = ("chunk", "chunk_window", "holes", "decode", "prefill",
-              "causal", "window", "full", "kv") + tuple(T5_ATTN)
+              "causal", "window", "full", "kv") + tuple(T5_ATTN) + S2S_ATTN
 # Cases of q in one format against K/V in the other, as serving reads an
 # FP8 cache (the hybrid recipe's e4m3 q against an e5m2 cache).
-ATTN_MIXED = tuple((m, qf, kf) for m in ("decode", "chunk")
+ATTN_MIXED = tuple((m, qf, kf) for m in ("decode", "chunk", "s2s_decode")
                    for qf, kf in (("e4m3", "e5m2"), ("e5m2", "e4m3")))
 
 
@@ -617,7 +654,7 @@ def check_attention(dev):
                         f"{as_k.item()} vs {as_p.item()}, amax_p "
                         f"{ap_k.item()} vs {ap_p.item()}")
                 if fmt == "e4m3" and rounding == "rne" and mode in (
-                        "chunk", "causal", "decode", *T5_ATTN):
+                        "chunk", "causal", "decode", *T5_ATTN, *S2S_ATTN):
                     b, h, t, d = q.shape
                     hkv, s = k.shape[1], k.shape[2]
                     ms = cuda_ms(lambda: at.fp8_attention_fwd(
@@ -636,7 +673,7 @@ def check_attention(dev):
                                 )[:, None]
                         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                             qd, kd, vd, attn_mask=mask, enable_gqa=True))
-                    elif mode == "decode":
+                    elif kw["mask_mode"] == "kv":
                         mask = (kw["kv_mask"] != 0)[:, None, None, :]
                         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                             qd, kd, vd, attn_mask=mask, enable_gqa=True))
@@ -648,7 +685,7 @@ def check_attention(dev):
                             qd, kd, vd, is_causal=True, enable_gqa=True))
                     nbytes = (q.numel() + k.numel() + v.numel()
                               + 2 * q.numel())
-                    if mode in ("chunk", "decode"):
+                    if kw["mask_mode"] in ("chunk", "kv"):
                         nbytes += kw["kv_mask"].numel() * 4
                     if mode == "chunk":
                         nbytes += 8 * b
@@ -660,7 +697,9 @@ def check_attention(dev):
                         f"({b_by}) [{CARD}]")
                     rows[mode] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                       bound_ms=b_ms, bound_by=b_by,
-                                      max_abs_err=err)
+                                      max_abs_err=err, shape=(
+                                          f"{kw['mask_mode']} B={b} H={h} "
+                                          f"Hkv={hkv} Q={t} S={s} D={d}"))
     if failed:
         raise AssertionError(
             f"attention beyond {ATTN_MAX_ULPS} bf16 ulps / "
@@ -861,25 +900,36 @@ def kv_bytes(states):
     return sum(s["kv"][n].nbytes for s in states.values() for n in ("k", "v"))
 
 
-def decode_runs(dev, cfg, params, frozen, tokens, runs):
-    """Prefill `tokens` (B, S) into fresh fixed-slot caches (kernels), then
-    run one decode step of each row's last token at position S from a copy
-    of those caches under each entry of `runs` (name -> (module, attribute,
-    value) patches). Returns {name: (logits, kernel launches of the
-    step)}."""
+def decode_runs(dev, cfg, params, frozen, tokens, runs, enc_inputs=None,
+                cache=512):
+    """Prefill `tokens` (B, S) into fresh fixed-slot caches of `cache`
+    slots (kernels), then run one decode step of each row's last token at
+    position S from a copy of those caches under each entry of `runs`
+    (name -> (module, attribute, value) patches). An encoder-decoder's
+    `enc_inputs` go to the prefill, and the encoder output (the kernels'
+    encode, under the frozen scales) to every decode step. Returns {name:
+    (logits, kernel launches of the step)}."""
     import contextlib
     from unittest import mock
 
     import torch
-    from repro_torch.models.transformer import init_stack_state
-    from repro_torch.train.step import make_serve_decode, make_serve_prefill
+    from repro_torch.models.transformer import encode, init_stack_state
+    from repro_torch.train.step import (_eval_cfg, _maybe_frozen,
+                                        make_serve_decode, make_serve_prefill)
     b, s = tokens.shape
-    st = init_stack_state(cfg, b, 512, device=dev)
-    _, st = make_serve_prefill(cfg, frozen)(params, {"tokens": tokens}, st)
+    st = init_stack_state(cfg, b, cache, device=dev)
+    pre = {"tokens": tokens}
+    if enc_inputs is not None:
+        pre["enc_inputs"] = enc_inputs
+    _, st = make_serve_prefill(cfg, frozen)(params, pre, st)
     decode = make_serve_decode(cfg, frozen)
     batch = {"tokens": tokens[:, -1:],
              "positions": torch.full((b, 1), s, dtype=torch.int32,
                                      device=dev)}
+    if enc_inputs is not None:
+        with torch.no_grad(), _maybe_frozen(frozen):
+            batch["enc_out"] = encode(params, enc_inputs,
+                                      cfg=_eval_cfg(cfg, frozen))
     out = {}
     for name, patches in runs.items():
         caches = {n: {"kv": {k: x.clone() for k, x in layer["kv"].items()}}
@@ -900,7 +950,8 @@ def rel_l2(x, y):
     return ((x - y).norm() / y.norm()).item()
 
 
-def check_decode_parity(name, runs, faults):
+def check_decode_parity(name, runs, faults,
+                        what="B=4 rows of 64 prompt tokens, 28 layers"):
     """Kernels against the plain versions (both on the card) for one decode
     step from the same caches: rel L2 of the logits below DECODE_TOL, the
     plain run launching no kernel, and each planted fault reading above
@@ -911,8 +962,8 @@ def check_decode_parity(name, runs, faults):
     r = rel_l2(g, gp)
     same = (g.argmax(-1) == gp.argmax(-1)).float().mean().item()
     reads = {f: rel_l2(runs[f][0], gp) for f in faults}
-    log(f"{name}, one decode step (B=4 rows of 64 prompt tokens, 28 "
-        f"layers), kernels vs plain on the card from the same caches: rel "
+    log(f"{name}, one decode step ({what}), kernels vs plain on the card "
+        f"from the same caches: rel "
         f"L2 of the logits {r:.4e} (limit {DECODE_TOL}; max|dlogit| "
         f"{(g - gp).abs().max().item():.4e}, argmax agreement {same:.2f}); "
         + "; ".join(f"planted fault '{f}' {x:.4e}" for f, x in reads.items())
@@ -1358,17 +1409,20 @@ ATTN_BWD_REL_L2 = 1e-3
 DKV_BLOCKS_PER_SM = 2              # the dK/dV kernel's residency target
 
 
-def train_gemm_cases(m=TRAIN_B * TRAIN_S, proj=PROJ):
+GEMM_DIMS = ("nn", "nt", "tn")
+
+
+def train_gemm_cases(m=TRAIN_B * TRAIN_S, proj=PROJ, layouts=GEMM_DIMS):
     """(dims, a_shape, b_shape, a_fmt, b_fmt) of the training step's GEMMs
     at m rows and the (C, N) of `proj`: forward Y = A.W ('nn', e4m3 x
     e4m3), dgrad dA = dY.W^T ('nt', e5m2 x e4m3), wgrad dW = A^T.dY ('tn',
-    e4m3 x e5m2)."""
+    e4m3 x e5m2); only the layouts of `dims` (serving: 'nn')."""
     out = []
     for c, n in proj:
         out.append(("nn", (m, c), (c, n), "e4m3", "e4m3"))
         out.append(("nt", (m, n), (c, n), "e5m2", "e4m3"))
         out.append(("tn", (m, c), (m, n), "e4m3", "e5m2"))
-    return out
+    return [x for x in out if x[0] in layouts]
 
 
 def check_gemm_case(fq, fq_ref, a, b, dims, out_fmt, saturate, exact, gen,
@@ -1419,7 +1473,8 @@ def check_gemm_case(fq, fq_ref, a, b, dims, out_fmt, saturate, exact, gen,
     return len(roundings), worst, tiles
 
 
-def check_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ, seed=4):
+def check_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ, seed=4,
+                     layouts=GEMM_DIMS):
     """Every GEMM of the training step at its training shape (m rows, the
     projections of `proj`) with the recipe's formats (forward 'nn': e4m3
     output, saturating; dgrad 'nt' and wgrad 'tn': e5m2, not saturating),
@@ -1430,8 +1485,8 @@ def check_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ, seed=4):
     from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_cases = worst = 0
-    tiles = {d: set() for d in fq_ref.DIMS}
-    for dims, sa, sb, fa, fb in train_gemm_cases(m, proj):
+    tiles = {d: set() for d in layouts}
+    for dims, sa, sb, fa, fb in train_gemm_cases(m, proj, layouts):
         for exact in (True, False):
             a = fp8_tensor(sa, fa, gen, dev, exact)
             b = fp8_tensor(sb, fb, gen, dev, exact)
@@ -1441,7 +1496,7 @@ def check_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ, seed=4):
                                       gen, dev)
             n_cases, worst = n_cases + c, max(worst, w)
             tiles[dims] |= t
-    log(f"gemm (training shapes M={m}, (C, N) {list(proj)}, nn/nt/tn): "
+    log(f"gemm (M={m}, (C, N) {list(proj)}, {'/'.join(tiles)}): "
         f"{n_cases} cases match the plain version (bitwise on exact inputs; "
         f"worst flip rate {worst:.2e}); tile widths launched by layout "
         f"{tiles}")
@@ -1484,7 +1539,8 @@ def check_gemm_ragged(dev):
         f"{worst:.2e}); tile widths launched by layout {tiles}")
 
 
-def time_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ):
+def time_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ,
+                    layouts=GEMM_DIMS):
     """Kernel / plain / torch._scaled_mm times of every training GEMM
     shape (m rows, the projections of `proj`; e5m2 SR output for nt / tn,
     e4m3 SR for nn), with the bound; where the rows or the contraction
@@ -1495,7 +1551,7 @@ def time_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ):
     from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
     gen = torch.Generator(device=dev).manual_seed(6)
     rows = []
-    for dims, sa, sb, fa, fb in train_gemm_cases(m, proj):
+    for dims, sa, sb, fa, fb in train_gemm_cases(m, proj, layouts):
         a = fp8_tensor(sa, fa, gen, dev, False)
         b = fp8_tensor(sb, fb, gen, dev, False)
         m, n, c = fq_ref.gemm_shape(a.shape, b.shape, dims)
@@ -3855,6 +3911,489 @@ def trainer_resume_parity(dev):
         gc_collect()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder paper-transformer served
+# ---------------------------------------------------------------------------
+
+def s2s_serve_launches(recipe, n_layers=6):
+    """Kernel launches of one served run (`s2s_serve_run`): every
+    projection through kernel 1's forward layout (hybrid, frozen scales)
+    or kernel 5 (the paper's recipe) — 7 a layer in each of the two
+    encodes (the prefill's and the caller's), 11 a decoder layer in the
+    prefill and in each of the S2S_NEW - 1 decode steps (the
+    cross-attention projects the encoder output at every step) — and,
+    hybrid, kernel 2 for every attention: each encode's 'full', the
+    prefill's 'causal' and cross 'full', each decode step's 'kv' and cross
+    'full' at Q = 1."""
+    out = {k: 0 for k in STEP_LAUNCHES}
+    gemms = 2 * 7 * n_layers + 11 * n_layers * S2S_NEW
+    if recipe == "hybrid":
+        out["fused_quant_matmul.nn"] = gemms
+        out["fp8_attention_fwd"] = 2 * n_layers + 2 * n_layers * S2S_NEW
+    else:
+        out["fp8_matmul"] = gemms
+    return out
+
+
+def s2s_serve_run(dev, cfg, params, frozen, batch):
+    """Serve the B sources of `batch` through make_serve_prefill /
+    make_serve_decode: the prefill of the first S2S_PROMPT target tokens
+    (encode included) into fresh fixed-slot caches of S2S_CACHE slots, the
+    encoder output computed for the decode steps as the reference's caller
+    must (`encode` under the frozen scales), then S2S_NEW - 1 greedy
+    decode steps: S2S_NEW tokens a row. Launch counts set to 0 just
+    before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import encode, init_stack_state
+    from repro_torch.train.step import (_eval_cfg, _maybe_frozen,
+                                        make_serve_decode, make_serve_prefill)
+    prefill = make_serve_prefill(cfg, frozen)
+    decode = make_serve_decode(cfg, frozen)
+    b = batch["tokens"].shape[0]
+    states = init_stack_state(cfg, b, S2S_CACHE, device=dev)
+    toks = torch.from_numpy(batch["tokens"][:, :S2S_PROMPT]).long().to(dev)
+    enc_in = torch.from_numpy(batch["enc_inputs"]).to(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, states = prefill(params, {"tokens": toks, "enc_inputs": enc_in},
+                             states)
+    nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad(), _maybe_frozen(frozen):
+        enc_out = encode(params, enc_in, cfg=_eval_cfg(cfg, frozen))
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    out, steps, finite = [nxt], [], bool(torch.isfinite(logits).all())
+    for i in range(S2S_NEW - 1):
+        t0 = time.perf_counter()
+        logits, states = decode(params, {
+            "tokens": nxt[:, None],
+            "positions": torch.full((b, 1), S2S_PROMPT + i, device=dev),
+            "enc_out": enc_out}, states)
+        nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        out.append(nxt)
+        finite &= bool(torch.isfinite(logits).all())
+    launches = launch_counts()
+    tokens = torch.stack(out, 1).cpu().numpy()
+    return dict(prefill_s=prefill_s, encode_s=encode_s, steps=steps,
+                p50_ms=float(np.median(steps)) * 1e3,
+                p99_ms=float(np.percentile(steps, 99)) * 1e3,
+                tokens_s=b * len(steps) / sum(steps), tokens=tokens,
+                kv_bytes=kv_bytes(states), launches=launches, finite=finite)
+
+
+def serve_s2s(dev):
+    """Phase 13: the paper-transformer (6 + 6 layers, d 1024, 16 heads of
+    64, vocab 32000; seeded weights) served. Calibrated on two
+    synthetic_seq2seq_batches of B=8 x 256 source frames with their
+    enc_inputs (the e5m2 KV cache's sites among the sites), frozen with
+    formats; then the 8 sources of the first batch served
+    (`s2s_serve_run`) on a bf16 and on an e5m2 KV cache from the frozen
+    scales (kernels 1 and 2), and under the paper's recipe without frozen
+    scales (kernel 5, unfused attention), launches against
+    s2s_serve_launches; one decode step with the kernels against the same
+    step with the plain versions on the card from the same caches, within
+    DECODE_TOL, for the e5m2-cache run (planted fault: the
+    cross-attention's K read at twice its scale) and the paper recipe's
+    (kernel 5 dropping its last K block)."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.core import qattention
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.scaling.calibrate import calibrate, freeze_with_formats
+    cfg = s2s_cfg("hybrid")
+    cfg8 = cfg.replace(policy=dataclasses.replace(cfg.policy,
+                                                  kv_cache_format="e5m2"))
+    pcfg = s2s_cfg("paper")
+    params = init_lm(cfg, seed=0, device=dev)
+    batches = s2s_batches(2)
+    t0 = time.perf_counter()
+    ds, state = calibrate(params, cfg8, batches)
+    frozen, formats = freeze_with_formats(ds, state, cfg8)
+    keys = ds.registry.keys
+    log(f"seq2seq serving: calibrated {len(keys)} sites ("
+        f"{sum(k.startswith('encoder/') for k in keys)} encoder, "
+        f"{sum('/cross_attn/' in k for k in keys)} cross-attention, "
+        f"{sum('/kv/' in k for k in keys)} KV-cache) on 2 batches of B=8 x "
+        f"256 source frames in {time.perf_counter() - t0:.1f} s; "
+        f"{len(frozen)} frozen scales")
+    failed, runs = [], {}
+    for name, c, fz, recipe in (
+            ("hybrid, bf16 KV", cfg, frozen, "hybrid"),
+            ("hybrid, e5m2 KV", cfg8, frozen, "hybrid"),
+            ("paper recipe, bf16 KV", pcfg, None, "paper")):
+        r = runs[name] = s2s_serve_run(dev, c, params, fz, batches[0])
+        log(f"seq2seq serving {name} (B=8, {S2S_PROMPT}-token prefix, "
+            f"{S2S_NEW} greedy tokens): prefill {r['prefill_s'] * 1e3:.1f} "
+            f"ms (encode included; the caller's encode "
+            f"{r['encode_s'] * 1e3:.1f} ms), decode step p50 "
+            f"{r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, "
+            f"{r['tokens_s']:.1f} decode tokens/s, KV cache {r['kv_bytes']} "
+            f"bytes; launches {r['launches']} [{CARD}]")
+        log(f"  tokens of row 0: {r['tokens'][0].tolist()}")
+        want = s2s_serve_launches(recipe, c.n_layers)
+        if r["launches"] != want:
+            failed.append(f"{name}: launches {r['launches']}, expected "
+                          f"{want}")
+        if not r["finite"] or r["tokens"].shape != (T5_B, S2S_NEW) or not (
+                (0 <= r["tokens"]) & (r["tokens"] < cfg.vocab_size)).all():
+            failed.append(f"{name}: malformed output (finite "
+                          f"{r['finite']}, tokens {r['tokens'].shape})")
+    agree = float(np.mean(runs["hybrid, e5m2 KV"]["tokens"]
+                          == runs["hybrid, bf16 KV"]["tokens"]))
+    log(f"seq2seq serving: e5m2-KV tokens agree with the bf16-KV tokens at "
+        f"{agree:.3f} of positions (an accuracy reading)")
+
+    tokens = torch.from_numpy(batches[0]["tokens"][:, :S2S_PROMPT]).long() \
+        .to(dev)
+    enc_in = torch.from_numpy(batches[0]["enc_inputs"]).to(dev)
+    factors, sdpa = qattention._fwd_factors, attn_mod.fp8_sdpa
+
+    def k_twice(s_q, s_k, *rest):
+        return factors(s_q, np.float32(2) * np.float32(s_k), *rest)
+
+    def cross_k_twice(q, k, v, **kw):
+        """The cross-attention's (q rows != kv rows) K read at 2x."""
+        if kw.get("mask_mode") == "full" and q.shape[2] != k.shape[2]:
+            with mock.patch.object(qattention, "_fwd_factors", k_twice):
+                return sdpa(q, k, v, **kw)
+        return sdpa(q, k, v, **kw)
+    plain = plain_patches()
+    what = f"B=8 rows of {S2S_PROMPT}-token prefixes, 6 + 6 layers"
+    fault = "cross-attention K read at 2x its scale"
+    failed += check_decode_parity("paper-transformer, e5m2 KV (hybrid)",
+                                  decode_runs(
+        dev, cfg8, params, frozen, tokens, {
+            "kernels": [], "plain": plain,
+            fault: [*plain, (attn_mod, "fp8_sdpa", cross_k_twice)]},
+        enc_inputs=enc_in, cache=S2S_CACHE), [fault], what)
+    launch = mm._launch
+    drop_last_k = lambda a, b, out_dtype: launch(  # noqa: E731
+        a[:, :-64].contiguous(), b[:-64].contiguous(), out_dtype)
+    failed += check_decode_parity("paper-transformer, paper recipe",
+                                  decode_runs(
+        dev, pcfg, params, None, tokens, {
+            "kernels": [],
+            "plain": [(mm, "fp8_matmul", mm_ref.fp8_matmul_ref)],
+            "kernel 5 drops its last K block": [
+                (mm, "_launch", drop_last_k)]},
+        enc_inputs=enc_in, cache=S2S_CACHE),
+        ["kernel 5 drops its last K block"], what)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {name: dict(r, tokens=None) for name, r in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training step's options on qwen2-1.5b at full width
+# ---------------------------------------------------------------------------
+
+# Recomputation runs every forward GEMM and attention forward a second time
+# in the backward: a step's launches with remat=True.
+REMAT_STEP_LAUNCHES = {**STEP_LAUNCHES,
+                       "fused_quant_matmul.nn": 2 * 196,
+                       "fp8_attention_fwd": 2 * 28}
+# The two options timed at 28 layers and held at 2 layers (phase 14c): the
+# hybrid recipe with delayed scaling off the fused path, and with
+# just-in-time amax scaling; either way kernel 5 runs every forward
+# projection, nothing else runs a kernel.
+OPTIONS = {"unfused delayed": dict(recipe="hybrid", scaling="delayed",
+                                   fuse_epilogue=False,
+                                   fuse_attention=False),
+           "jit_amax": dict(recipe="hybrid", scaling="jit_amax")}
+OPTION_TIMED_STEPS = 2
+
+
+def option_cfg(name, n_layers=None, rne=False):
+    """qwen2-1.5b at full width under OPTIONS[name] on the kernel backend,
+    no remat; rne=True rounds every class RNE."""
+    import dataclasses
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.registry import build_config
+    quant = QuantConfig(backend="pallas", **OPTIONS[name])
+    if rne:
+        quant = dataclasses.replace(quant, act_rounding="rne",
+                                    error_rounding="rne", grad_rounding="rne")
+    cfg = build_config("qwen2-1.5b").replace(remat=False)
+    cfg = cfg.replace(policy=dataclasses.replace(cfg.policy, quant=quant))
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def timed_steps(dev, cfg, want, n=OPTION_TIMED_STEPS):
+    """qwen2-1.5b under `cfg` at B x S: one warm-up step, then `n` timed
+    ones (launch counts set to 0 just before them and read just after,
+    held to `want` a step); Adam through the fp16-master optimizer,
+    enhanced loss scaling from 2^13, delayed scaling where the config asks
+    for it. Returns p50 ms, tokens/s, max_memory_allocated GiB and the
+    launches a step."""
+    import numpy as np
+    import torch
+    from repro_torch.core.loss_scale import LossScaler
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    params = init_lm(cfg, seed=0, device=dev)
+    data = synthetic_lm_batches(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TRAIN_S,
+                                           batch_size=TRAIN_B, seed=0))
+    batches = [next(data) for _ in range(n + 1)]
+    ds = None
+    if cfg.policy.quant.delayed:
+        ds = DelayedScaling(discover_lm_sites(cfg, params, {
+            k: v[:1, :128] for k, v in batches[0].items()}),
+            qcfg=cfg.policy.quant)
+    opt = make_optimizer_for(cfg, learning_rate=1e-4, scaler=LossScaler(
+        mode="enhanced", init_scale=2.0 ** 13))
+    box = [opt.init(params), ds.init() if ds is not None else None]
+    del params
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt, scaling=ds)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(b):
+        if ds is None:
+            box[0], m = step(box[0], b, gen)
+        else:
+            (box[0], box[1]), m = step(box[0], box[1], b, gen)
+        return m
+
+    one(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        m = one(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50 = float(np.median(times)) * 1e3
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if launches != {k: v * n for k, v in want.items()}:
+        raise AssertionError(f"launches {launches}, expected {want} a step")
+    return dict(p50_ms=p50, tokens_s=TRAIN_B * TRAIN_S / (p50 / 1e3),
+                peak_gib=peak, losses=losses,
+                launches={k: v // n for k, v in launches.items()})
+
+
+def train_remat(dev, trained):
+    """Phase 14a: qwen2-1.5b at full width and depth (28 layers), the
+    hybrid recipe with delayed scaling on the fused path (phase 6's), with
+    remat=True: each layer recomputed in the backward (its forward GEMMs
+    and attention forward launched twice a step)."""
+    cfg = train_cfg().replace(remat=True)
+    r = timed_steps(dev, cfg, REMAT_STEP_LAUNCHES)
+    base = "" if trained is None else (
+        f" (phase 6 without remat: p50 {trained['p50_ms']:.1f} ms, "
+        f"{trained['tokens_s']:.0f} tokens/s, {trained['peak_gib']:.2f} GiB)")
+    log(f"remat train (28 layers, hybrid delayed, B={TRAIN_B} x "
+        f"S={TRAIN_S}, 1 warm-up + {OPTION_TIMED_STEPS} timed steps): step "
+        f"p50 {r['p50_ms']:.1f} ms, {r['tokens_s']:.0f} tokens/s, "
+        f"max_memory_allocated {r['peak_gib']:.2f} GiB{base}; losses "
+        f"{r['losses']}; launches per step {r['launches']} [{CARD}]")
+    return r
+
+
+def remat_parity(dev):
+    """Phase 14b: two training steps at full width, 2 layers, B=2, S=256,
+    hybrid delayed with SR, on the kernels: remat=True against remat=False
+    from the same weights, ScaleState and generator seed, bit for bit —
+    the metrics, the master weights, the ScaleState, and the gradients of
+    a third loss under collect() of the resulting ScaleState. A planted
+    fault (the recomputation drawing its SR bits from the step's own
+    generator) must break the equality."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.models import remat as remat_mod
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim.optimizers import tmap
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = train_cfg(2)
+    params = init_lm(cfg, seed=0, device=dev)
+    batch = next(synthetic_lm_batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=256, batch_size=2, seed=1)))
+    reg = discover_lm_sites(cfg, params, batch)
+
+    def run(remat):
+        c = cfg.replace(remat=remat)
+        ds = DelayedScaling(reg, qcfg=c.policy.quant)
+        opt = make_optimizer_for(c)
+        st, ss = opt.init(params), ds.init()
+        step = make_train_step(c, opt, scaling=ds)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        mets = []
+        for _ in range(2):
+            (st, ss), m = step(st, ss, batch, gen)
+            mets.append(m)
+        p = tmap(lambda x: x.requires_grad_(True), opt.compute_params(st))
+        with ds.collect(ss):
+            loss, _ = lm_loss(p, batch, cfg=c, qgen=gen,
+                              loss_scale=st.loss_scale.scale)
+            loss.backward()
+        return (mets, list(_leaves(st.master)), ss,
+                [x.grad for x in _leaves(p)])
+
+    def equal(a, b):
+        """Bit for bit, NaN where the other is NaN (the first step
+        overflows: its gradients and grad_norm hold NaN / inf)."""
+        (ma, wa, sa, ga), (mb, wb, sb, gb) = a, b
+        return (all(np.array_equal(np.float64(x[k]), np.float64(y[k]),
+                                   equal_nan=True)
+                    for x, y in zip(ma, mb) for k in x)
+                and all(same_bits(x, y) for x, y in zip(wa, wb))
+                and all(same_bits(x, y) for x, y in zip(ga, gb))
+                and np.array_equal(sa.amax_history, sb.amax_history,
+                                   equal_nan=True)
+                and np.array_equal(sa.scale, sb.scale, equal_nan=True))
+
+    before = launch_counts()["fused_quant_matmul.nn"]
+    plain = run(False)
+    mid = launch_counts()["fused_quant_matmul.nn"]
+    got = run(True)
+    after = launch_counts()["fused_quant_matmul.nn"]
+    with mock.patch.object(remat_mod, "replay_generator",
+                           lambda gen, state: gen):
+        fault = run(True)
+    same, caught = equal(got, plain), not equal(fault, plain)
+    log(f"remat parity (2 layers, full width, B=2, S=256, hybrid delayed, "
+        f"SR): remat=True vs remat=False over two steps and a third "
+        f"loss's gradients: {'bitwise equal' if same else 'DIFFERENT'} "
+        f"(losses {[m['loss'] for m in got[0]]} vs "
+        f"{[m['loss'] for m in plain[0]]}); forward GEMM launches "
+        f"{after - mid} with remat, {mid - before} without; planted fault "
+        f"(recompute draws from the step's generator) "
+        f"{'caught' if caught else 'NOT caught'} (losses "
+        f"{[m['loss'] for m in fault[0]]})")
+    if not same or not caught or not after - mid > mid - before:
+        raise AssertionError(f"remat parity: equal {same}, fault caught "
+                             f"{caught}, launches {after - mid} vs "
+                             f"{mid - before}")
+    return dict(equal=same, fault_caught=caught)
+
+
+def option_parity(dev, name):
+    """One all-SR training step's loss and gradients of OPTIONS[name] at
+    full width, 2 layers, B=2, S=256 (delayed scaling from a ScaleState
+    one kernel step produced), run: kernels on the card; kernel 5 pointed
+    at its plain version; a planted kernel-5 fault (its last 64-wide K
+    block dropped). Kernels vs plain must read a gradient rel L2 below
+    TRAIN_STEP_TOL and the loss within LOSS_TOL, the fault above
+    TRAIN_STEP_TOL."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.kernels.fp8_matmul import ref as mm_ref
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim.optimizers import tmap
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = option_cfg(name, 2)
+    params = init_lm(cfg, seed=0, device=dev)
+    batch = next(synthetic_lm_batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=256, batch_size=2, seed=1)))
+    ds = ss1 = None
+    if cfg.policy.quant.delayed:
+        ds = DelayedScaling(discover_lm_sites(cfg, params, batch),
+                            qcfg=cfg.policy.quant)
+        opt = make_optimizer_for(cfg)
+        (_, ss1), _ = make_train_step(cfg, opt, scaling=ds)(
+            opt.init(params), ds.init(), batch,
+            torch.Generator(device=dev).manual_seed(5))
+    launch = mm._launch
+
+    def drop_last_k(a, b, out_dtype):
+        k = a.shape[1] - 64
+        return launch(a[:, :k].contiguous(), b[:k].contiguous(), out_dtype)
+
+    def run(*patches):
+        before = launch_counts()["fp8_matmul"]
+        with contextlib.ExitStack() as stack:
+            for obj, attr, value in patches:
+                stack.enter_context(mock.patch.object(obj, attr, value))
+            opt = make_optimizer_for(cfg)
+            st = opt.init(params)
+            prm = tmap(lambda x: x.requires_grad_(True),
+                       opt.compute_params(st))
+            with ds.collect(ss1) if ds is not None \
+                    else contextlib.nullcontext():
+                loss, _ = lm_loss(prm, batch, cfg=cfg, qgen=torch.Generator(
+                    device=dev).manual_seed(0),
+                    loss_scale=st.loss_scale.scale)
+                loss.backward()
+            grads = [x.grad.float() for x in _leaves(prm)]
+        return loss.item(), grads, launch_counts()["fp8_matmul"] - before
+
+    def rel(a, b):
+        num = sum(float((x - y).double().pow(2).sum()) for x, y in zip(a, b))
+        return (num / sum(float(y.double().pow(2).sum()) for y in b)) ** 0.5
+
+    lk, gk, n_k = run()
+    lp, gp, n_p = run((mm, "fp8_matmul", mm_ref.fp8_matmul_ref))
+    lf, gf, n_f = run((mm, "_launch", drop_last_k))
+    r_kp, r_f = rel(gk, gp), rel(gf, gp)
+    log(f"{name} step parity (2 layers, full width, B=2, S=256, SR), "
+        f"gradient rel L2 (tolerance {TRAIN_STEP_TOL}): kernels vs plain on "
+        f"the card {r_kp:.3e} (loss {lk:.6f} vs {lp:.6f}); planted fault "
+        f"'kernel 5 drops its last K block' {r_f:.3e} (loss {lf:.6f}); "
+        f"kernel-5 launches {n_k} / {n_p} / {n_f}")
+    if n_k != 2 * 7 or n_p != 0 or n_f != 2 * 7:
+        raise AssertionError(f"kernel-5 launches: kernels {n_k}, plain "
+                             f"{n_p}, fault {n_f}")
+    if not (r_kp < TRAIN_STEP_TOL and abs(lk - lp) <= LOSS_TOL * abs(lp)):
+        raise AssertionError(f"{name}: kernels vs plain rel L2 {r_kp}, loss "
+                             f"{lk} vs {lp}")
+    if r_f <= TRAIN_STEP_TOL:   # NaN reads as seen
+        raise AssertionError(f"{name}: the planted kernel-5 fault reads "
+                             f"{r_f:.3e}")
+    return dict(kernels_vs_plain=r_kp, fault=r_f)
+
+
+def train_options(dev):
+    """Phase 14c: each of OPTIONS held at 2 layers against the plain
+    versions on the card (`option_parity`), then timed at 28 layers
+    (`timed_steps`: one warm-up, two timed steps)."""
+    out = {}
+    for name in OPTIONS:
+        parity = option_parity(dev, name)
+        gc_collect()
+        r = timed_steps(dev, option_cfg(name), PAPER_STEP_LAUNCHES)
+        log(f"{name} train (28 layers, B={TRAIN_B} x S={TRAIN_S}, 1 warm-up "
+            f"+ {OPTION_TIMED_STEPS} timed steps): step p50 "
+            f"{r['p50_ms']:.1f} ms, {r['tokens_s']:.0f} tokens/s, "
+            f"max_memory_allocated {r['peak_gib']:.2f} GiB; losses "
+            f"{r['losses']}; launches per step {r['launches']} [{CARD}]")
+        out[name] = dict(r, parity=parity)
+        gc_collect()
+    return out
+
+
 def gc_collect():
     import torch
     gc.collect()
@@ -3991,7 +4530,7 @@ def main() -> int:
     sr_rows = phase(time_sr, dev)
     phase(check_attention_exact, dev)
     phase(check_attention_schedule, dev, fwd_probe)
-    phase(check_attention, dev)
+    fwd_rows = phase(check_attention, dev)
     phase(check_attention_bwd, dev)
     phase(check_attention_bwd_overflow, dev)
     phase(check_dkv_schedule, dev, dkv_probe)
@@ -4007,6 +4546,13 @@ def main() -> int:
     t5_gemm_rows = phase(time_gemm_train, dev, T5_M, T5_PROJ)
     t5_mm_rows = phase(time_fp8_matmul, dev, T5_MM_SHAPES)
     t5_attn_rows = phase(time_attention_shapes, dev)
+    # Kernel 1 at the paper-transformer's serving rows (phase 13): a decode
+    # step's M = 8 and the prefill's 8 x S2S_PROMPT, forward layout only.
+    s2s_gemm_rows = []
+    for m in (T5_B, T5_B * S2S_PROMPT):
+        phase(check_gemm_train, dev, m, T5_PROJ, 22, ("nn",))
+        s2s_gemm_rows += phase(time_gemm_train, dev, m, T5_PROJ,
+                               ("nn",)) or []
     calib = phase(calibrate_full, dev)
     if calib is not None:
         cfg, params, frozen, formats = calib
@@ -4039,6 +4585,14 @@ def main() -> int:
     gc_collect()
     trainer = phase(train_trainer, dev)
     phase(trainer_resume_parity, dev)
+    gc_collect()
+    s2s_served = phase(serve_s2s, dev)
+    gc_collect()
+    remat = phase(train_remat, dev, trained)
+    gc_collect()
+    phase(remat_parity, dev)
+    gc_collect()
+    options = phase(train_options, dev)
     if failures:
         log(f"{len(failures)} phase(s) failed:\n  " + "\n  ".join(failures))
         return 1
@@ -4143,10 +4697,18 @@ def main() -> int:
              "paper-transformer hybrid": s2s_hybrid["launches"],
              "paper-transformer paper": s2s_paper["launches"],
              "qwen2-1.5b trainer (hybrid, track_health, 2 microbatches)":
-                 trainer["per_step"]}
+                 trainer["per_step"],
+             "qwen2-1.5b hybrid, remat": remat["launches"],
+             "qwen2-1.5b hybrid, unfused delayed":
+                 options["unfused delayed"]["launches"],
+             "qwen2-1.5b hybrid, jit_amax": options["jit_amax"]["launches"]}
+    for name, run in s2s_served.items():
+        paths[f"paper-transformer serving {name} (a run: prefill and "
+              f"{S2S_NEW - 1} decode steps, B=8)"] = run["launches"]
     other = [[dict(r, shape=f"{r['dims']} M={r['m']} K={r['c']} N={r['n']}")
-              for r in t5_gemm_rows],
-             [r["fwd"] for r in t5_attn_rows],
+              for r in t5_gemm_rows + s2s_gemm_rows],
+             [r["fwd"] for r in t5_attn_rows]
+             + [fwd_rows[m] for m in S2S_ATTN],
              [r["dq"] for r in t5_attn_rows],
              [r["dkv"] for r in t5_attn_rows],
              conv_rows + t5_mm_rows, [], []]
@@ -4163,7 +4725,11 @@ def main() -> int:
         f"{resnet['images_s']:.0f} images/s; paper-transformer "
         f"{s2s_hybrid['tokens_s']:.0f} (hybrid) and "
         f"{s2s_paper['tokens_s']:.0f} (paper) target tokens/s; the trainer "
-        f"{trainer['tokens_s']:.0f} tokens/s on {card}")
+        f"{trainer['tokens_s']:.0f} tokens/s; paper-transformer serving "
+        f"{s2s_served['hybrid, bf16 KV']['tokens_s']:.0f} decode tokens/s "
+        f"(hybrid, bf16 KV); remat {remat['tokens_s']:.0f}, unfused delayed "
+        f"{options['unfused delayed']['tokens_s']:.0f}, jit_amax "
+        f"{options['jit_amax']['tokens_s']:.0f} tokens/s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

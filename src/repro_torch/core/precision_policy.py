@@ -70,6 +70,18 @@ class QuantConfig:
     def saturate_for(self, cls: str) -> bool:
         return self.saturate_fwd if cls in (WEIGHT, ACT) else self.saturate_bwd
 
+    def amax_for(self, cls: str) -> bool:
+        """Just-in-time amax scaling for `cls`? scaling="jit_amax" given
+        directly scales every class; the deprecated amax_scale_fwd /
+        amax_scale_bwd shims select the forward (W, A) or backward (E, G)
+        classes. Delayed scaling never reduces inline."""
+        if self.scaling != "jit_amax":
+            return False
+        if not (self.amax_scale_fwd or self.amax_scale_bwd):
+            return True
+        return self.amax_scale_fwd if cls in (WEIGHT, ACT) \
+            else self.amax_scale_bwd
+
     @property
     def delayed(self) -> bool:
         return self.scaling == "delayed"

@@ -92,7 +92,8 @@ def _check_frozen_sites(ctx, keys):
             f"frozen serving through the fused FP8 attention kernel, but "
             f"site(s) {missing} have no calibrated scale — the in-kernel "
             "S/P Q nodes would use silent unit scales; recalibrate with "
-            "fuse_attention enabled")
+            "fuse_attention enabled or serve with "
+            "QuantConfig(fuse_attention=False)")
 
 
 class _FP8SDPA(torch.autograd.Function):

@@ -16,9 +16,18 @@ saves for the backward — not the bf16 activations. A disabled config (the
 16-bit logits head) takes `_plain_einsum` through ordinary autograd.
 
 Every other enabled call takes the unfused path (`_qeinsum_fwd`'s unfused
-branch and `_qeinsum_bwd` of the reference): the paper's own recipe
-(scaling "none", unit scales), any backend. Its GEMMs return the f32
-accumulator, times the operand scales, cast to the output dtype:
+branch and `_qeinsum_bwd` of the reference), any backend: the paper's own
+recipe (scaling "none", unit scales); just-in-time amax scaling
+("jit_amax": each class `QuantConfig.amax_for` selects quantizes at its
+tensor's own amax scale, a 0-d device tensor that the GEMM's output scale
+and the dequantize multiply by on the device); and delayed scaling off the
+fused path (`fuse_epilogue=False`, an "xla" backend, the attention's 4-D
+contractions), where, with a context and a site, the operands quantize at
+their sites' scales (#a / #b, and #E / #G in the backward), the forward
+records the payloads' amaxes, and the backward records the E / G amaxes
+through `record_bwd` — summed over uses, read times 1/uses, as the
+reference's token cotangent is. Its GEMMs return the f32 accumulator,
+times the operand scales, cast to the output dtype:
 
     forward:  Y  = Q_A(a) . Q_W(b)              '...k,kn->...n' under a
                                                 kernel backend: the fp8
@@ -99,17 +108,16 @@ def _quant_operand(x: torch.Tensor, cls: str, cfg: QuantConfig,
                    scale=None, generator: Optional[torch.Generator] = None
                    ) -> QTensor:
     """Quantize one operand: the history-derived per-site scale under
-    delayed scaling (reciprocal multiply), the unit scale otherwise."""
+    delayed scaling (reciprocal multiply); otherwise the tensor's own amax
+    scale for a class `amax_for` selects, else the unit scale."""
     fmt = get_format(cfg.format_for(cls))
-    if cfg.scaling == "jit_amax":
-        raise NotImplementedError("jit_amax scaling is not ported yet "
-                                  "(ROADMAP.md, queue 1)")
     if cfg.delayed:
         scale = f32(1.0) if scale is None else scale
     else:
         scale = None
     return _quantize(x, fmt, rounding=cfg.rounding_for(cls),
                      generator=generator, scale=scale,
+                     use_amax_scale=cfg.amax_for(cls),
                      saturate=cfg.saturate_for(cls))
 
 
@@ -162,8 +170,13 @@ def _compute(spec: str, qa: QTensor, qb: QTensor,
              cfg: QuantConfig) -> torch.Tensor:
     """fp8 x fp8 -> f32 accumulate -> times qa.scale * qb.scale ->
     output_dtype; a '...k,kn->...n' contraction under a kernel backend runs
-    the fp8 GEMM kernel."""
-    out_scale = f32(qa.scale) * f32(qb.scale)
+    the fp8 GEMM kernel. Host scales multiply as host f32; a device scale
+    (jit amax) makes the product a device f32 scalar."""
+    sa, sb = qa.scale, qb.scale
+    if isinstance(sa, torch.Tensor) or isinstance(sb, torch.Tensor):
+        out_scale = torch.as_tensor(sa) * torch.as_tensor(sb)
+    else:
+        out_scale = float(f32(sa) * f32(sb))
     if kernel_backend(cfg) and _pallas_matmul_spec(spec):
         from repro_torch.kernels.fp8_matmul import ops as mm_ops
         a2 = qa.data.reshape((-1, qa.data.shape[-1]))
@@ -171,15 +184,19 @@ def _compute(spec: str, qa: QTensor, qb: QTensor,
             qa.data.shape[:-1] + (qb.data.shape[-1],))
     else:
         y = torch.einsum(spec, qa.data.float(), qb.data.float())
-    return (y * float(out_scale)).to(dtype_of(cfg.output_dtype))
+    return (y * out_scale).to(dtype_of(cfg.output_dtype))
 
 
 def _fake_quant_grad(g: torch.Tensor, cfg: QuantConfig,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
-    """The weight gradient stored in FP8 (class G) and read back in g's
-    dtype; the optimizer unscales in f32."""
-    q = _quant_operand(g, GRAD, cfg, None, generator)
-    return _dequantize(q, dtype=g.dtype)
+                     generator: Optional[torch.Generator], scale=None):
+    """The weight gradient stored in FP8 (class G, at the site's #G scale
+    under delayed scaling) and read back in g's dtype; the optimizer
+    unscales in f32. Returns (gradient, its payload's amax, its health
+    pair under `_track(cfg)` or None)."""
+    q = _quant_operand(g, GRAD, cfg, scale, generator)
+    obs = _observe(q) if cfg.delayed else None
+    health = _health(q, cfg, GRAD) if _track(cfg) else None
+    return _dequantize(q, dtype=g.dtype), obs, health
 
 
 def _plain_einsum(spec: str, a, b, cfg: QuantConfig) -> torch.Tensor:
@@ -274,15 +291,23 @@ class _QEinsum(torch.autograd.Function):
 
 class _QEinsumUnfused(torch.autograd.Function):
     """The unfused custom gradient (`_qeinsum_fwd`'s unfused branch and
-    `_qeinsum_bwd` of the reference) at unit scales. `meta`: (spec, cfg,
-    classes, generator). Saves the fp8 payloads qa, qb."""
+    `_qeinsum_bwd` of the reference). `meta`: (spec, cfg, classes, scales,
+    sctx, keys, generator): scales [a, b, E, G] (None: unit scales, or the
+    operand's amax scale under jit_amax); keys the delayed site's operand
+    keys, or None. Saves the fp8 payloads qa, qb."""
 
     @staticmethod
     def forward(ctx, a, b, meta):
-        spec, cfg, classes, gen = meta
-        qa = _quant_operand(a, classes[0], cfg, None, gen)
-        qb = _quant_operand(b, classes[1], cfg, None, gen)
+        spec, cfg, classes, scales, sctx, keys, gen = meta
+        qa = _quant_operand(a, classes[0], cfg, scales[0], gen)
+        qb = _quant_operand(b, classes[1], cfg, scales[1], gen)
         y = _compute(spec, qa, qb, cfg)
+        if keys is not None and sctx.mode in ("collect", "calibrate"):
+            sctx.record(keys["a"], _observe(qa))
+            sctx.record(keys["b"], _observe(qb))
+            if _track(cfg):
+                sctx.record_health(keys["a"], _health(qa, cfg, classes[0]))
+                sctx.record_health(keys["b"], _health(qb, cfg, classes[1]))
         ctx.save_for_backward(qa.data, qb.data)
         ctx.meta = meta
         ctx.qscales = (qa.scale, qb.scale)
@@ -292,18 +317,31 @@ class _QEinsumUnfused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         qa_data, qb_data = ctx.saved_tensors
-        spec, cfg, classes, gen = ctx.meta
+        spec, cfg, classes, scales, sctx, keys, gen = ctx.meta
         qa = QTensor(qa_data, ctx.qscales[0])
         qb = QTensor(qb_data, ctx.qscales[1])
-        qdy = _quant_operand(dy, ERROR, cfg, None, gen)
+        qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen)
         da_spec, db_spec = adjoint_specs(spec)
         da = _compute(da_spec, qdy, qb, cfg)
         db = _compute(db_spec, qa, qdy, cfg)
         # Weight gradients are stored in FP8 (class G, paper Fig. 1b).
+        g_obs = []
         if classes[0] == WEIGHT:
-            da = _fake_quant_grad(da, cfg, gen)
+            da, *obs = _fake_quant_grad(da, cfg, gen, scales[3])
+            g_obs.append(obs)
         if classes[1] == WEIGHT:
-            db = _fake_quant_grad(db, cfg, gen)
+            db, *obs = _fake_quant_grad(db, cfg, gen, scales[3])
+            g_obs.append(obs)
+        if keys is not None and sctx.mode == "collect":
+            sctx.record_bwd(keys["E"], _observe(qdy))
+            if g_obs:
+                sctx.record_bwd(keys["G"], functools.reduce(
+                    torch.maximum, [o[0] for o in g_obs]))
+            if _track(cfg):
+                sctx.record_bwd_health(keys["E"], _health(qdy, cfg, ERROR))
+                if g_obs:
+                    sctx.record_bwd_health(keys["G"], functools.reduce(
+                        torch.maximum, [o[1] for o in g_obs]))
         return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 
@@ -313,12 +351,13 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
             site: Optional[str] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Quantized einsum with its custom gradient. A disabled config is the
-    16-bit plain einsum. On the fused path, with an active ScaleContext and
-    a site name, operand and output scales come from the context, forward
-    amaxes are recorded (collect / calibrate) and the backward records the
-    E / G / #da.E observations (collect). The unfused path runs at unit
-    scales without a context (the paper's recipe); delayed scaling there
-    is not ported. SR bits come from `generator`."""
+    16-bit plain einsum. Under delayed scaling with an active ScaleContext
+    and a site name, the operand scales (and, on the fused path, the output
+    scales) come from the context, forward amaxes are recorded (collect /
+    calibrate) and the backward records the E / G (and #da.E)
+    observations (collect). Without a context or a site delayed scaling
+    runs at unit scales, as in the reference. SR bits come from
+    `generator`."""
     parse_spec(spec)
     if not cfg.enabled:
         return _plain_einsum(spec, a, b, cfg)
@@ -327,21 +366,24 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
                          f"{spec!r}) needs a torch.Generator")
     classes = tuple(classes)
     ctx = scale_ctx.current()
-    if not _fused_epilogue(spec, classes, cfg):
-        if cfg.delayed and ctx is not None and site is not None:
-            raise NotImplementedError(
-                "the unfused qeinsum runs at unit scales; delayed scaling "
-                "on it is not ported yet (ROADMAP.md, queue 1)")
-        return _QEinsumUnfused.apply(a, b, (spec, cfg, classes, generator))
-    scales = [f32(1.0)] * N_SCALES
+    fused = _fused_epilogue(spec, classes, cfg)
     keys = fkeys = None
-    if ctx is not None and site is not None:
+    if cfg.delayed and ctx is not None and site is not None:
         skey = ctx.site_key(site)
         keys = scale_ctx.operand_keys(skey, classes)
-        fkeys = scale_ctx.fused_output_keys(skey, classes)
+        if WEIGHT not in classes:
+            del keys["G"]
+        fkeys = scale_ctx.fused_output_keys(skey, classes) if fused else {}
         for key in (*keys.values(), *fkeys.values()):
             ctx.register(key)
         ctx.register_token_site(skey)
+    if not fused:
+        scales = [None] * 4 if keys is None else [
+            ctx.scale_for(keys.get(n, "")) for n in ("a", "b", "E", "G")]
+        return _QEinsumUnfused.apply(
+            a, b, (spec, cfg, classes, scales, ctx, keys, generator))
+    scales = [f32(1.0)] * N_SCALES
+    if keys is not None:
         scales = [ctx.scale_for(keys[n]) for n in ("a", "b", "E", "G")] + [
             ctx.scale_for(fkeys["y"]), ctx.scale_for(fkeys.get("err", ""))]
     meta = (cfg, classes, scales, ctx, keys, fkeys, generator)

@@ -8,8 +8,13 @@ Counterpart of `repro.core.quantize`, bit for bit. Two places need care:
 * torch on the CPU has no uint16 `add` and no uint32 `>>`, so the fp16
   bit-twiddle of stochastic rounding runs in int32 with explicit masks.
 
-Scales are host-side float32 scalars (numpy.float32): every scale product
-and reciprocal is one IEEE f32 operation, exactly as in the reference.
+Scales are host-side float32 scalars (numpy.float32) at unit scales and
+under delayed scaling: every scale product and reciprocal is one IEEE f32
+operation, exactly as in the reference. A just-in-time amax scale
+(`amax_scale`, `quantize(use_amax_scale=True)`) depends on the tensor, so
+it stays a 0-d f32 tensor on the tensor's device through the quantize, the
+GEMM and the dequantize: reading it on the host would stall each Q node on
+a device->host copy.
 """
 from __future__ import annotations
 
@@ -196,10 +201,11 @@ def quantize_sr(x: torch.Tensor, fmt: FloatFormat, rand: torch.Tensor, *,
 
 @dataclasses.dataclass
 class QTensor:
-    """An FP8 payload plus a per-tensor dequantization scale (host f32):
+    """An FP8 payload plus a per-tensor dequantization scale (host f32, or
+    a 0-d f32 device tensor for a just-in-time amax scale):
     x ~= data.float() * scale."""
     data: torch.Tensor
-    scale: np.float32
+    scale: Union[np.float32, torch.Tensor]
 
     @property
     def shape(self):
@@ -226,22 +232,38 @@ def _cast_scalar(v: np.float32, dtype: torch.dtype) -> float:
     return float(torch.tensor(float(v), dtype=torch.float32).to(dtype))
 
 
+def amax_scale(x: torch.Tensor, fmt: FloatFormat, *,
+               margin: float = 1.0) -> torch.Tensor:
+    """Per-tensor scale mapping amax -> fmt.max_normal / margin, a 0-d f32
+    tensor on x's device: the abs-max reduced in x's dtype (exact), then
+    max(amax, 1e-12) * margin / max_normal in f32."""
+    amax = torch.clamp_min(x.abs().amax().float(), 1e-12)
+    return amax * margin / fmt.max_normal
+
+
 def quantize(x: torch.Tensor, fmt: Union[str, FloatFormat] = E5M2, *,
              rounding: str = "rne",
              rand: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
-             scale=None, saturate: bool = True) -> QTensor:
+             scale=None, use_amax_scale: bool = False,
+             saturate: bool = True) -> QTensor:
     """Quantize into a QTensor. rounding in {'rne', 'sr'}; 'sr' takes its
     random bits from `rand` (int, low bits used) or draws them from
-    `generator`. An explicit `scale` takes the reciprocal-multiply path
-    (x * (1/scale) in x's dtype); without one the unit scale divides."""
+    `generator`. An explicit `scale`, or the just-in-time `amax_scale`
+    with use_amax_scale, takes the reciprocal-multiply path (x * (1/scale)
+    in x's dtype; the amax scale's reciprocal computed on the device);
+    otherwise the unit scale divides."""
     if isinstance(fmt, str):
         fmt = get_format(fmt)
     if not x.is_floating_point():
         x = x.float()
+    if scale is None and use_amax_scale:
+        scale = amax_scale(x, fmt)
     if scale is None:
         scale = f32(1.0)
         xs = x / _cast_scalar(scale, x.dtype)
+    elif isinstance(scale, torch.Tensor):
+        xs = x * (torch.ones_like(scale) / scale).to(x.dtype)
     else:
         scale = f32(scale)
         xs = x * _cast_scalar(f32(1.0) / scale, x.dtype)
@@ -257,4 +279,6 @@ def quantize(x: torch.Tensor, fmt: Union[str, FloatFormat] = E5M2, *,
 
 
 def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    if isinstance(q.scale, torch.Tensor):
+        return q.data.to(dtype) * q.scale.to(dtype)
     return q.data.to(dtype) * _cast_scalar(q.scale, dtype)

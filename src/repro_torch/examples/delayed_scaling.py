@@ -4,9 +4,10 @@ serve (counterpart of the repository's `examples/delayed_scaling.py`).
     PYTHONPATH=src python -m repro_torch.examples.delayed_scaling [--device cpu]
 
 The hybrid recipe (e4m3 W/A, e5m2 E/G) with per-site scales from the amax
-history, on the kernel backend (the reference example's "xla" backend runs
-the same recipe on its unfused path, whose delayed scaling the port has
-not ported yet):
+history, on the kernel backend's fused path (the reference example's
+"xla" backend runs the same recipe on its unfused path, which the port
+also runs: `QuantConfig(backend="xla")`, or `fuse_epilogue=False,
+fuse_attention=False` on the kernel backend for kernel 5):
  1. the site registry from one forward of the loss,
  2. ten delayed-scaling training steps,
  3. calibration on held-out batches, the e5m2 KV cache's sites included,

@@ -48,11 +48,11 @@ def main(argv=None):
             vocab_size=512, remat=False)
         batch, seq = 8, 64
     else:
-        # ~100M params: 12L x d512 x ff2048, 32k vocab. Activation
-        # recomputation is not ported: remat=False.
+        # ~100M params: 12L x d512 x ff2048, 32k vocab; each layer
+        # recomputed in the backward (remat, the config's default).
         cfg = build_config(args.arch, smoke=True).replace(
             n_layers=12, d_model=512, n_heads=8, n_kv_heads=2, d_ff=2048,
-            vocab_size=32768, max_seq_len=512, remat=False)
+            vocab_size=32768, max_seq_len=512)
         batch, seq = 8, 256
     if args.baseline:
         from repro_torch.core.precision_policy import BASELINE_POLICY

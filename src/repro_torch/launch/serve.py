@@ -62,6 +62,7 @@ def main(argv=None):
                                           ServeConfig, ServeEngine)
 
     cfg = build_config(args.arch, smoke=args.smoke)
+    cfg.check_ported(serving=True)   # the engines serve no encoder-decoder
     if args.fp8_kv:
         cfg = cfg.replace(policy=dataclasses.replace(
             cfg.policy, kv_cache_format="e5m2"))

@@ -13,8 +13,10 @@ forward) and `track_health=True` (the precision-health counters, which
 exist only under delayed scaling). Either recipe runs the kernel backend
 (`backend="pallas"`, which in the port selects the CUDA kernels), with Adam
 and enhanced loss scaling from 2^13. The port runs on one device: the
-wire-format flags are accepted and ignored. Activation recomputation is not
-ported, so the config runs with remat=False.
+wire-format flags are accepted and ignored. The config trains without
+activation recomputation (remat=False; the reference's launcher keeps the
+config's remat=True off `--smoke`, and the port's step runs either way,
+bit for bit alike): chip_smoke.py's trainer phase times this path.
 
 `build_loop` makes the TrainLoop that `main` runs; chip_smoke.py drives the
 same function.

@@ -10,7 +10,10 @@ unfused composition `_sdpa`: K/V repeated over the GQA group (so each
 repeat gets its own SR bits), the two 4-D contractions as qeinsum (sites
 qk / pv), an f32 softmax between them; training and prefill sequences past
 `attn_chunk_threshold` (or a window) go through
-`chunked_causal_attention`'s static-prefix q chunks.
+`chunked_causal_attention`'s static-prefix q chunks, each recomputed in the
+training backward under `cfg.remat`, as the reference's are. Under delayed
+scaling the two contractions quantize at their sites' scales and record
+their amaxes, as the reference's do.
 
 The encoder-decoder's modes attend without a mask ('full' in the kernel):
 'encode' is the encoder's bidirectional self-attention (RoPE applied),
@@ -49,6 +52,7 @@ from repro_torch.core.qattention import (fp8_sdpa, fp8_sdpa_chunk,
 from repro_torch.core.qlinear import qeinsum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.remat import checkpointed
 from repro_torch.scaling import context as scale_ctx
 
 
@@ -242,11 +246,8 @@ def chunked_causal_attention(q, k, v, *, chunk: int, scale: float,
                              qcfg: QuantConfig, qgen, window: int = 0,
                              remat: bool = False) -> torch.Tensor:
     """Causal attention over (B,H,S,dh) in q chunks of `chunk` rows, each
-    against its static causal prefix (or window band). Recomputing the
-    chunks in the backward (remat) is not ported."""
-    if remat:
-        raise NotImplementedError("activation recomputation (remat=True) is "
-                                  "not ported (ROADMAP.md, queue 1)")
+    against its static causal prefix (or window band); with `remat` each
+    chunk is recomputed in the backward (`models.remat.checkpointed`)."""
     s = q.shape[2]
     outs = []
     for q0 in range(0, s, chunk):
@@ -257,8 +258,13 @@ def chunked_causal_attention(q, k, v, *, chunk: int, scale: float,
         mask = kpos <= qpos
         if window:
             mask &= kpos > qpos - window
-        outs.append(_sdpa(q[:, :, q0:q1], k[:, :, k0:q1], v[:, :, k0:q1],
-                          mask[None, None], scale, qcfg, qgen))
+        args = (q[:, :, q0:q1], k[:, :, k0:q1], v[:, :, k0:q1],
+                mask[None, None])
+        if remat:
+            outs.append(checkpointed(
+                lambda g, *a: _sdpa(*a, scale, qcfg, g), qgen, *args))
+        else:
+            outs.append(_sdpa(*args, scale, qcfg, qgen))
     return torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
 
 

@@ -102,9 +102,10 @@ class ModelConfig:
         return emb + per_layer + enc
 
     def check_ported(self, *, serving: bool = False):
-        """Raise for what this slice of the port does not run: families
-        other than the dense decoder and the encoder-decoder, and serving
-        (or calibrating for serving) an encoder-decoder."""
+        """Raise for what the port does not run: families other than the
+        dense decoder and the encoder-decoder; with serving=True (the
+        engines, paged serving) also an encoder-decoder, which the
+        reference's engines do not serve either."""
         bad = [k for k in self.pattern() if k != "attn"]
         if bad or self.n_experts or self.frontend:
             raise NotImplementedError(
@@ -113,6 +114,9 @@ class ModelConfig:
                 "queued in ROADMAP.md")
         if serving and self.is_encoder_decoder:
             raise NotImplementedError(
-                f"arch {self.arch!r}: serving an encoder-decoder (encode in "
-                "prefill, cross-attention decode) is not ported yet "
-                "(ROADMAP.md, queue 1)")
+                f"arch {self.arch!r}: the serving engines and paged serving "
+                "do not serve an encoder-decoder, as the reference's do not "
+                "(its engine's prefill reads batch['enc_inputs'], which "
+                "add_request never passes; its chunk step passes no "
+                "enc_out); serve one through train.step.make_serve_prefill "
+                "/ make_serve_decode")

@@ -14,9 +14,19 @@ keys are the reference's `scan_layers=False` keys (the encoder's under
 sequence-chunked cross-entropy `_chunked_ce`): the 16-bit logits head, a
 mask over the padded vocabulary, the mean NLL over the loss mask, times
 the loss scale. Autograd differentiates it; the FP8 GEMMs and attention
-carry their own custom gradients. Activation recomputation (remat) is not
-ported: autograd keeps what the forward saves (fp8 payloads for the FP8
-nodes) — ROADMAP.md.
+carry their own custom gradients, and save fp8 payloads for the backward.
+
+Activation recomputation follows the reference's scanned stack: with
+`cfg.remat` and `cfg.scan_layers` (both on by default) and more than one
+layer, each layer of a stack (the decoder's, and the encoder's) is
+recomputed in the training backward (`models.remat.checkpointed`), exactly
+where the reference's `jax.checkpoint` of the scan body recomputes it;
+with `scan_layers=False` the reference does not, and neither does the port.
+
+Serving an encoder-decoder (`forward(..., enc_out=)` in the prefill and
+decode modes): the decoder's self-attention caches as a decoder's do; the
+cross-attention has no cache and projects `enc_out` at every step, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from repro_torch.models.attention import (attention, init_attention,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        logits_head, mlp, rmsnorm)
+from repro_torch.models.remat import checkpointed
 from repro_torch.scaling import context as scale_ctx
 
 
@@ -88,8 +99,9 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
 def init_stack_state(cfg: ModelConfig, batch: int, max_len: int, *,
                      device=None):
     """Per-layer fixed-slot KV caches (`init_cache`), keyed like the
-    decoder params."""
-    cfg.check_ported(serving=True)
+    decoder params: the self-attention's only (an encoder-decoder's
+    cross-attention keeps no cache)."""
+    cfg.check_ported()
     dev = resolve_device(device)
     return {name: {"kv": init_cache(cfg, batch, max_len, device=dev)}
             for name in _layer_names(cfg)}
@@ -132,6 +144,21 @@ def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
     return h, (None if cache is None else {"kv": cache})
 
 
+def _remat(cfg: ModelConfig, n_layers: int) -> bool:
+    """Recompute a training stack's layers? Where the reference's scanned
+    stack does: remat on, scanned layers, more than one layer."""
+    return cfg.remat and cfg.scan_layers and n_layers > 1
+
+
+def _apply_stack_layer(p, h, *, remat: bool, qgen, **kw):
+    """apply_layer, recomputed in the backward when `remat` (training
+    modes only: no cache state)."""
+    if not remat:
+        return apply_layer(p, h, qgen=qgen, **kw)
+    return checkpointed(
+        lambda g, hh: apply_layer(p, hh, qgen=g, **kw)[0], qgen, h), None
+
+
 def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
               positions, page, qgen, enc_out=None):
     """Embedding and decoder layers. Returns (h, new_states)."""
@@ -141,14 +168,15 @@ def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
     if positions is None:
         positions = torch.arange(s, device=h.device)[None].expand(b, s)
     new_states = {} if states is not None else None
+    remat = mode == "train" and _remat(cfg, cfg.n_layers)
     with scale_ctx.scope("decoder"):
         for name in _layer_names(cfg):
             with scale_ctx.scope(name):
-                h, ns = apply_layer(
-                    params["decoder"][name], h, cfg=cfg, qcfg=qcfg,
-                    positions=positions, mode=mode,
+                h, ns = _apply_stack_layer(
+                    params["decoder"][name], h, remat=remat, qgen=qgen,
+                    cfg=cfg, qcfg=qcfg, positions=positions, mode=mode,
                     state=None if states is None else states[name],
-                    page=page, enc_out=enc_out, qgen=qgen)
+                    page=page, enc_out=enc_out)
             if states is not None:
                 new_states[name] = ns
     return h, new_states
@@ -165,13 +193,14 @@ def encode(params, enc_inputs, *, cfg: ModelConfig,
     h = torch.as_tensor(enc_inputs).to(device=dev).to(torch.bfloat16)
     b, t, _ = h.shape
     positions = torch.arange(t, device=dev)[None].expand(b, t)
+    remat = _remat(cfg, cfg.n_encoder_layers)
     with scale_ctx.scope("encoder"):
         for i in range(cfg.n_encoder_layers):
             name = f"layer_{i}"
             with scale_ctx.scope(name):
-                h, _ = apply_layer(params["encoder"][name], h, cfg=cfg,
-                                   qcfg=qcfg, positions=positions,
-                                   mode="encode", qgen=qgen)
+                h, _ = _apply_stack_layer(
+                    params["encoder"][name], h, remat=remat, qgen=qgen,
+                    cfg=cfg, qcfg=qcfg, positions=positions, mode="encode")
     return rmsnorm(params["enc_norm"], h, eps=cfg.norm_eps)
 
 
@@ -180,6 +209,7 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
             positions: Optional[torch.Tensor] = None, page=None,
             gather_rows: Optional[torch.Tensor] = None,
             last_only: bool = False,
+            enc_out: Optional[torch.Tensor] = None,
             qgen: Optional[torch.Generator] = None):
     """Backbone forward. Returns (logits, new_states).
 
@@ -190,13 +220,15 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     `states` are the pools of init_paged_stack_state, `page` the step's
     block-table indirection). last_only: logits of the last position only
     (prefill). gather_rows: (B,) row per request at which to compute
-    logits (the chunk's last valid token). qgen: the generator SR bits
-    come from. An encoder-decoder is refused: serving it is not ported."""
-    cfg.check_ported(serving=True)
+    logits (the chunk's last valid token). enc_out: an encoder-decoder's
+    encoder output (`encode`), the cross-attention's keys and values (the
+    decoder runs without cross-attention when it is None, as the
+    reference's does). qgen: the generator SR bits come from."""
+    cfg.check_ported()
     head_cfg = cfg.policy.quant_for_layer(is_head=True)
     h, new_states = _backbone(params, tokens, cfg=cfg, mode=mode,
                               states=states, positions=positions, page=page,
-                              qgen=qgen)
+                              qgen=qgen, enc_out=enc_out)
     b = h.shape[0]
     if last_only:
         h = h[:, -1:]

@@ -8,7 +8,10 @@ registers every site it touches (the reference discovers them by an
 abstract trace, which eager PyTorch has no counterpart of; its first batch
 runs at unit scales either way). `freeze` emits {site_key: float};
 `save_frozen` / `load_frozen` / `load_frozen_formats` keep it in the
-reference's JSON file, which either package reads.
+reference's JSON file, which either package reads. An encoder-decoder's
+batches also hold "enc_inputs": `encode` runs before the decoder, so the
+encoder's and the cross-attention's sites are observed too, as in the
+reference.
 
 With an FP8 KV cache in the policy (`kv_cache_format`), the attention
 records max|k| (after RoPE) and max|v| at the sites '.../kv/{k,v}#A'.
@@ -40,13 +43,16 @@ def _delayed_eval_cfg(cfg: ModelConfig) -> ModelConfig:
     return cfg.replace(policy=dataclasses.replace(cfg.policy, quant=quant))
 
 
-def _observe(params, ecfg: ModelConfig, tokens: torch.Tensor,
+def _observe(params, ecfg: ModelConfig, batch: Dict[str, torch.Tensor],
              scales) -> Tuple[Dict[str, float], set]:
     """One calibration forward: {key: amax} (host floats) and the keys."""
-    from repro_torch.models.transformer import forward
+    from repro_torch.models.transformer import encode, forward
     ctx = scale_ctx.calibrate_context(scales)
     with torch.no_grad(), scale_ctx.activate(ctx):
-        forward(params, tokens, cfg=ecfg, mode="train")
+        enc_out = encode(params, batch["enc_inputs"], cfg=ecfg) \
+            if ecfg.is_encoder_decoder else None
+        forward(params, batch["tokens"], cfg=ecfg, mode="train",
+                enc_out=enc_out)
     keys = list(ctx.collected)
     vals = torch.stack([ctx.collected[k].float() for k in keys]).cpu().numpy() \
         if keys else np.zeros((0,), np.float32)
@@ -79,25 +85,37 @@ def calibrate(params, cfg: ModelConfig, batches: Iterable, *,
               registry: Optional[SiteRegistry] = None
               ) -> Tuple[DelayedScaling, ScaleState]:
     """Populate amax history from forward batches of {"tokens": (B, S)}
-    (int tensors on the params' device, or numpy). Returns the
-    DelayedScaling bundle and the converged ScaleState."""
-    cfg.check_ported(serving=True)
+    (int tensors on the params' device, or numpy); an encoder-decoder's
+    batches also hold "enc_inputs" (B, T, D). Returns the DelayedScaling
+    bundle and the converged ScaleState."""
+    cfg.check_ported()
     ecfg = _delayed_eval_cfg(cfg)
     device = params["embed"]["table"].device
-    batches = [torch.as_tensor(np.asarray(b["tokens"]) if not
-                               isinstance(b["tokens"], torch.Tensor)
-                               else b["tokens"], device=device).long()
-               for b in batches]
+    batches = list(batches)
+    if ecfg.is_encoder_decoder and any("enc_inputs" not in b
+                                       for b in batches):
+        raise ValueError(
+            "encoder-decoder calibration needs 'enc_inputs' in each batch "
+            "(otherwise the encoder/cross-attention sites stay uncalibrated "
+            "and serve with unit scales)")
+
+    def on_dev(x, dtype):
+        return torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x, device=device).to(dtype)
+
+    batches = [{"tokens": on_dev(b["tokens"], torch.long),
+                **({"enc_inputs": on_dev(b["enc_inputs"], torch.float32)}
+                   if ecfg.is_encoder_decoder else {})} for b in batches]
     ds = state = None
-    for i, tokens in enumerate(batches):
+    for batch in batches:
         if ds is None:
             # Unit scales for the first batch (a fresh ScaleState's).
-            observed, found = _observe(params, ecfg, tokens, {})
+            observed, found = _observe(params, ecfg, batch, {})
             ds = DelayedScaling(registry or SiteRegistry(found),
                                 config=scaling_cfg, qcfg=ecfg.policy.quant)
             state = ds.init()
         else:
-            observed, _ = _observe(params, ecfg, tokens,
+            observed, _ = _observe(params, ecfg, batch,
                                    ds.scales_dict(state))
         state = ds.update(state, observed)
     return ds, state

@@ -221,6 +221,30 @@ def scope(name: str):
         ctx._scope.pop()
 
 
+def scope_path() -> List[str]:
+    """The active context's scope segments, outermost first ([] without
+    a context)."""
+    return [] if _ACTIVE is None else list(_ACTIVE._scope)
+
+
+@contextlib.contextmanager
+def at_scope(path: List[str]):
+    """Run under the scope `path` (from `scope_path`) in place of the
+    current one: a recomputation inside backward(), where the scope stack
+    the forward ran under has unwound, reads and records at the forward's
+    site keys."""
+    ctx = _ACTIVE
+    if ctx is None:
+        yield
+        return
+    saved = ctx._scope
+    ctx._scope = list(path)
+    try:
+        yield
+    finally:
+        ctx._scope = saved
+
+
 def combine_microbatches(ctxs: List[ScaleContext]) -> ScaleContext:
     """One collect context holding the observations of a step's
     microbatch contexts, as the reference's accumulation scan combines

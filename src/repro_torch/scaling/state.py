@@ -1,10 +1,11 @@
 """Delayed-scaling state: per-site amax ring buffers and derived scales.
 
-Counterpart of `repro.scaling.state` (the "max" history policy,
-`DelayedScaling.collect` / `update` for training and calibration, and
-`freeze`). The state is small (50 sites a layer) and lives on the host as
-numpy float32, so every derived scale is the same IEEE f32 arithmetic as
-the reference's, and the kernels take their scales by value.
+Counterpart of `repro.scaling.state` (the history policies "max",
+"most_recent" and "ema", `DelayedScaling.collect` / `update` for training
+and calibration, and `freeze`). The state is small (50 sites a layer)
+and lives on the host as numpy float32, so every derived scale is the
+same IEEE f32 arithmetic as the reference's, and the kernels take their
+scales by value.
 """
 from __future__ import annotations
 
@@ -52,15 +53,42 @@ class ScaleState:
 @dataclasses.dataclass(frozen=True)
 class ScalingConfig:
     history_len: int = 16
-    policy: str = "max"
+    policy: str = "max"          # max | most_recent | ema
     margin: float = 2.0
     growth: float = 2.0
+    ema_decay: float = 0.75      # for policy="ema"
 
-    def __post_init__(self):
-        if self.policy != "max":
-            raise NotImplementedError(
-                f"history policy {self.policy!r} is not ported yet (max "
-                "only; ROADMAP.md)")
+
+def _sum_cols(x: np.ndarray) -> np.ndarray:
+    """(S, H) f32 -> (S,) f32 row sums, added from the first column to the
+    last, as the reference's update sums (numpy's pairwise sum would add
+    in another order)."""
+    acc = np.zeros((x.shape[0],), np.float32)
+    for j in range(x.shape[1]):
+        acc = (acc + x[:, j]).astype(np.float32)
+    return acc
+
+
+def amax_from_history(history: np.ndarray, cfg: ScalingConfig
+                      ) -> np.ndarray:
+    """(S, H) f32 history -> (S,) representative amax, per policy. The ema
+    weights are built in f64 as the reference builds them, then cast to
+    f32, and normalized over each row's populated prefix only; its sums
+    are the reference's update's, bit for bit, up to a history of 32
+    (the reference's reduction orders longer rows otherwise)."""
+    if cfg.policy == "max":
+        return history.max(axis=1)
+    if cfg.policy == "most_recent":
+        return history[:, 0].copy()
+    if cfg.policy == "ema":
+        h = history.shape[1]
+        w = (1.0 - cfg.ema_decay) * cfg.ema_decay ** np.arange(h)
+        w = (w / w.sum()).astype(np.float32)
+        populated = (history > 0).astype(np.float32)
+        denom = np.maximum(_sum_cols(populated * w[None, :]),
+                           np.float32(1e-30))
+        return (_sum_cols(history * w[None, :]) / denom).astype(np.float32)
+    raise ValueError(f"unknown history policy {cfg.policy!r}")
 
 
 class SiteRegistry:
@@ -132,7 +160,7 @@ class DelayedScaling:
         obs = np.where(saturated, obs * growth, obs).astype(np.float32)
         hist = np.concatenate([obs[:, None], state.amax_history[:, :-1]],
                               axis=1)
-        amax = hist.max(axis=1)
+        amax = amax_from_history(hist, self.config)
         scale = np.where(amax > 0,
                          amax * np.float32(self.config.margin) / fmax,
                          np.float32(1.0))

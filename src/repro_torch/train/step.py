@@ -40,7 +40,7 @@ from repro_torch.core.master_weights import (MixedPrecisionOptimizer,
                                              MixedPrecisionState)
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward, lm_loss
+from repro_torch.models.transformer import encode, forward, lm_loss
 from repro_torch.optim.optimizers import (make_leafwise, make_optimizer,
                                           tmap)
 from repro_torch.scaling import context as scale_ctx
@@ -93,9 +93,13 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     whose scale moved) and `health/amax_sites` (the newest amax of every
     site, in registry order).
 
+    With `cfg.remat` (and scanned layers) each layer is recomputed in the
+    backward, as in the reference (`models.remat`): the step's results are
+    those without recomputation, bit for bit.
+
     The master weights and optimizer state are updated in place (see
     core.master_weights). Not ported (each raises): a ParallelPlan / fp8
-    wire, amax_sync, remat."""
+    wire, amax_sync."""
     dev = resolve_device(device)
     if n_microbatches < 1:
         raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
@@ -103,9 +107,6 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         raise _not_ported("a ParallelPlan / fp8-on-the-wire collective")
     if amax_sync is not None:
         raise _not_ported("cross-replica amax sync")
-    if cfg.remat:
-        raise _not_ported("activation recomputation (remat=True); pass "
-                          "remat=False")
     cfg.check_ported()
 
     def grads_of(params, batch, generator, scale, collect):
@@ -242,7 +243,10 @@ def make_serve_chunk(cfg: ModelConfig, frozen_scales=None):
 
     batch keys: tokens/positions/write_slots (B, T), read_slots/slot_pos
     (B, C), chunk_pos (B, 2), last_row (B,) — int tensors on the device.
-    Returns (logits (B, 1, V), states); the pools update in place."""
+    Returns (logits (B, 1, V), states); the pools update in place. An
+    encoder-decoder is refused: the reference's chunk step passes no
+    enc_out."""
+    cfg.check_ported(serving=True)
     ecfg = _eval_cfg(cfg, frozen_scales)
 
     def chunk_step(params, batch, states):
@@ -259,27 +263,38 @@ def make_serve_chunk(cfg: ModelConfig, frozen_scales=None):
 def make_serve_prefill(cfg: ModelConfig, frozen_scales=None):
     """Fixed-slot prefill: batch {"tokens": (B, S)} through the causal
     forward, the prompt written into each layer's cache in place (with
-    batch["slot"], only that row's cache). Returns (logits (B, 1, V) of
-    the last position, states)."""
+    batch["slot"], only that row's cache). An encoder-decoder's batch also
+    holds "enc_inputs" (B, T, D): `encode` runs first, under the same
+    scales, and the decoder's cross-attention attends its output. Returns
+    (logits (B, 1, V) of the last position, states)."""
     ecfg = _eval_cfg(cfg, frozen_scales)
 
     def prefill(params, batch, states):
         page = {"slot": batch["slot"]} if "slot" in batch else None
         with torch.no_grad(), _maybe_frozen(frozen_scales):
+            enc_out = encode(params, batch["enc_inputs"], cfg=ecfg) \
+                if ecfg.is_encoder_decoder else None
             return forward(params, batch["tokens"], cfg=ecfg, mode="prefill",
-                           states=states, page=page, last_only=True)
+                           states=states, page=page, last_only=True,
+                           enc_out=enc_out)
 
     return prefill
 
 
 def make_serve_decode(cfg: ModelConfig, frozen_scales=None):
     """Fixed-slot decode: batch {"tokens", "positions"} (B, 1), one token
-    per row appended to the caches. Returns (logits (B, 1, V), states)."""
+    per row appended to the caches, and for an encoder-decoder "enc_out",
+    the encoder's output, which the caller computes as the reference's
+    does (`encode` with `_eval_cfg(cfg, frozen_scales)` under
+    `_maybe_frozen(frozen_scales)`, without gradients); the cross-attention
+    projects it again at every step. Returns (logits (B, 1, V),
+    states)."""
     ecfg = _eval_cfg(cfg, frozen_scales)
 
     def decode(params, batch, states):
         with torch.no_grad(), _maybe_frozen(frozen_scales):
             return forward(params, batch["tokens"], cfg=ecfg, mode="decode",
-                           states=states, positions=batch["positions"])
+                           states=states, positions=batch["positions"],
+                           enc_out=batch.get("enc_out"))
 
     return decode

@@ -180,13 +180,21 @@ def test_qeinsum_unfused_forward_runs_fp8_matmul(monkeypatch):
 
 
 def test_qeinsum_unfused_refuses_delayed_sites():
+    """Delayed scaling on the unfused path, which the port used to refuse:
+    with a context and a site the operands quantize at their sites' scales
+    and the forward records their amaxes (the reference's sites: #a, #b,
+    #E and, with a weight operand, #G; no fused-output sites)."""
     from repro_torch.scaling import context as tctx
     tq = tpp.QuantConfig(scaling="delayed", **RNE)          # backend xla
-    a = torch.zeros((2, 4, 8), dtype=torch.bfloat16)
-    with tctx.activate(tctx.collect_context({})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tql.qeinsum("bsd,dn->bsn", a, torch.zeros((8, 4)), cfg=tq,
-                        site="s")
+    a = torch.full((2, 4, 8), 3.0, dtype=torch.bfloat16)
+    w = torch.full((8, 4), 0.5)
+    ctx = tctx.collect_context({"s#a.A": 0.25, "s#b.W": 2.0})
+    with tctx.activate(ctx):
+        y = tql.qeinsum("bsd,dn->bsn", a, w, cfg=tq, site="s")
+    assert ctx.discovered == {"s#a.A", "s#b.W", "s#E", "s#G"}
+    assert float(ctx.collected["s#a.A"]) == 3.0
+    assert float(ctx.collected["s#b.W"]) == 0.5
+    assert torch.equal(y, torch.full((2, 4, 4), 12.0, dtype=torch.bfloat16))
     # Without a context it is the unit-scale path, as in the reference.
     assert tql.qeinsum("bsd,dn->bsn", a, torch.zeros((8, 4)),
                        cfg=tq).shape == (2, 4, 4)
@@ -247,11 +255,22 @@ def test_attention_block_unfused_tier_c(layout):
 
 
 def test_chunked_attention_refuses_remat():
-    q = torch.zeros((1, 2, 8, 4))
-    with pytest.raises(NotImplementedError, match="remat"):
-        tattn.chunked_causal_attention(q, q, q, chunk=4, scale=0.5,
-                                       qcfg=tpp.PAPER_FP8_RNE, qgen=None,
-                                       remat=True)
+    """Recomputing the q chunks in the backward, which the port used to
+    refuse: remat=True gives the output and the gradients of remat=False
+    bit for bit (SR on, the bits replayed from the generator's state)."""
+    rng = np.random.default_rng(5)
+    x = [torch.tensor(rng.normal(size=(1, 2, 24, 8)).astype(np.float32))
+         for _ in range(3)]
+    outs = []
+    for remat in (False, True):
+        qkv = [t.clone().requires_grad_(True) for t in x]
+        y = tattn.chunked_causal_attention(
+            *qkv, chunk=8, scale=0.5, qcfg=tpp.PAPER_FP8,
+            qgen=torch.Generator().manual_seed(1), remat=remat)
+        y.float().square().sum().backward()
+        outs.append([y] + [t.grad for t in qkv])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
