@@ -171,7 +171,10 @@ def _compute(spec: str, qa: QTensor, qb: QTensor,
     """fp8 x fp8 -> f32 accumulate -> times qa.scale * qb.scale ->
     output_dtype; a '...k,kn->...n' contraction under a kernel backend runs
     the fp8 GEMM kernel. Host scales multiply as host f32; a device scale
-    (jit amax) makes the product a device f32 scalar."""
+    (jit amax) makes the product a device f32 scalar. The plain einsum
+    runs under the profiler range "qeinsum.einsum", so that a trace reads
+    its device time apart (the mixture-of-experts' expert GEMMs, the
+    adjoints and the 4-D attention contractions of the unfused path)."""
     sa, sb = qa.scale, qb.scale
     if isinstance(sa, torch.Tensor) or isinstance(sb, torch.Tensor):
         out_scale = torch.as_tensor(sa) * torch.as_tensor(sb)
@@ -183,7 +186,8 @@ def _compute(spec: str, qa: QTensor, qb: QTensor,
         y = mm_ops.fp8_matmul(a2, qb.data).reshape(
             qa.data.shape[:-1] + (qb.data.shape[-1],))
     else:
-        y = torch.einsum(spec, qa.data.float(), qb.data.float())
+        with torch.profiler.record_function("qeinsum.einsum"):
+            y = torch.einsum(spec, qa.data.float(), qb.data.float())
     return (y * out_scale).to(dtype_of(cfg.output_dtype))
 
 

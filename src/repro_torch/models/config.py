@@ -9,10 +9,10 @@ from repro_torch.core.precision_policy import PAPER_POLICY, PrecisionPolicy
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Same fields and defaults as the reference. The port runs the dense
-    attention decoder and the encoder-decoder; the other families' fields
-    are kept so configs read alike, and are refused where they would
-    change the computation."""
+    """Same fields and defaults as the reference. The port runs attention
+    decoders (dense and mixture-of-experts) and encoder-decoders; the
+    recurrent families' fields are kept so configs read alike, and are
+    refused where they would change the computation."""
     arch: str = "custom"
     family: str = "dense"
     n_layers: int = 4
@@ -102,16 +102,23 @@ class ModelConfig:
         return emb + per_layer + enc
 
     def check_ported(self, *, serving: bool = False):
-        """Raise for what the port does not run: families other than the
-        dense decoder and the encoder-decoder; with serving=True (the
-        engines, paged serving) also an encoder-decoder, which the
-        reference's engines do not serve either."""
+        """Raise for what the port does not run: the recurrent families
+        (RG-LRU, local attention, xLSTM); with serving=True (the engines,
+        paged serving) also an encoder-decoder, which the reference's
+        engines do not serve either. Attention decoders (dense or with the
+        mixture-of-experts FFN, with or without the patch stub's prefix)
+        and encoder-decoders (with or without the frame stub) run."""
         bad = [k for k in self.pattern() if k != "attn"]
-        if bad or self.n_experts or self.frontend:
+        if bad:
             raise NotImplementedError(
-                f"arch {self.arch!r}: the port runs dense attention decoders "
-                "and encoder-decoders only so far; the other families are "
-                "queued in ROADMAP.md")
+                f"arch {self.arch!r}: layer kinds {sorted(set(bad))} are not "
+                "ported yet; the port runs attention decoders (dense and "
+                "mixture-of-experts) and encoder-decoders so far, the "
+                "recurrent families are queued in ROADMAP.md")
+        if self.frontend not in (None, "patch_stub", "audio_stub"):
+            raise NotImplementedError(
+                f"arch {self.arch!r}: frontend {self.frontend!r} is not "
+                "ported (ROADMAP.md)")
         if serving and self.is_encoder_decoder:
             raise NotImplementedError(
                 f"arch {self.arch!r}: the serving engines and paged serving "

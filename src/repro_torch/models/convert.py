@@ -8,8 +8,10 @@ leading group axis) are split into the unscanned `layer_{i}` layout the
 port runs, in the decoder and, for an encoder-decoder, in the encoder
 (whose one-kind stack holds `n_encoder_layers` groups); `layer_{i}` /
 `rem_{i}` trees pass through, as do `enc_norm` and each decoder layer's
-`cross_norm` / `cross_attn`. Nothing is padded: the embedding already has
-`padded_vocab_size` rows.
+`cross_norm` / `cross_attn`, and a mixture-of-experts layer's `moe`
+subtree (`router` (D, E) and the expert stacks `w_gate` / `w_up` (E, D, F)
+and `w_down` (E, F, D), their shapes checked against the config). Nothing
+is padded: the embedding already has `padded_vocab_size` rows.
 """
 from __future__ import annotations
 
@@ -48,6 +50,18 @@ def _split_stacks(stack: Dict[str, Any], n_layers: int, n_kinds: int):
     return out
 
 
+def _check_moe(layers: Dict[str, Any], cfg: ModelConfig):
+    """Each decoder layer's `moe` leaves have the config's shapes."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    want = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+            "w_down": (e, f, d)}
+    for name, layer in layers.items():
+        got = {k: np.shape(v) for k, v in layer.get("moe", {}).items()}
+        if got != want:
+            raise ValueError(f"decoder/{name}/moe has leaves {got}, the "
+                             f"config wants {want}")
+
+
 def from_jax_params(tree, cfg: ModelConfig, device=None):
     """The reference's init_lm tree (numpy leaves) -> the port's params."""
     cfg.check_ported()
@@ -58,6 +72,8 @@ def from_jax_params(tree, cfg: ModelConfig, device=None):
     if cfg.is_encoder_decoder:
         tree["encoder"] = _split_stacks(dict(tree["encoder"]),
                                         cfg.n_encoder_layers, 1)
+    if cfg.n_experts:
+        _check_moe(tree["decoder"], cfg)
     emb = np.asarray(tree["embed"]["table"])
     if emb.shape != (cfg.padded_vocab_size, cfg.d_model):
         raise ValueError(f"embedding {emb.shape} does not match the config "

@@ -20,6 +20,11 @@ set the port apart from a plain checkpoint:
   a second time. `ScaleContext.record` / `record_health` max-combine and
   the values are the forward's own, so the records stand as they were;
   no use count is touched by a forward.
+* Aux losses. A region may return them beside its output (a
+  mixture-of-experts layer returns (h, aux)): they leave the region as
+  outputs of its first forward, and their gradients flow back through
+  it like the output's. The recomputation's outputs are discarded, so
+  the aux losses are counted once.
 
 The backward itself runs the nodes of the first forward (their saved
 tensors replaced by the recomputed ones), so its own draws come from the
@@ -48,8 +53,10 @@ def replay_generator(gen: Optional[torch.Generator], state
 
 
 def checkpointed(fn, gen: Optional[torch.Generator], *args):
-    """fn(gen, *args), recomputed in the backward. Without gradients it is
-    a plain call (nothing to recompute)."""
+    """fn(gen, *args), recomputed in the backward. fn returns a tensor or
+    a structure of them (a tuple, a dict); each output keeps its
+    gradient. Without gradients it is a plain call (nothing to
+    recompute)."""
     if not torch.is_grad_enabled():
         return fn(gen, *args)
     path = scale_ctx.scope_path()

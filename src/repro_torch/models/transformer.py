@@ -41,6 +41,7 @@ from repro_torch.models.attention import (attention, init_attention,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        logits_head, mlp, rmsnorm)
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.remat import checkpointed
 from repro_torch.scaling import context as scale_ctx
 
@@ -52,8 +53,9 @@ def _layer_names(cfg: ModelConfig):
 
 def init_layer(cfg: ModelConfig, *, generator, device,
                cross: bool = False):
-    """One layer: self-attention and the gated MLP, with a cross-attention
-    block between them for an encoder-decoder's decoder (cross=True)."""
+    """One layer: self-attention and the gated MLP (the mixture-of-experts
+    FFN, "moe", when `cfg.n_experts`), with a cross-attention block
+    between them for an encoder-decoder's decoder (cross=True)."""
     kw = dict(generator=generator, device=device)
     ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
     p = {"norm1": {"scale": ones.clone()},
@@ -62,9 +64,13 @@ def init_layer(cfg: ModelConfig, *, generator, device,
         p["cross_norm"] = {"scale": ones.clone()}
         p["cross_attn"] = init_attention(cfg, **kw)
     p["norm2"] = {"scale": ones.clone()}
-    p["mlp"] = {"up": dense_init(cfg.d_model, cfg.d_ff, **kw),
-                "down": dense_init(cfg.d_ff, cfg.d_model, scale=0.5, **kw),
-                "gate": dense_init(cfg.d_model, cfg.d_ff, **kw)}
+    if cfg.n_experts:
+        p["moe"] = init_moe(cfg, **kw)
+    else:
+        p["mlp"] = {"up": dense_init(cfg.d_model, cfg.d_ff, **kw),
+                    "down": dense_init(cfg.d_ff, cfg.d_model, scale=0.5,
+                                       **kw),
+                    "gate": dense_init(cfg.d_model, cfg.d_ff, **kw)}
     return p
 
 
@@ -121,7 +127,8 @@ def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
                 qgen: Optional[torch.Generator] = None):
     """One layer: a decoder layer ('attn' kind; with enc_out, its
     cross-attention block too) or, with mode 'encode', an encoder layer.
-    Returns (h, new_state)."""
+    Returns (h, new_state, aux): aux holds the mixture-of-experts FFN's
+    aux losses ({} for a dense layer)."""
     with scale_ctx.scope("attn"):
         a, cache = attention(
             p["attn"], rmsnorm(p["norm1"], h, eps=cfg.norm_eps), cfg=cfg,
@@ -137,11 +144,27 @@ def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
                 cfg=cfg, qcfg=qcfg, positions=positions, mode="cross",
                 kv_x=enc_out, qgen=qgen)
         h = h + ca
-    with scale_ctx.scope("mlp"):
-        f = mlp(p["mlp"], rmsnorm(p["norm2"], h, eps=cfg.norm_eps),
-                act=cfg.act, qcfg=qcfg, qgen=qgen)
+    aux = {}
+    if "moe" in p:
+        with scale_ctx.scope("moe"):
+            f, aux = moe_ffn(p["moe"], rmsnorm(p["norm2"], h,
+                                               eps=cfg.norm_eps),
+                             cfg=cfg, qcfg=qcfg, qgen=qgen)
+    else:
+        with scale_ctx.scope("mlp"):
+            f = mlp(p["mlp"], rmsnorm(p["norm2"], h, eps=cfg.norm_eps),
+                    act=cfg.act, qcfg=qcfg, qgen=qgen)
     h = h + f
-    return h, (None if cache is None else {"kv": cache})
+    return h, (None if cache is None else {"kv": cache}), aux
+
+
+def merge_aux(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
+    """Accumulate layers' aux losses into `dst` by sum (the reference's
+    `_merge_aux`; its amax and health entries, which max-combine, live in
+    the port's scaling context instead)."""
+    for k, v in src.items():
+        dst[k] = dst[k] + v if k in dst else v
+    return dst
 
 
 def _remat(cfg: ModelConfig, n_layers: int) -> bool:
@@ -152,34 +175,48 @@ def _remat(cfg: ModelConfig, n_layers: int) -> bool:
 
 def _apply_stack_layer(p, h, *, remat: bool, qgen, **kw):
     """apply_layer, recomputed in the backward when `remat` (training
-    modes only: no cache state)."""
+    modes only: no cache state). The layer's aux losses leave the
+    checkpointed region as outputs of its first forward, with their
+    gradients; the recomputation's are discarded."""
     if not remat:
         return apply_layer(p, h, qgen=qgen, **kw)
-    return checkpointed(
-        lambda g, hh: apply_layer(p, hh, qgen=g, **kw)[0], qgen, h), None
+
+    def region(g, hh):
+        out, _, aux = apply_layer(p, hh, qgen=g, **kw)
+        return out, aux
+
+    h, aux = checkpointed(region, qgen, h)
+    return h, None, aux
 
 
 def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
-              positions, page, qgen, enc_out=None):
-    """Embedding and decoder layers. Returns (h, new_states)."""
+              positions, page, qgen, enc_out=None, extra_embeds=None):
+    """Embedding (after the `extra_embeds` prefix (B, P, D), if given) and
+    decoder layers. Returns (h, new_states, aux), aux the layers' aux
+    losses summed."""
     qcfg = cfg.policy.quant
     h = embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        h = torch.cat([torch.as_tensor(extra_embeds).to(
+            device=h.device, dtype=h.dtype), h], dim=1)
     b, s, _ = h.shape
     if positions is None:
         positions = torch.arange(s, device=h.device)[None].expand(b, s)
     new_states = {} if states is not None else None
+    aux: Dict[str, torch.Tensor] = {}
     remat = mode == "train" and _remat(cfg, cfg.n_layers)
     with scale_ctx.scope("decoder"):
         for name in _layer_names(cfg):
             with scale_ctx.scope(name):
-                h, ns = _apply_stack_layer(
+                h, ns, layer_aux = _apply_stack_layer(
                     params["decoder"][name], h, remat=remat, qgen=qgen,
                     cfg=cfg, qcfg=qcfg, positions=positions, mode=mode,
                     state=None if states is None else states[name],
                     page=page, enc_out=enc_out)
+            merge_aux(aux, layer_aux)
             if states is not None:
                 new_states[name] = ns
-    return h, new_states
+    return h, new_states, aux
 
 
 def encode(params, enc_inputs, *, cfg: ModelConfig,
@@ -198,7 +235,7 @@ def encode(params, enc_inputs, *, cfg: ModelConfig,
         for i in range(cfg.n_encoder_layers):
             name = f"layer_{i}"
             with scale_ctx.scope(name):
-                h, _ = _apply_stack_layer(
+                h, _, _ = _apply_stack_layer(
                     params["encoder"][name], h, remat=remat, qgen=qgen,
                     cfg=cfg, qcfg=qcfg, positions=positions, mode="encode")
     return rmsnorm(params["enc_norm"], h, eps=cfg.norm_eps)
@@ -210,7 +247,7 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
             gather_rows: Optional[torch.Tensor] = None,
             last_only: bool = False,
             enc_out: Optional[torch.Tensor] = None,
-            qgen: Optional[torch.Generator] = None):
+            extra_embeds=None, qgen: Optional[torch.Generator] = None):
     """Backbone forward. Returns (logits, new_states).
 
     mode 'train' (causal, no cache); 'prefill' / 'decode' (fixed-slot
@@ -223,12 +260,16 @@ def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     logits (the chunk's last valid token). enc_out: an encoder-decoder's
     encoder output (`encode`), the cross-attention's keys and values (the
     decoder runs without cross-attention when it is None, as the
-    reference's does). qgen: the generator SR bits come from."""
+    reference's does). extra_embeds: (B, P, D) precomputed patch
+    embeddings prepended to the token embeddings (the patch stub; the
+    positions then count the prefix). qgen: the generator SR bits come
+    from."""
     cfg.check_ported()
     head_cfg = cfg.policy.quant_for_layer(is_head=True)
-    h, new_states = _backbone(params, tokens, cfg=cfg, mode=mode,
-                              states=states, positions=positions, page=page,
-                              qgen=qgen, enc_out=enc_out)
+    h, new_states, _ = _backbone(
+        params, tokens, cfg=cfg, mode=mode, states=states,
+        positions=positions, page=page, qgen=qgen, enc_out=enc_out,
+        extra_embeds=extra_embeds)
     b = h.shape[0]
     if last_only:
         h = h[:, -1:]
@@ -262,13 +303,19 @@ def _chunked_ce(params, h, labels, mask, *, cfg: ModelConfig,
 def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
             qgen: Optional[torch.Generator] = None,
             loss_scale: Optional[torch.Tensor] = None):
-    """Causal-LM (or seq2seq) cross-entropy. batch: {"tokens", "labels"}
-    (B, S) int and an optional "loss_mask" (B, S), tensors on the params'
-    device or numpy; an encoder-decoder's batch also holds "enc_inputs"
-    (B, T, D), which `encode` turns into the decoder's cross-attention
-    input (the encoder runs first, as in the reference). Returns (loss,
-    metrics); with `loss_scale` (a 0-d tensor) the loss is multiplied by
-    it (scale before backprop, unscale in the optimizer)."""
+    """Causal-LM (or seq2seq) cross-entropy plus the layers' aux losses.
+    batch: {"tokens", "labels"} (B, S) int and an optional "loss_mask"
+    (B, S), tensors on the params' device or numpy; an encoder-decoder's
+    batch also holds "enc_inputs" (B, T, D), which `encode` turns into the
+    decoder's cross-attention input (the encoder runs first, as in the
+    reference); a patch-stub batch may hold "extra_embeds" (B, P, D),
+    prepended to the token embeddings, with labels and mask zero-padded
+    over the prefix. Returns (loss, metrics): metrics {"nll", and each aux
+    entry summed over the layers}; the loss is the nll plus every aux
+    entry (the mixture-of-experts' lb_loss, router_z_loss and
+    dropped_frac, as the reference adds every aux entry that is not an
+    observation). With `loss_scale` (a 0-d tensor) the loss is multiplied
+    by it (scale before backprop, unscale in the optimizer)."""
     cfg.check_ported()
     enc_out = encode(params, batch["enc_inputs"], cfg=cfg, qgen=qgen) \
         if cfg.is_encoder_decoder else None
@@ -283,15 +330,25 @@ def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
     mask = batch.get("loss_mask")
     mask = torch.ones(labels.shape, dtype=torch.float32, device=dev) \
         if mask is None else on_dev(mask, torch.float32)
-    h, _ = _backbone(params, tokens, cfg=cfg, mode="train", states=None,
-                     positions=None, page=None, qgen=qgen, enc_out=enc_out)
+    extra = batch.get("extra_embeds")
+    if extra is not None:
+        extra = on_dev(extra, torch.float32)
+        pad = (extra.shape[1], 0)
+        labels = torch.nn.functional.pad(labels, pad)
+        mask = torch.nn.functional.pad(mask, pad)
+    h, _, aux = _backbone(params, tokens, cfg=cfg, mode="train",
+                          states=None, positions=None, page=None, qgen=qgen,
+                          enc_out=enc_out, extra_embeds=extra)
     h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
     denom = torch.clamp_min(mask.sum(), 1.0)
     nll_sum = _chunked_ce(params, h, labels, mask, cfg=cfg,
                           head_cfg=head_cfg,
                           chunk=min(h.shape[1], cfg.attn_chunk_size))
     loss = nll_sum / denom
-    metrics = {"nll": loss.detach()}
+    metrics = {"nll": loss.detach(),
+               **{k: v.detach() for k, v in aux.items()}}
+    for v in aux.values():
+        loss = loss + v
     if loss_scale is not None:
         loss = loss * loss_scale.to(loss.dtype)
     return loss, metrics

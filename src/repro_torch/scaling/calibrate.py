@@ -52,7 +52,7 @@ def _observe(params, ecfg: ModelConfig, batch: Dict[str, torch.Tensor],
         enc_out = encode(params, batch["enc_inputs"], cfg=ecfg) \
             if ecfg.is_encoder_decoder else None
         forward(params, batch["tokens"], cfg=ecfg, mode="train",
-                enc_out=enc_out)
+                enc_out=enc_out, extra_embeds=batch.get("extra_embeds"))
     keys = list(ctx.collected)
     vals = torch.stack([ctx.collected[k].float() for k in keys]).cpu().numpy() \
         if keys else np.zeros((0,), np.float32)
@@ -86,8 +86,12 @@ def calibrate(params, cfg: ModelConfig, batches: Iterable, *,
               ) -> Tuple[DelayedScaling, ScaleState]:
     """Populate amax history from forward batches of {"tokens": (B, S)}
     (int tensors on the params' device, or numpy); an encoder-decoder's
-    batches also hold "enc_inputs" (B, T, D). Returns the DelayedScaling
-    bundle and the converged ScaleState."""
+    batches also hold "enc_inputs" (B, T, D), and a patch-stub model's
+    may hold "extra_embeds" (B, P, D), which the forward prepends (the
+    reference's calibration passes tokens only, so its batches are text).
+    A mixture-of-experts model's expert sites ("moe/w_gate" ...) are
+    observed like any other. Returns the DelayedScaling bundle and the
+    converged ScaleState."""
     cfg.check_ported()
     ecfg = _delayed_eval_cfg(cfg)
     device = params["embed"]["table"].device
@@ -105,7 +109,9 @@ def calibrate(params, cfg: ModelConfig, batches: Iterable, *,
 
     batches = [{"tokens": on_dev(b["tokens"], torch.long),
                 **({"enc_inputs": on_dev(b["enc_inputs"], torch.float32)}
-                   if ecfg.is_encoder_decoder else {})} for b in batches]
+                   if ecfg.is_encoder_decoder else {}),
+                **({"extra_embeds": on_dev(b["extra_embeds"], torch.float32)}
+                   if "extra_embeds" in b else {})} for b in batches]
     ds = state = None
     for batch in batches:
         if ds is None:

@@ -85,7 +85,9 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     torch.Generator on the device, the source of every SR bit of the step
     (the reference's step_key). metrics: python floats — loss, nll (both
     unscaled), grad_norm (of the unscaled gradients), loss_scale (after
-    the update), grads_finite, overflow_count.
+    the update), grads_finite, overflow_count, and the model's aux losses
+    summed over its layers (a mixture-of-experts model's lb_loss,
+    router_z_loss and dropped_frac; the loss includes them).
 
     With scaling, the model's `track_health` adds the reference's
     `health/<site key>` metrics, (2,) [sat_frac, flush_frac] arrays, and
@@ -110,37 +112,38 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     cfg.check_ported()
 
     def grads_of(params, batch, generator, scale, collect):
-        """The loss pass of one step: (scaled loss, nll, gradients, the
-        scaling context or None). Over microbatches: f32 gradients
-        accumulated as g / n, the losses' mean, the contexts combined.
-        `collect` makes a fresh scaling context's manager (None without
-        scaling)."""
+        """The loss pass of one step: (scaled loss, its metrics (nll and
+        the aux losses), gradients, the scaling context or None). Over
+        microbatches: f32 gradients accumulated as g / n, the losses' and
+        metrics' means, the contexts combined. `collect` makes a fresh
+        scaling context's manager (None without scaling)."""
         def pass_(mb):
             with (collect() if collect else contextlib.nullcontext()) as ctx:
-                loss, aux = lm_loss(params, mb, cfg=cfg, qgen=generator,
-                                    loss_scale=scale)
+                loss, mets = lm_loss(params, mb, cfg=cfg, qgen=generator,
+                                     loss_scale=scale)
                 loss.backward()
-            return loss.detach(), aux["nll"], ctx
+            return loss.detach(), mets, ctx
 
         if n_microbatches == 1:
-            loss, nll, ctx = pass_(batch)
-            return loss, nll, tmap(lambda p: p.grad, params), ctx
+            loss, mets, ctx = pass_(batch)
+            return loss, mets, tmap(lambda p: p.grad, params), ctx
         div = torch.full((), float(n_microbatches), device=dev)
         acc = tmap(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                          device=dev), params)
-        losses, nlls, ctxs = [], [], []
+        losses, metses, ctxs = [], [], []
         for mb in split_batch(batch, n_microbatches):
-            loss, nll, ctx = pass_(mb)
+            loss, mets, ctx = pass_(mb)
             with torch.no_grad():
                 tmap(lambda a, p: a.add_(p.grad.float() / div), acc, params)
             for p in _leaves(params):
                 p.grad = None
             losses.append(loss)
-            nlls.append(nll)
+            metses.append(mets)
             ctxs.append(ctx)
         ctx = scale_ctx.combine_microbatches(ctxs) if collect else None
-        return (torch.stack(losses).mean(), torch.stack(nlls).mean(), acc,
-                ctx)
+        mets = {k: torch.stack([m[k] for m in metses]).mean()
+                for k in metses[0]}
+        return torch.stack(losses).mean(), mets, acc, ctx
 
     def run(state: MixedPrecisionState, batch: Dict,
             generator: torch.Generator, collect):
@@ -152,15 +155,16 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
                              f", step built for {dev}")
         params = tmap(lambda p: p.requires_grad_(True),
                       optimizer.compute_params(state))
-        loss, nll, grads, ctx = grads_of(params, batch, generator,
-                                         state.loss_scale.scale, collect)
+        loss, mets, grads, ctx = grads_of(params, batch, generator,
+                                          state.loss_scale.scale, collect)
         del params
         new_state, opt_m = optimizer.apply_gradients(state, grads)
         inv = optimizer.scaler.inverse(state.loss_scale)
         sq = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
-        step_vals = [loss * inv, nll, torch.sqrt(sq) * inv,
+        aux_names = [k for k in mets if k != "nll"]
+        step_vals = [loss * inv, mets["nll"], torch.sqrt(sq) * inv,
                      opt_m["loss_scale"], opt_m["grads_finite"],
-                     opt_m["overflow_count"]]
+                     opt_m["overflow_count"]] + [mets[k] for k in aux_names]
         n = len(step_vals)
         # The step's one device->host read: its scalars and every
         # observation of the scaling context (amaxes and health pairs).
@@ -168,8 +172,8 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         host = torch.cat([v.float().reshape(-1) for v in step_vals]
                          + pending).cpu().numpy()
         metrics = {k: float(v) for k, v in zip(
-            ("loss", "nll", "grad_norm", "loss_scale", "grads_finite",
-             "overflow_count"), host[:n])}
+            ["loss", "nll", "grad_norm", "loss_scale", "grads_finite",
+             "overflow_count"] + aux_names, host[:n])}
         metrics["grads_finite"] = bool(metrics["grads_finite"])
         if ctx is None:
             return new_state, metrics, {}, {}
@@ -265,7 +269,9 @@ def make_serve_prefill(cfg: ModelConfig, frozen_scales=None):
     forward, the prompt written into each layer's cache in place (with
     batch["slot"], only that row's cache). An encoder-decoder's batch also
     holds "enc_inputs" (B, T, D): `encode` runs first, under the same
-    scales, and the decoder's cross-attention attends its output. Returns
+    scales, and the decoder's cross-attention attends its output. A
+    patch-stub batch may hold "extra_embeds" (B, P, D), prepended to the
+    token embeddings (the cache then holds P + S positions). Returns
     (logits (B, 1, V) of the last position, states)."""
     ecfg = _eval_cfg(cfg, frozen_scales)
 
@@ -276,7 +282,8 @@ def make_serve_prefill(cfg: ModelConfig, frozen_scales=None):
                 if ecfg.is_encoder_decoder else None
             return forward(params, batch["tokens"], cfg=ecfg, mode="prefill",
                            states=states, page=page, last_only=True,
-                           enc_out=enc_out)
+                           enc_out=enc_out,
+                           extra_embeds=batch.get("extra_embeds"))
 
     return prefill
 

@@ -228,7 +228,7 @@ def test_from_jax_params_splits_scanned_stacks():
 
 def test_unported_archs_are_refused():
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        build_config("dbrx-132b")
+        build_config("recurrentgemma-9b")
     cfg = build_config("qwen2-1.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_kv_heads) == (28, 1536, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
