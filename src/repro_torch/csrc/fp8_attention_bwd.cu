@@ -105,6 +105,14 @@
 // does not change from run to run. On inputs whose every partial sum is
 // exact (the exact fixtures) it equals the flat chain bit for bit.
 //
+// Head dims: each library holds the kernels at D = 128 or D = 256
+// (FP8_ATTN_D). At D = 256 a block computes the scores over the whole head
+// dim and 128 columns of its output, two blocks to a q tile (dQ) or kv
+// block (dK/dV), so a thread's accumulators are D = 128's; the long-span
+// dQ variant drops its transposed K copy (ldmatrix.trans on K instead) and
+// adds each block's dQ in place in device memory, its tiles taking 198 of
+// the 227 KB a block may hold.
+//
 // Both files' arithmetic is built with --fmad=false and the epilogues use
 // __fmul_rn / __fadd_rn / __fdiv_rn (or div_rn), so every product and sum
 // is rounded on its own, as in the reference.
@@ -119,6 +127,7 @@
 // and the probes' split. The long-span variant of kernel 1 is bound by its
 // recomputation, its shared-memory accumulator and one block an SM.
 #include <algorithm>
+#include <type_traits>
 
 #include "fp8_epilogue.cuh"
 #include "wgmma_tiles.cuh"
@@ -148,13 +157,20 @@ using fp8::widen2;
 using fp8::widen_tile;
 using fp8::widen_unit;
 
+// Every kernel is built at head dim D = 128 and D = 256 (the wrapper
+// zero-pads smaller heads to 128, wider ones up to 256 to 256). A block
+// computes the scores over the whole head dim and DO = 128 columns of its
+// output: at D = 256 two blocks (dh = 0, 1) share each q tile (dQ) or kv
+// block (dK/dV), each recomputing the scores, so that the accumulators a
+// thread holds are those of D = 128.
 constexpr int LANE = 128;  // kv columns per block (and q rows per dK tile)
-constexpr int D = 128;     // head dim (the wrapper zero-pads smaller heads)
+constexpr int DO = 128;    // output columns per block
 constexpr int BQ = 64;     // q rows per dQ block
 constexpr int BKV = 64;    // kv rows per dK/dV block
 constexpr int TQ = 128;    // q rows per dK/dV contribution
-constexpr int KS = D + 8;  // bf16 row stride (bank spread)
-constexpr int FS = D + 4;  // f32 row stride of the accumulators
+template <int D>
+constexpr int ks_of = D + 8;  // bf16 row stride (bank spread)
+constexpr int FS = DO + 4;    // f32 row stride of the accumulators
 constexpr uint32_t SALT_S = 0x51, SALT_P = 0x52, SALT_DP = 0x53,
                    SALT_DS = 0x54;
 
@@ -201,6 +217,7 @@ __device__ __forceinline__ void kv_span(const Args& p, int t0, int& jmin,
 
 // rows x D fp8 rows (row-major, D contiguous) -> bf16 smem rows of stride
 // KS; rows at or past `limit` read as zeros.
+template <int D, int KS = ks_of<D>>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const uint8_t* src, int rows,
                                           int row0, int limit, int fmt) {
@@ -218,6 +235,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 }
 
 // Same, transposed: dst[d * KS + r] (for a B operand whose k index is r).
+template <int D, int KS = ks_of<D>>
 __device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst,
                                             const uint8_t* src, int rows,
                                             int row0, int fmt) {
@@ -237,6 +255,7 @@ __device__ __forceinline__ uint32_t u32_at(const __nv_bfloat16* p) {
 
 // acc[16][4] = A(16 rows of `a`, stride KS) . B^T, where B is 128 rows of
 // `b` (stride KS) — a 16 x 128 tile of a . b^T over the head dim.
+template <int D, int KS = ks_of<D>>
 __device__ __forceinline__ void tile_abt(float acc[16][4],
                                          const __nv_bfloat16* a,
                                          const __nv_bfloat16* b) {
@@ -292,6 +311,7 @@ __device__ __forceinline__ float warp_max4(float x) {
 // kernel 1: statistics + dQ
 // ---------------------------------------------------------------------------
 
+template <int D, int KS = ks_of<D>>
 struct SmemDQ {
   __nv_bfloat16 q[BQ][KS];
   __nv_bfloat16 dO[BQ][KS];
@@ -301,18 +321,33 @@ struct SmemDQ {
   float dq[BQ][FS];
   float red[2][4];
 };
+// At D = 256 the four bf16 tiles alone take 198 KB: dQ's B operand comes
+// from the K tile by ldmatrix.trans (no transposed copy), and each thread
+// accumulates its own dQ elements in place in the output (device memory,
+// read back by the thread that wrote them).
+template <>
+struct SmemDQ<256> {
+  __nv_bfloat16 q[BQ][ks_of<256>];
+  __nv_bfloat16 dO[BQ][ks_of<256>];
+  __nv_bfloat16 k[LANE][ks_of<256>];
+  __nv_bfloat16 v[LANE][ks_of<256>];
+  float red[2][4];
+};
 
 // COUNTS (both dQ variants): also count the saturated, flushed and
 // observed dP8 and dS8 values of each q tile (the reference counts them in
 // its dQ kernel only); the variant without it is the same code with the
 // counting left out, and both compute the same outputs.
-template <bool COUNTS>
+template <bool COUNTS, int D>
 __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
+  constexpr int KS = ks_of<D>, DH = D / DO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDQ& sm = *reinterpret_cast<SmemDQ*>(smem_raw);
+  SmemDQ<D>& sm = *reinterpret_cast<SmemDQ<D>*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // x: the q tile and, at D = 256, the output half dh.
+  const int iq = blockIdx.x / DH, dh = blockIdx.x % DH;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const int row0 = iq * BQ;
   const uint32_t bh = (uint32_t)(b * p.H + h);
@@ -320,13 +355,28 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
   const long long qoff = (long long)(b * p.H + h) * p.Q * D;
   const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
 
-  load_rows(&sm.q[0][0], p.q + qoff, BQ, row0, p.Q, p.q_fmt);
-  load_rows(&sm.dO[0][0], p.dO + qoff, BQ, row0, p.Q, p.do_fmt);
-  for (int i = tid; i < BQ * FS; i += 128) (&sm.dq[0][0])[i] = 0.f;
+  load_rows<D>(&sm.q[0][0], p.q + qoff, BQ, row0, p.Q, p.q_fmt);
+  load_rows<D>(&sm.dO[0][0], p.dO + qoff, BQ, row0, p.Q, p.do_fmt);
+  if constexpr (DH == 1)
+    for (int i = tid; i < BQ * FS; i += 128) (&sm.dq[0][0])[i] = 0.f;
 
   int rows[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) rows[i] = row0 + warp * 16 + g + 8 * i;
+  // This thread's dQ elements of the block's output columns, at D = 256
+  // accumulated in place: row rows[hf], columns dh * DO + 8 n + 2 t + e.
+  auto dqg = [&](int hf) {
+    return p.dq + ((long long)(b * p.H + h) * p.Q + rows[hf]) * D + dh * DO +
+           2 * t;
+  };
+  if constexpr (DH > 1) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (rows[hf] < p.Q)
+#pragma unroll
+        for (int n = 0; n < DO / 8; ++n)
+          *reinterpret_cast<float2*>(dqg(hf) + 8 * n) = make_float2(0.f, 0.f);
+  }
   int jmin, jmax;
   kv_span(p, row0 / TQ * TQ, jmin, jmax);
 
@@ -344,15 +394,17 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
   for (int phase = 0; phase < 4; ++phase) {
     for (int j = jmin; j <= jmax; ++j) {
       __syncthreads();  // previous block's tiles fully consumed
-      load_rows(&sm.k[0][0], p.k + kvoff, LANE, j * LANE, p.S, p.k_fmt);
+      load_rows<D>(&sm.k[0][0], p.k + kvoff, LANE, j * LANE, p.S, p.k_fmt);
       if (phase >= 2)
-        load_rows(&sm.v[0][0], p.v + kvoff, LANE, j * LANE, p.S, p.v_fmt);
-      if (phase == 3)
-        load_rows_t(&sm.kt[0][0], p.k + kvoff, LANE, j * LANE, p.k_fmt);
+        load_rows<D>(&sm.v[0][0], p.v + kvoff, LANE, j * LANE, p.S, p.v_fmt);
+      if constexpr (DH == 1) {
+        if (phase == 3)
+          load_rows_t<D>(&sm.kt[0][0], p.k + kvoff, LANE, j * LANE, p.k_fmt);
+      }
       __syncthreads();
 
       float s[16][4];
-      tile_abt(s, qw, &sm.k[0][0]);
+      tile_abt<D>(s, qw, &sm.k[0][0]);
       uint32_t valid[2] = {0u, 0u};  // bit nt*2 + (e & 1) per row half
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt)
@@ -407,7 +459,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
       }
 
       float dp[16][4];
-      tile_abt(dp, dow, &sm.v[0][0]);
+      tile_abt<D>(dp, dow, &sm.v[0][0]);
       uint32_t dsf[8][4];
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt) {
@@ -453,31 +505,66 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
         continue;
       }
 
-      // dq += dS8 . K for this block, in two halves of the head dim.
+      if constexpr (DH > 1) {
+        // dq += dS8 . K[:, dh * DO ...] for this block: K's B fragments by
+        // ldmatrix.trans from the row-major tile, as in the stash variant's
+        // pass C; the block's product added in place.
+        const int li = lane >> 3, lr = lane & 7;
+        float part[16][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float part[8][4];
+        for (int n = 0; n < 16; ++n)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
-          const int c = ks * 16 + 2 * t;
+          const __nv_bfloat16* rowp = &sm.k[0][0] +
+                                      (ks * 16 + (li & 1) * 8 + lr) * KS +
+                                      dh * DO + (li >> 1) * 8;
 #pragma unroll
-          for (int dt = 0; dt < 8; ++dt) {
-            const __nv_bfloat16* bn = &sm.kt[(half * 8 + dt) * 8 + g][c];
-            fp8::mma_bf16(part[dt], dsf[ks], u32_at(bn), u32_at(bn + 8));
+          for (int dp2 = 0; dp2 < 8; ++dp2) {
+            uint32_t bf[4];
+            fp8::ldsm_x4_t(bf, rowp + dp2 * 16);
+            fp8::mma_bf16(part[2 * dp2], dsf[ks], bf[0], bf[1]);
+            fp8::mma_bf16(part[2 * dp2 + 1], dsf[ks], bf[2], bf[3]);
           }
         }
 #pragma unroll
-        for (int dt = 0; dt < 8; ++dt)
+        for (int hf = 0; hf < 2; ++hf)
+          if (rows[hf] < p.Q)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float& a = sm.dq[warp * 16 + g + 8 * (e >> 1)]
-                            [(half * 8 + dt) * 8 + 2 * t + (e & 1)];
-            a = __fadd_rn(a, part[dt][e]);
+            for (int n = 0; n < 16; ++n) {
+              float2* a = reinterpret_cast<float2*>(dqg(hf) + 8 * n);
+              const float2 x = *a;
+              *a = make_float2(__fadd_rn(x.x, part[n][2 * hf]),
+                               __fadd_rn(x.y, part[n][2 * hf + 1]));
+            }
+      } else {
+        // dq += dS8 . K for this block, in two halves of the head dim.
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float part[8][4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 8; ++ks) {
+            const int c = ks * 16 + 2 * t;
+#pragma unroll
+            for (int dt = 0; dt < 8; ++dt) {
+              const __nv_bfloat16* bn = &sm.kt[(half * 8 + dt) * 8 + g][c];
+              fp8::mma_bf16(part[dt], dsf[ks], u32_at(bn), u32_at(bn + 8));
+            }
           }
+#pragma unroll
+          for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& a = sm.dq[warp * 16 + g + 8 * (e >> 1)]
+                              [(half * 8 + dt) * 8 + 2 * t + (e & 1)];
+              a = __fadd_rn(a, part[dt][e]);
+            }
+        }
       }
     }
     if (phase == 1) {
@@ -492,15 +579,24 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
     const int row = rows[hf];
     if (row >= p.Q) continue;
     const long long r = (long long)(b * p.H + h) * p.Q + row;
-    float* dqr = p.dq + r * D;
-    const int lr = warp * 16 + g + 8 * hf;
+    if constexpr (DH == 1) {
+      float* dqr = p.dq + r * D;
+      const int lr = warp * 16 + g + 8 * hf;
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      dqr[col] = __fmul_rn(sm.dq[lr][col], p.f_dq);
-      dqr[col + 1] = __fmul_rn(sm.dq[lr][col + 1], p.f_dq);
+      for (int dt = 0; dt < 16; ++dt) {
+        const int col = dt * 8 + 2 * t;
+        dqr[col] = __fmul_rn(sm.dq[lr][col], p.f_dq);
+        dqr[col + 1] = __fmul_rn(sm.dq[lr][col + 1], p.f_dq);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < DO / 8; ++n) {
+        float2* a = reinterpret_cast<float2*>(dqg(hf) + 8 * n);
+        const float2 x = *a;
+        *a = make_float2(__fmul_rn(x.x, p.f_dq), __fmul_rn(x.y, p.f_dq));
+      }
     }
-    if (t == 0) {
+    if (t == 0 && dh == 0) {
       p.m[r] = m[hf];
       p.l[r] = l[hf];
       p.rd[r] = rd[hf];
@@ -516,23 +612,30 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
     sm.red[1][warp] = amax_ds;
   }
   __syncthreads();
-  if (tid == 0) {
+  // The output halves of a q tile observe the same values; the first one
+  // writes the amaxes and counts.
+  if (tid == 0 && dh == 0) {
     float a = sm.red[0][0], c = sm.red[1][0];
     for (int w = 1; w < 4; ++w) {
       a = fp8::nanmax(a, sm.red[0][w]);
       c = fp8::nanmax(c, sm.red[1][w]);
     }
-    const long long idx = (long long)(b * p.H + h) * gridDim.x + iq;
+    const long long idx = (long long)(b * p.H + h) * (gridDim.x / DH) + iq;
     p.amax_dp[idx] = a;
     p.amax_ds[idx] = c;
   }
   if constexpr (COUNTS) {
     int sums[5];
-    fp8::block_counts<5, 4>(cnt, reinterpret_cast<uint32_t*>(&sm.kt[0][0]),
-                            sums);
-    if (tid == 0)
-      write_counts(p.counts + ((long long)(b * p.H + h) * gridDim.x + iq) * 6,
-                   sums);
+    if constexpr (DH == 1)
+      fp8::block_counts<5, 4>(cnt, reinterpret_cast<uint32_t*>(&sm.kt[0][0]),
+                              sums);
+    else
+      fp8::block_counts<5, 4>(cnt, reinterpret_cast<uint32_t*>(&sm.k[0][0]),
+                              sums);
+    if (tid == 0 && dh == 0)
+      write_counts(
+          p.counts + ((long long)(b * p.H + h) * (gridDim.x / DH) + iq) * 6,
+          sums);
   }
 }
 
@@ -541,7 +644,8 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
 // ---------------------------------------------------------------------------
 
 constexpr int STASH_BLOCKS = 4;   // kv blocks a stash-variant span may cover
-constexpr int TILE_BYTES = LANE * KS * 2;
+template <int D>
+constexpr int TILE_BYTES = LANE * ks_of<D> * 2;
 constexpr int STASH_WORDS = 16 * 128;   // words per stash per kv block
 
 
@@ -563,30 +667,39 @@ __device__ __forceinline__ void bytes_to_bf16_hw(const uint4& x, int fmt,
   }
 }
 
-// ROWS x D fp8 rows from device memory into registers (16 bytes per
-// thread and step; rows at or past `limit` read as zeros) ...
-template <int ROWS>
-__device__ __forceinline__ void fetch_rows(uint4 (&x)[ROWS / 16],
-                                           const uint8_t* src, int row0,
-                                           int limit) {
+// The units of ROWS rows of W fp8 bytes (16 bytes per thread and step):
+// W / 16 a row, 8 (W = 128) or 16 (W = 256).
+template <int W>
+constexpr int unit_shift = W == 128 ? 3 : 4;
+
+// ROWS x W fp8 bytes of rows LD apart (the first W of each row at src)
+// from device memory into registers (16 bytes per thread and step; rows
+// at or past `limit` read as zeros) ...
+template <int ROWS, int W, int LD, int N>
+__device__ __forceinline__ void fetch_rows(uint4 (&x)[N], const uint8_t* src,
+                                           int row0, int limit) {
+  static_assert(N >= ROWS * W / 2048, "fetch_rows: registers");
+  constexpr int SH = unit_shift<W>;
 #pragma unroll
-  for (int i = 0; i < ROWS / 16; ++i) {
-    const int v = threadIdx.x + 128 * i, r = v >> 3, c = (v & 7) * 16;
+  for (int i = 0; i < ROWS * W / 2048; ++i) {
+    const int v = threadIdx.x + 128 * i, r = v >> SH,
+              c = (v & ((1 << SH) - 1)) * 16;
     x[i] = row0 + r < limit
                ? __ldg(reinterpret_cast<const uint4*>(
-                     src + (long long)(row0 + r) * D + c))
+                     src + (long long)(row0 + r) * LD + c))
                : make_uint4(0, 0, 0, 0);
   }
 }
 
 // ... and from registers into a bf16 shared-memory tile of row stride KS.
-template <int ROWS>
+template <int ROWS, int W, int KS, int N>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const uint4 (&x)[ROWS / 16],
-                                           int fmt) {
+                                           const uint4 (&x)[N], int fmt) {
+  constexpr int SH = unit_shift<W>;
 #pragma unroll
-  for (int i = 0; i < ROWS / 16; ++i) {
-    const int v = threadIdx.x + 128 * i, r = v >> 3, c = (v & 7) * 16;
+  for (int i = 0; i < ROWS * W / 2048; ++i) {
+    const int v = threadIdx.x + 128 * i, r = v >> SH,
+              c = (v & ((1 << SH) - 1)) * 16;
     uint32_t w[8];
     bytes_to_bf16_hw(x[i], fmt, w);
     uint4* d = reinterpret_cast<uint4*>(dst + r * KS + c);
@@ -597,19 +710,21 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
 
 // The A fragments of 16 rows x D of a bf16 tile (stride KS), per 16-wide
 // k step: {a[g][c], a[g+8][c], a[g][c+8], a[g+8][c+8]}, c = kk + 2t.
-__device__ __forceinline__ void load_afrag(uint32_t af[8][4],
+template <int D, int KS = ks_of<D>>
+__device__ __forceinline__ void load_afrag(uint32_t af[D / 16][4],
                                            const __nv_bfloat16* rows16) {
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk)
     ldsm_x4(af[kk], rows16 + ((i & 1) * 8 + r) * KS + kk * 16 + (i >> 1) * 8);
 }
 
 // acc[2][4] = the n tiles 2np, 2np+1 (kv columns 16np .. 16np+15) of
 // A . tile^T over the head dim: A from registers (16 rows), tile = 128 kv
 // rows of stride KS; the k steps in ascending order, as tile_abt.
+template <int D, int KS = ks_of<D>>
 __device__ __forceinline__ void frag_abt_pair(float acc[2][4],
-                                              const uint32_t af[8][4],
+                                              const uint32_t af[D / 16][4],
                                               const __nv_bfloat16* tile,
                                               int np) {
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
@@ -620,7 +735,7 @@ __device__ __forceinline__ void frag_abt_pair(float acc[2][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t bf[4];
     ldsm_x4(bf, rowp + kk * 16);
     fp8::mma_bf16(acc[0], af[kk], bf[0], bf[1]);
@@ -651,17 +766,25 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #endif
 
 
-template <bool COUNTS>
-__global__ void __launch_bounds__(128, 2)
+// At D = 256 the block's output half dh is the only part that differs:
+// passes A and B run in full, and pass C stages and multiplies the K
+// columns of that half alone, so dq keeps its 64 registers a thread.
+template <bool COUNTS, int D>
+__global__ void __launch_bounds__(128, D == 128 ? 2 : 1)
     attn_bwd_dq_kernel_stash(Args p, QConsts qc) {
+  constexpr int KS = ks_of<D>, DH = D / DO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float(*red)[4] = reinterpret_cast<float(*)[4]>(smem_raw + TILE_BYTES);
-  uint32_t* stash = reinterpret_cast<uint32_t*>(smem_raw + TILE_BYTES + 32);
+  float(*red)[4] = reinterpret_cast<float(*)[4]>(smem_raw + TILE_BYTES<D>);
+  uint32_t* stash =
+      reinterpret_cast<uint32_t*>(smem_raw + TILE_BYTES<D> + 32);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // Longest spans first: the z axis walks the q tiles from the last.
-  const int h = blockIdx.x, b = blockIdx.y, iq = gridDim.z - 1 - blockIdx.z;
+  // Longest spans first: the z axis walks the q tiles from the last (and,
+  // at D = 256, each tile's two output halves dh in turn).
+  const int dh = blockIdx.z % DH;
+  const int h = blockIdx.x, b = blockIdx.y,
+            iq = gridDim.z / DH - 1 - blockIdx.z / DH;
   const int hk = h / (p.H / p.Hkv);
   const int row0 = iq * BQ;
   const uint32_t bh = (uint32_t)(b * p.H + h);
@@ -703,16 +826,16 @@ __global__ void __launch_bounds__(128, 2)
   // S8 per kv block into its stash and the row max m; then dP8 and its
   // amax. q and dO are staged through the tile once; K and V are
   // fetched into registers one tile ahead.
-  uint32_t af[8][4];
-  uint4 nx[LANE / 16], xdo[BQ / 16];
+  uint32_t af[D / 16][4];
+  uint4 nx[LANE * D / 2048], xdo[BQ * D / 2048];
   {
-    uint4 x[BQ / 16];
-    fetch_rows<BQ>(x, p.q + qoff, row0, p.Q);
-    fetch_rows<BQ>(xdo, p.dO + qoff, row0, p.Q);
-    fetch_rows<LANE>(nx, kg, jmin * LANE, p.S);
-    stage_rows<BQ>(tile, x, p.q_fmt);
+    uint4 x[BQ * D / 2048];
+    fetch_rows<BQ, D, D>(x, p.q + qoff, row0, p.Q);
+    fetch_rows<BQ, D, D>(xdo, p.dO + qoff, row0, p.Q);
+    fetch_rows<LANE, D, D>(nx, kg, jmin * LANE, p.S);
+    stage_rows<BQ, D, KS>(tile, x, p.q_fmt);
     __syncthreads();
-    load_afrag(af, tile + warp * 16 * KS);
+    load_afrag<D>(af, tile + warp * 16 * KS);
   }
   DQ_PROBE_MARK(1)
   // The loops below walk a kv block's 16 accumulator fragments (8 kv
@@ -729,19 +852,19 @@ __global__ void __launch_bounds__(128, 2)
   for (int j = jmin; j <= jmax; ++j) {
     const int jl = j - jmin;
     __syncthreads();  // the tile's previous contents consumed
-    stage_rows<LANE>(tile, nx, p.k_fmt);
+    stage_rows<LANE, D, KS>(tile, nx, p.k_fmt);
     __syncthreads();
     // The next K block, or the span's first V block.
     if (j < jmax)
-      fetch_rows<LANE>(nx, kg, (j + 1) * LANE, p.S);
+      fetch_rows<LANE, D, D>(nx, kg, (j + 1) * LANE, p.S);
     else
-      fetch_rows<LANE>(nx, vg, jmin * LANE, p.S);
+      fetch_rows<LANE, D, D>(nx, vg, jmin * LANE, p.S);
     float mx[2] = {-1e30f, -1e30f};
     with_flag(p.sr_s, [&](auto sr) {
 #pragma unroll 2
       for (int np = 0; np < 8; ++np) {
         float acc[2][4];
-        frag_abt_pair(acc, af, tile, np);
+        frag_abt_pair<D>(acc, af, tile, np);
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
           const int nt = 2 * np + n;
@@ -767,22 +890,28 @@ __global__ void __launch_bounds__(128, 2)
   }
   DQ_PROBE_MARK(2)
   __syncthreads();  // the last K block consumed
-  stage_rows<BQ>(tile, xdo, p.do_fmt);
+  stage_rows<BQ, D, KS>(tile, xdo, p.do_fmt);
   __syncthreads();
-  load_afrag(af, tile + warp * 16 * KS);
+  load_afrag<D>(af, tile + warp * 16 * KS);
   for (int j = jmin; j <= jmax; ++j) {
     const int jl = j - jmin;
     __syncthreads();  // the tile's previous contents consumed
-    stage_rows<LANE>(tile, nx, p.v_fmt);
+    stage_rows<LANE, D, KS>(tile, nx, p.v_fmt);
     __syncthreads();
-    // The next V block, or the span's first K block for pass C.
-    fetch_rows<LANE>(nx, j < jmax ? vg : kg, (j < jmax ? j + 1 : jmin) * LANE,
-                     p.S);
+    // The next V block, or the span's first K block (the block's output
+    // columns) for pass C.
+    if constexpr (DH == 1)
+      fetch_rows<LANE, D, D>(nx, j < jmax ? vg : kg,
+                             (j < jmax ? j + 1 : jmin) * LANE, p.S);
+    else if (j < jmax)
+      fetch_rows<LANE, D, D>(nx, vg, (j + 1) * LANE, p.S);
+    else
+      fetch_rows<LANE, DO, D>(nx, kg + dh * DO, jmin * LANE, p.S);
     with_flag(p.sr_e, [&](auto sr) {
 #pragma unroll 2
       for (int np = 0; np < 8; ++np) {
         float acc[2][4];
-        frag_abt_pair(acc, af, tile, np);
+        frag_abt_pair<D>(acc, af, tile, np);
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
           const int nt = 2 * np + n;
@@ -880,9 +1009,9 @@ __global__ void __launch_bounds__(128, 2)
   for (int j = jmin; j <= jmax; ++j) {
     const int jl = j - jmin;
     __syncthreads();  // the tile's previous contents consumed
-    stage_rows<LANE>(tile, nx, p.k_fmt);
+    stage_rows<LANE, DO, KS>(tile, nx, p.k_fmt);
     __syncthreads();
-    if (j < jmax) fetch_rows<LANE>(nx, kg, (j + 1) * LANE, p.S);
+    if (j < jmax) fetch_rows<LANE, DO, D>(nx, kg + dh * DO, (j + 1) * LANE, p.S);
     float part[16][4];
 #pragma unroll
     for (int n = 0; n < 16; ++n)
@@ -943,13 +1072,13 @@ __global__ void __launch_bounds__(128, 2)
     const int row = rows[hf];
     if (row >= p.Q) continue;
     const long long r = (long long)(b * p.H + h) * p.Q + row;
-    float* dqr = p.dq + r * D;
+    float* dqr = p.dq + r * D + dh * DO;
 #pragma unroll
     for (int dt = 0; dt < 16; ++dt)
       *reinterpret_cast<float2*>(dqr + dt * 8 + 2 * t) =
           make_float2(__fmul_rn(dq[dt][2 * hf], p.f_dq),
                       __fmul_rn(dq[dt][2 * hf + 1], p.f_dq));
-    if (t == 0) {
+    if (t == 0 && dh == 0) {
       p.m[r] = m[hf];
       p.l[r] = l[hf];
       p.rd[r] = rd[hf];
@@ -965,13 +1094,13 @@ __global__ void __launch_bounds__(128, 2)
     red[1][warp] = amax_ds;
   }
   __syncthreads();
-  if (tid == 0) {
+  if (tid == 0 && dh == 0) {
     float a = red[0][0], c = red[1][0];
     for (int w = 1; w < 4; ++w) {
       a = fp8::nanmax(a, red[0][w]);
       c = fp8::nanmax(c, red[1][w]);
     }
-    const long long idx = (long long)(b * p.H + h) * gridDim.z + iq;
+    const long long idx = (long long)(b * p.H + h) * (gridDim.z / DH) + iq;
     p.amax_dp[idx] = a;
     p.amax_ds[idx] = c;
   }
@@ -979,9 +1108,10 @@ __global__ void __launch_bounds__(128, 2)
     // The tile is free from here on: its words hold the block's sums.
     int sums[5];
     fp8::block_counts<5, 4>(cnt, reinterpret_cast<uint32_t*>(tile), sums);
-    if (tid == 0)
-      write_counts(p.counts + ((long long)(b * p.H + h) * gridDim.z + iq) * 6,
-                   sums);
+    if (tid == 0 && dh == 0)
+      write_counts(
+          p.counts + ((long long)(b * p.H + h) * (gridDim.z / DH) + iq) * 6,
+          sums);
   }
 #ifdef DQ_PROBE
   const unsigned bid = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
@@ -1003,22 +1133,28 @@ __global__ void __launch_bounds__(128, 2)
 constexpr int DKV_THREADS = 128;  // one warpgroup; warp w: kv rows 16w .. 16w+15
 constexpr int QU = 64;            // q rows per step (half a 128-row q tile)
 
-// Shared memory, by byte offset (the f16 tiles 1024-byte aligned for the
-// 128-byte swizzle). Every f16 tile is two 64-wide d segments of 64 rows
-// (widen_unit's layout): K and V, the K-major A operands of S^T and dP^T;
-// the step's Q and dO, the K-major B operands of S^T and dP^T and, as they
-// lie, the MN-major B operands of dK and dV. A ring stage: the step's q and
-// dO fp8 bytes in load_tile's unit order, then its m, l and rd rows. The
-// step's rows: 1 / d_safe (double), m, rd and the four SR hash prefixes.
-constexpr int DK_KH = 0, DK_VH = DK_KH + BKV * D * 2;
-constexpr int DK_QH = DK_VH + BKV * D * 2, DK_DH = DK_QH + QU * D * 2;
-constexpr int DK_RING = DK_DH + QU * D * 2;
-constexpr int ST_Q = 0, ST_DO = QU * D, ST_STATS = 2 * QU * D;
-constexpr int DK_STAGE = ST_STATS + 3 * QU * 4;
-constexpr int DK_RCP = DK_RING + 2 * DK_STAGE;
-constexpr int DK_M = DK_RCP + QU * 8, DK_RD = DK_M + QU * 4;
-constexpr int DK_PRE = DK_RD + QU * 4;
-constexpr int DK_SMEM = DK_PRE + 4 * QU * 4;
+// Shared memory at head dim D, by byte offset (the f16 tiles 1024-byte
+// aligned for the 128-byte swizzle). Every f16 tile is D / 64 d segments
+// of 64 rows (widen_unit's layout): K and V, the K-major A operands of S^T
+// and dP^T; the step's Q and dO, the K-major B operands of S^T and dP^T
+// and, as they lie, the MN-major B operands of dK and dV (two segments
+// from the block's output half on). A ring stage: the step's q and dO fp8
+// bytes in load_tile's unit order, then its m, l and rd rows. The step's
+// rows: 1 / d_safe (double), m, rd and the four SR hash prefixes. 101,888
+// bytes at D = 128 (two blocks an SM), 200,192 at D = 256 (one).
+template <int D>
+struct Dkv {
+  static constexpr int DH = D / DO;  // blocks per kv block
+  static constexpr int KH = 0, VH = KH + BKV * D * 2;
+  static constexpr int QH = VH + BKV * D * 2, DOH = QH + QU * D * 2;
+  static constexpr int RING = DOH + QU * D * 2;
+  static constexpr int ST_Q = 0, ST_DO = QU * D, ST_STATS = 2 * QU * D;
+  static constexpr int STAGE = ST_STATS + 3 * QU * 4;
+  static constexpr int RCP = RING + 2 * STAGE;
+  static constexpr int M = RCP + QU * 8, RD = M + QU * 4;
+  static constexpr int PRE = RD + QU * 4;
+  static constexpr int SMEM = PRE + 4 * QU * 4;
+};
 
 // cp.async of 16 (4) bytes that writes zeros for a source out of range.
 __device__ __forceinline__ void cp16_zfill(uint32_t dst, const void* src,
@@ -1073,13 +1209,23 @@ __device__ __forceinline__ unsigned long long dkv_global_ns() {
 #define DKV_TICK(k)
 #endif
 
-// One block per (query head h, batch row b, 64 kv rows): head h's part of
-// the dK / dV chain, the 128-row q tiles whose kv_span holds these rows in
-// ascending order, each in two steps of 64 q rows. With a GQA group of one
-// it writes dK * f_dk and dV * f_dv; else head h's raw partials into
-// `part` ((2, B, H, S, D) f32), which attn_bwd_dkv_kernel_group_sum adds.
+// One block per (query head h, batch row b, 64 kv rows; at D = 256 also
+// the output half dh): head h's part of the dK / dV chain, the 128-row q
+// tiles whose kv_span holds these rows in ascending order, each in two
+// steps of 64 q rows. With a GQA group of one it writes dK * f_dk and
+// dV * f_dv; else head h's raw partials into `part` ((2, B, H, S, D) f32),
+// which attn_bwd_dkv_kernel_group_sum adds. At D = 256 both halves' blocks
+// compute S^T and dP^T over the whole head dim and the same P8 / dS8, and
+// each accumulates its 128 columns of dK and dV: the 64 + 64 accumulator
+// registers a thread of D = 128.
+template <int D>
 __global__ void __launch_bounds__(DKV_THREADS, 2)
     attn_bwd_dkv_kernel_head(Args p, float* part) {
+  using F = Dkv<D>;
+  constexpr int DK_KH = F::KH, DK_VH = F::VH, DK_QH = F::QH, DK_DH = F::DOH;
+  constexpr int DK_RING = F::RING, DK_STAGE = F::STAGE, DK_RCP = F::RCP;
+  constexpr int DK_M = F::M, DK_RD = F::RD, DK_PRE = F::PRE;
+  constexpr int ST_Q = F::ST_Q, ST_DO = F::ST_DO, ST_STATS = F::ST_STATS;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   if (sbase & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
@@ -1087,7 +1233,8 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
   const int g = lane >> 2, t = lane & 3;
   // ops.dkv_block_order: blockIdx.z walks the kv blocks ascending, along
   // which the chains never grow (longest first).
-  const int h = blockIdx.x, b = blockIdx.y, kb = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, kb = blockIdx.z / F::DH;
+  const int dh = blockIdx.z % F::DH;
   const int group = p.H / p.Hkv, hk = h / group;
   const int kv0 = kb * BKV, jblk = kv0 / LANE;
   const uint32_t bh = (uint32_t)(b * p.H + h);
@@ -1181,6 +1328,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
   const uint32_t* pre = reinterpret_cast<const uint32_t*>(smem + DK_PRE);
   const uint32_t sk = sbase + DK_KH, sv = sbase + DK_VH;
   const uint32_t sq = sbase + DK_QH, sd = sbase + DK_DH;
+  // The MN-major B operands of dK and dV: the output half's two segments.
+  const uint32_t sq_out = sq + dh * 2 * (QU * 128);
+  const uint32_t sd_out = sd + dh * 2 * (QU * 128);
   DKV_TICK(D_STAGE)
 
   for (int u = 0; u < nu; ++u) {
@@ -1298,7 +1448,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < QU / 16; ++ks)
-      fp8::wgmma_n128_rs<1>(dv, a[ks], slice_desc<true>(sd, ks));
+      fp8::wgmma_n128_rs<1>(dv, a[ks], slice_desc<true>(sd_out, ks));
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
@@ -1358,7 +1508,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < QU / 16; ++ks)
-      fp8::wgmma_n128_rs<1>(dk, a[ks], slice_desc<true>(sq, ks));
+      fp8::wgmma_n128_rs<1>(dk, a[ks], slice_desc<true>(sq_out, ks));
     wg_commit();
     wg_wait<0>();
     fence_acc(dk);
@@ -1375,7 +1525,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
   const float fk = own ? p.f_dk : 1.f, fv = own ? p.f_dv : 1.f;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const long long r = ooff + (long long)ccol[hf] * D;
+    const long long r = ooff + (long long)ccol[hf] * D + dh * DO;
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt) {
       const int c = nt * 8 + 2 * t, i = 4 * nt + 2 * hf;
@@ -1412,6 +1562,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
 // dK (blockIdx.y = 0) or dV (1) of each GQA group: its members' raw
 // partials added in head order, ((P_0 + P_1) + P_2) ..., then scaled once.
 // part: (2, B, H, S, D); dk, dv: (B, Hkv, S, D).
+template <int D>
 __global__ void __launch_bounds__(256)
     attn_bwd_dkv_kernel_group_sum(const float* part, float* dk, float* dv,
                                   int B, int H, int Hkv, int S, float f_dk,
@@ -1437,10 +1588,11 @@ __global__ void __launch_bounds__(256)
                        __fmul_rn(a.z, f), __fmul_rn(a.w, f));
 }
 
+template <int D>
 cudaError_t dkv_prepare() {
-  return cudaFuncSetAttribute(attn_bwd_dkv_kernel_head,
+  return cudaFuncSetAttribute(attn_bwd_dkv_kernel_head<D>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              DK_SMEM);
+                              Dkv<D>::SMEM);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dO,
@@ -1488,53 +1640,57 @@ int span_blocks(const Args& p) {
   return most;
 }
 
-int stash_smem_bytes(int blocks) { return TILE_BYTES + 32 + blocks * 2 * STASH_WORDS * 4; }
+template <int D>
+int stash_smem_bytes(int blocks) {
+  return TILE_BYTES<D> + 32 + blocks * 2 * STASH_WORDS * 4;
+}
 
-template <bool COUNTS>
+template <bool COUNTS, int D>
 cudaError_t stash_prepare(int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel_stash<COUNTS>,
+      attn_bwd_dq_kernel_stash<COUNTS, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(attn_bwd_dq_kernel_stash<COUNTS>,
+  return cudaFuncSetAttribute(attn_bwd_dq_kernel_stash<COUNTS, D>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool COUNTS>
+template <bool COUNTS, int D>
 int dq_launch(const Args& p, cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(SmemDQ));
+  const int smem = static_cast<int>(sizeof(SmemDQ<D>));
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<COUNTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      attn_bwd_dq_kernel<COUNTS, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Q + BQ - 1) / BQ, p.H, p.B);
-  attn_bwd_dq_kernel<COUNTS><<<grid, 128, smem, st>>>(p);
+  dim3 grid(D / DO * ((p.Q + BQ - 1) / BQ), p.H, p.B);
+  attn_bwd_dq_kernel<COUNTS, D><<<grid, 128, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool COUNTS>
-int stash_launch(const Args& p, int smem, cudaStream_t st) {
-  cudaError_t err = stash_prepare<COUNTS>(smem);
+template <bool COUNTS, int D>
+int stash_launch(const Args& p, int blocks, cudaStream_t st) {
+  const int smem = stash_smem_bytes<D>(blocks);
+  cudaError_t err = stash_prepare<COUNTS, D>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const QConsts qc{make_qconst(p.fmt_s, p.sat_s), make_qconst(p.fmt_p, p.sat_p),
                    make_qconst(p.fmt_e, p.sat_e)};
-  dim3 grid(p.H, p.B, (p.Q + BQ - 1) / BQ);
-  attn_bwd_dq_kernel_stash<COUNTS><<<grid, 128, smem, st>>>(p, qc);
+  dim3 grid(p.H, p.B, D / DO * ((p.Q + BQ - 1) / BQ));
+  attn_bwd_dq_kernel_stash<COUNTS, D><<<grid, 128, smem, st>>>(p, qc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool COUNTS>
+template <bool COUNTS, int D>
 int stash_info(int blocks, int* out) {
-  const int smem = stash_smem_bytes(blocks);
-  cudaError_t err = stash_prepare<COUNTS>(smem);
+  const int smem = stash_smem_bytes<D>(blocks);
+  cudaError_t err = stash_prepare<COUNTS, D>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, attn_bwd_dq_kernel_stash<COUNTS>);
+  err = cudaFuncGetAttributes(&a, attn_bwd_dq_kernel_stash<COUNTS, D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int resident = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, attn_bwd_dq_kernel_stash<COUNTS>, 128, smem);
+      &resident, attn_bwd_dq_kernel_stash<COUNTS, D>, 128, smem);
   out[0] = smem;
   out[1] = a.numRegs;
   out[2] = static_cast<int>(a.localSizeBytes);
@@ -1542,19 +1698,77 @@ int stash_info(int blocks, int* out) {
   return static_cast<int>(err);
 }
 
+template <int D>
+int dkv_launch(const Args& p, float* part, cudaStream_t st) {
+  cudaError_t err = dkv_prepare<D>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.H, p.B, D / DO * (p.S / BKV));
+  attn_bwd_dkv_kernel_head<D><<<grid, DKV_THREADS, Dkv<D>::SMEM, st>>>(p,
+                                                                       part);
+  if (p.H != p.Hkv) {
+    // One float4 of dK or dV a thread.
+    const long long n4 = (long long)p.B * p.Hkv * p.S * D / 4;
+    const dim3 sgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
+    attn_bwd_dkv_kernel_group_sum<D><<<sgrid, 256, 0, st>>>(
+        part, p.dk, p.dv, p.B, p.H, p.Hkv, p.S, p.f_dk, p.f_dv);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dkv_info(int* out) {
+  cudaError_t err = dkv_prepare<D>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes a, g;
+  err = cudaFuncGetAttributes(&a, attn_bwd_dkv_kernel_head<D>);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&g, attn_bwd_dkv_kernel_group_sum<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, attn_bwd_dkv_kernel_head<D>, DKV_THREADS, Dkv<D>::SMEM);
+  out[0] = Dkv<D>::SMEM;
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = resident;
+  out[4] = g.numRegs;
+  out[5] = static_cast<int>(g.localSizeBytes);
+  return static_cast<int>(err);
+}
+
+// A library holds the kernels at one head dim, FP8_ATTN_D (128 unless the
+// build defines it 256: kernels/build.py builds both, in parallel).
+#ifndef FP8_ATTN_D
+#define FP8_ATTN_D 128
+#endif
+
+// f<FP8_ATTN_D>() for the library's head dim d; cudaErrorInvalidValue for
+// another.
+template <class F>
+int by_head_dim(int d, F&& f) {
+  if (d != FP8_ATTN_D) return static_cast<int>(cudaErrorInvalidValue);
+  return f(std::integral_constant<int, FP8_ATTN_D>{});
+}
+
 }  // namespace
 
-extern "C" int attn_bwd_dq_smem_bytes() { return static_cast<int>(sizeof(SmemDQ)); }
+// The long-span dQ kernel's dynamic shared memory at head dim d (bytes).
+extern "C" int attn_bwd_dq_smem_bytes(int d) {
+  return by_head_dim(d, [](auto dd) {
+    return static_cast<int>(sizeof(SmemDQ<decltype(dd)::value>));
+  });
+}
 
-// Integer arguments `iv` (22): B, H, Hkv, Q, S, q_len, s_len, causal,
+// Integer arguments `iv` (23): B, H, Hkv, Q, S, q_len, s_len, causal,
 // window, q/k/v/dO formats, fmt_s, fmt_p, fmt_e, sr_s, sr_p, sr_e, sat_s,
-// sat_p, sat_e. Float arguments `fv` (10): f_s, s_s, f_p, s_p, f_dp, s_dp,
-// f_ds, f_dq, f_dk, f_dv. Both arrays are read on the host. D must be 128
-// and S a multiple of 128 (the wrapper pads). Return cudaGetLastError().
+// sat_p, sat_e, D. Float arguments `fv` (10): f_s, s_s, f_p, s_p, f_dp,
+// s_dp, f_ds, f_dq, f_dk, f_dv. Both arrays are read on the host. D must be
+// the library's FP8_ATTN_D and S a multiple of 128 (the wrapper pads).
+// Return cudaGetLastError().
 
-// Kernel 1, long-span variant: grid (ceil(Q/64), H, B). Writes dq, m, l,
-// rd, amax_dp/ds, and with a non-null `counts` (the count variant) the
-// (B, H, ceil(Q/64), 6) int32 dP / dS counts.
+// Kernel 1, long-span variant: grid (ceil(Q/64) x D/128, H, B). Writes dq,
+// m, l, rd, amax_dp/ds, and with a non-null `counts` (the count variant)
+// the (B, H, ceil(Q/64), 6) int32 dP / dS counts.
 extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dO, const void* seed, void* dq,
                                   void* m, void* l, void* rd, void* amax_dp,
@@ -1563,13 +1777,16 @@ extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
   Args p = make_args(q, k, v, dO, seed, dq, m, l, rd, amax_dp, amax_ds,
                      nullptr, nullptr, iv, fv, counts);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return counts ? dq_launch<true>(p, st) : dq_launch<false>(p, st);
+  return by_head_dim(iv[22], [&](auto dd) {
+    constexpr int D = decltype(dd)::value;
+    return counts ? dq_launch<true, D>(p, st) : dq_launch<false, D>(p, st);
+  });
 }
 
-// Kernel 2: grid (H, B, S/64) of attn_bwd_dkv_kernel_head, then, for a
-// GQA group of more than one, attn_bwd_dkv_kernel_group_sum over `part`, a
-// (2, B, H, S, D) f32 scratch (unused, and may be null, for a group of
-// one). Reads m, l, rd of kernel 1; writes dk, dv (B, Hkv, S, D).
+// Kernel 2: grid (H, B, S/64 x D/128) of attn_bwd_dkv_kernel_head, then,
+// for a GQA group of more than one, attn_bwd_dkv_kernel_group_sum over
+// `part`, a (2, B, H, S, D) f32 scratch (unused, and may be null, for a
+// group of one). Reads m, l, rd of kernel 1; writes dk, dv (B, Hkv, S, D).
 extern "C" int attn_bwd_dkv_launch(const void* q, const void* k,
                                    const void* v, const void* dO,
                                    const void* seed, const void* m,
@@ -1579,53 +1796,28 @@ extern "C" int attn_bwd_dkv_launch(const void* q, const void* k,
   Args p = make_args(q, k, v, dO, seed, nullptr, const_cast<void*>(m),
                      const_cast<void*>(l), const_cast<void*>(rd), nullptr,
                      nullptr, dk, dv, iv, fv);
-  const int group = p.H / p.Hkv;
-  if (group > 1 && part == nullptr)
+  if (p.H != p.Hkv && part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = dkv_prepare();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(p.H, p.B, p.S / BKV);
-  attn_bwd_dkv_kernel_head<<<grid, DKV_THREADS, DK_SMEM, st>>>(
-      p, static_cast<float*>(part));
-  if (group > 1) {
-    // One float4 of dK or dV a thread.
-    const long long n4 = (long long)p.B * p.Hkv * p.S * D / 4;
-    const dim3 sgrid(static_cast<unsigned>((n4 + 255) / 256), 2);
-    attn_bwd_dkv_kernel_group_sum<<<sgrid, 256, 0, st>>>(
-        static_cast<const float*>(part), p.dk, p.dv, p.B, p.H, p.Hkv, p.S,
-        p.f_dk, p.f_dv);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return by_head_dim(iv[22], [&](auto dd) {
+    return dkv_launch<decltype(dd)::value>(p, static_cast<float*>(part), st);
+  });
 }
 
-// out = {attn_bwd_dkv_kernel_head's dynamic shared memory bytes, registers
-// a thread, local (spill) bytes a thread, blocks resident per SM;
-// attn_bwd_dkv_kernel_group_sum's registers and local bytes a thread}.
-// Returns a cudaError_t.
-extern "C" int attn_bwd_dkv_info(int* out) {
-  cudaError_t err = dkv_prepare();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes a, g;
-  err = cudaFuncGetAttributes(&a, attn_bwd_dkv_kernel_head);
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&g, attn_bwd_dkv_kernel_group_sum);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int resident = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, attn_bwd_dkv_kernel_head, DKV_THREADS, DK_SMEM);
-  out[0] = DK_SMEM;
-  out[1] = a.numRegs;
-  out[2] = static_cast<int>(a.localSizeBytes);
-  out[3] = resident;
-  out[4] = g.numRegs;
-  out[5] = static_cast<int>(g.localSizeBytes);
-  return static_cast<int>(err);
+// At head dim d: out = {attn_bwd_dkv_kernel_head's dynamic shared memory
+// bytes, registers a thread, local (spill) bytes a thread, blocks resident
+// per SM; attn_bwd_dkv_kernel_group_sum's registers and local bytes a
+// thread}. Returns a cudaError_t.
+extern "C" int attn_bwd_dkv_info(int d, int* out) {
+  return by_head_dim(d, [&](auto dd) {
+    return dkv_info<decltype(dd)::value>(out);
+  });
 }
 
-// Kernel 1, stash variant: grid (H, B, ceil(Q/64)), for launches whose
-// every q tile spans at most STASH_BLOCKS kv blocks (cudaErrorInvalidValue
-// otherwise). Same arguments and outputs as attn_bwd_dq_launch.
+// Kernel 1, stash variant: grid (H, B, ceil(Q/64) x D/128), for launches
+// whose every q tile spans at most STASH_BLOCKS kv blocks
+// (cudaErrorInvalidValue otherwise). Same arguments and outputs as
+// attn_bwd_dq_launch.
 extern "C" int attn_bwd_dq_stash_launch(const void* q, const void* k,
                                         const void* v, const void* dO,
                                         const void* seed, void* dq, void* m,
@@ -1638,18 +1830,25 @@ extern "C" int attn_bwd_dq_stash_launch(const void* q, const void* k,
   const int blocks = span_blocks(p);
   if (blocks < 1 || blocks > STASH_BLOCKS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = stash_smem_bytes(blocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return counts ? stash_launch<true>(p, smem, st)
-                : stash_launch<false>(p, smem, st);
+  return by_head_dim(iv[22], [&](auto dd) {
+    constexpr int D = decltype(dd)::value;
+    return counts ? stash_launch<true, D>(p, blocks, st)
+                  : stash_launch<false, D>(p, blocks, st);
+  });
 }
 
-// The stash variant (its count variant if `counts`) at a span of `blocks`
-// kv blocks: out = {dynamic shared memory bytes, registers a thread, local
-// (spill) bytes a thread, blocks resident per SM}. Returns a cudaError_t.
-extern "C" int attn_bwd_dq_stash_info(int blocks, int counts, int* out) {
-  return counts ? stash_info<true>(blocks, out)
-                : stash_info<false>(blocks, out);
+// The stash variant at head dim d (its count variant if `counts`) at a
+// span of `blocks` kv blocks: out = {dynamic shared memory bytes, registers
+// a thread, local (spill) bytes a thread, blocks resident per SM}. Returns
+// a cudaError_t.
+extern "C" int attn_bwd_dq_stash_info(int d, int blocks, int counts,
+                                      int* out) {
+  return by_head_dim(d, [&](auto dd) {
+    constexpr int D = decltype(dd)::value;
+    return counts ? stash_info<true, D>(blocks, out)
+                  : stash_info<false, D>(blocks, out);
+  });
 }
 
 #ifdef DQ_PROBE

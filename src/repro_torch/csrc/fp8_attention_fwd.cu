@@ -59,6 +59,13 @@
 // Shared memory: Q, K and V f16 tiles (96 KB), the ring (65 KB), the stash
 // (16 KB), column keys and the live-block list: one block of 8 warps an SM.
 //
+// Head dims: a library is built at D = 128 or D = 256 (FP8_ATTN_D; the
+// wrapper pads smaller heads). At D = 256 (recurrentgemma-9b's heads) two
+// blocks share each q tile, each computing the scores over the whole head
+// dim and 128 of the output's columns (the SR bits' absolute coordinates
+// give both the same S8 and E8), so a thread holds D = 128's accumulators;
+// the ring has one stage, refilled as soon as it is widened (Fwd<D>).
+//
 // The count variant (COUNTS, the template switch; the wrapper's
 // with_counts) also counts, per q tile, the observed S8 and E8 values
 // that saturate (|q| >= max normal, or not finite) or flush (|q| < min
@@ -107,7 +114,10 @@ using fp8::word_to_f32;
 constexpr int BQ = 128;       // q rows per block
 constexpr int THREADS = 256;  // two warpgroups of 64 rows
 constexpr int LANE = 128;     // kv columns per online-softmax step
-constexpr int D = 128;        // head dim (the wrapper zero-pads smaller heads)
+// Output columns per block: the P.V product's width. A block computes the
+// scores over the whole head dim D (128 or 256; the wrapper zero-pads
+// smaller heads) and the output's columns [dh * DV, dh * DV + DV).
+constexpr int DV = 128;
 // The S product's chunk width: 64 kv columns, 32 accumulators a thread
 // (PERF.md holds the probe's times at 32, 64 and 128).
 constexpr int NCH = 64;
@@ -117,23 +127,36 @@ constexpr int ANY = -0x7FFFFFFF - 1;
 
 enum Mask { CAUSAL = 0, FULL = 1, KV = 2, CHUNK = 3 };
 
-// Shared memory, by byte offset (the f16 tiles 1024-byte aligned for the
-// 128-byte swizzle). QH: Q, K-major, two 64-wide d segments of 128 rows;
-// KH: K the same; VH: V, two 64-row k halves, each two 64-wide d segments
-// of 64 rows (MN-major). A ring stage: K then V fp8 in load_tile's unit
-// order, then 128 kv mask words. STASH: S8 words [fragment][thread]. CK:
-// the current block's column keys. LIST: the live-block count, then the
-// blocks.
-constexpr int QH = 0, KH = QH + BQ * D * 2, VH = KH + LANE * D * 2;
-constexpr int RING = VH + LANE * D * 2;
-constexpr int ST_K = 0, ST_V = LANE * D, ST_M = 2 * LANE * D;
-constexpr int STAGE = ST_M + LANE * 4;
-constexpr int STASH = RING + 2 * STAGE;
-constexpr int CK = STASH + (LANE / 8) * THREADS * 4;
-constexpr int RED = CK + LANE * 4;
-constexpr int LIST = RED + 2 * (THREADS / 32) * 4;
+// The build at head dim D. Shared memory, by byte offset (the f16 tiles
+// 1024-byte aligned for the 128-byte swizzle). QH: Q, K-major, D / 64
+// d segments of 128 rows; KH: K the same; VH: the block's DV columns of
+// V, two 64-row k halves, each two 64-wide d segments of 64 rows
+// (MN-major). A ring stage: K then V fp8 in load_tile's unit order, then
+// 128 kv mask words. STASH: S8 words [fragment][thread]. CK: the current
+// block's column keys. LIST: the live-block count, then the blocks.
+// At D = 128 one block covers the output (DH = 1) and the ring has two
+// stages (177 KB at S = 512). At D = 256 two blocks share a q tile, each
+// computing the scores in full and its half of the output, and the ring
+// has one stage, refilled as soon as it is widened (225 KB at S = 4096):
+// two stages would need 274 KB of the 227 KB a block may hold, and a
+// 256-wide output accumulator 128 registers a thread more.
+template <int D>
+struct Fwd {
+  static_assert(D == 128 || D == 256, "head dim 128 or 256");
+  static constexpr int DH = D / DV;  // blocks per q tile
+  static constexpr int STAGES = D == 128 ? 2 : 1;
+  static constexpr int QH = 0, KH = QH + BQ * D * 2, VH = KH + LANE * D * 2;
+  static constexpr int RING = VH + LANE * DV * 2;
+  static constexpr int ST_K = 0, ST_V = LANE * D, ST_M = ST_V + LANE * DV;
+  static constexpr int STAGE = ST_M + LANE * 4;
+  static constexpr int STASH = RING + STAGES * STAGE;
+  static constexpr int CK = STASH + (LANE / 8) * THREADS * 4;
+  static constexpr int RED = CK + LANE * 4;
+  static constexpr int LIST = RED + 2 * (THREADS / 32) * 4;
+};
 
-int smem_bytes(int nk) { return LIST + 4 * (nk + 1); }
+template <int D>
+int smem_bytes(int nk) { return Fwd<D>::LIST + 4 * (nk + 1); }
 
 struct Args {
   const uint8_t* q;   // (B, H, Q, D)
@@ -228,20 +251,27 @@ __device__ __forceinline__ void with_qnode(int sr, int sat, int fmt, bool up,
 // counts the saturated, flushed and observed S8 and E8 values of each q
 // tile, next to the amaxes; the variant without it is the same code with
 // the counting left out, and both compute the same o and amaxes.
-template <bool COUNTS>
+template <bool COUNTS, int D>
 __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
+  using F = Fwd<D>;
+  constexpr int QH = F::QH, KH = F::KH, VH = F::VH, RING = F::RING;
+  constexpr int ST_K = F::ST_K, ST_V = F::ST_V, ST_M = F::ST_M;
+  constexpr int STAGE = F::STAGE, STAGES = F::STAGES;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   if (sbase & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
-  uint32_t* stash = reinterpret_cast<uint32_t*>(smem + STASH);
-  int* ck = reinterpret_cast<int*>(smem + CK);
+  uint32_t* stash = reinterpret_cast<uint32_t*>(smem + F::STASH);
+  int* ck = reinterpret_cast<int*>(smem + F::CK);
   uint32_t(*red)[THREADS / 32] =
-      reinterpret_cast<uint32_t(*)[THREADS / 32]>(smem + RED);
-  int* list = reinterpret_cast<int*>(smem + LIST);
+      reinterpret_cast<uint32_t(*)[THREADS / 32]>(smem + F::RED);
+  int* list = reinterpret_cast<int*>(smem + F::LIST);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
-  // Longest causal spans first: the z axis walks the q tiles from the last.
-  const int h = blockIdx.x, b = blockIdx.y, iq = gridDim.z - 1 - blockIdx.z;
+  // Longest causal spans first: the z axis walks the q tiles from the last
+  // (and, at D = 256, each tile's two output halves dh in turn).
+  const int dh = blockIdx.z % F::DH;
+  const int h = blockIdx.x, b = blockIdx.y,
+            iq = gridDim.z / F::DH - 1 - blockIdx.z / F::DH;
   const int hk = h / (p.H / p.Hkv);
   const int row0 = iq * BQ;
   const int nk = p.S / LANE;
@@ -258,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
   const bool upper_live = row0 + warp * 16 + 8 < live_rows;
   const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
   const uint8_t* kg = p.k + kvoff;
-  const uint8_t* vg = p.v + kvoff;
+  const uint8_t* vg = p.v + kvoff + dh * DV;
   const int* kvmb = kv_words ? p.kvm + (long long)b * p.S : nullptr;
 #ifdef FWD_PROBE
   const unsigned long long probe_ns = global_ns();
@@ -324,22 +354,27 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
   __syncthreads();
   const int nlive = list[0];
 
-  // kv block j's fp8 K, V and mask words into ring stage `st`.
+  // kv block j's fp8 K, the block's DV columns of V and the mask words
+  // into ring stage `st`.
   auto load = [&](int j, int st) {
     const uint32_t s = sbase + RING + st * STAGE;
     const uint8_t* kj = kg + (long long)j * LANE * D;
     const uint8_t* vj = vg + (long long)j * LANE * D;
-    load_tile<LANE, false, THREADS>(s + ST_K, kj, D, tid);
-    load_tile<LANE, false, THREADS>(s + ST_K + LANE * 64, kj + 64, D, tid);
-    load_tile<LANE, true, THREADS>(s + ST_V, vj, D, tid);
-    load_tile<LANE, true, THREADS>(s + ST_V + 64 * LANE, vj + 64 * D, D, tid);
+#pragma unroll
+    for (int sg = 0; sg < D / 64; ++sg)
+      load_tile<LANE, false, THREADS>(s + ST_K + sg * LANE * 64, kj + sg * 64,
+                                      D, tid);
+    load_tile<DV, true, THREADS>(s + ST_V, vj, D, tid);
+    load_tile<DV, true, THREADS>(s + ST_V + 64 * DV, vj + 64 * D, D, tid);
     if (kv_words && tid < LANE / 4)
       cp16(s + ST_M + tid * 16, kvmb + j * LANE + tid * 4);
   };
   if (nlive > 0) load(list[1], 0);
   cp_commit();
-  if (nlive > 1) load(list[2], 1);
-  cp_commit();
+  if constexpr (STAGES > 1) {
+    if (nlive > 1) load(list[2], 1);
+    cp_commit();
+  }
 
   // This thread's two rows (g and g + 8 of its warp's 16): the key range
   // (empty past Q, so that the amaxes observe exactly the valid scores),
@@ -370,26 +405,28 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
   const uint32_t sk = sbase + KH, sv = sbase + VH;
 
   for (int i = 0; i < nlive; ++i) {
-    const int j = list[1 + i], st = i & 1;
-    cp_wait<1>();
+    const int j = list[1 + i], st = STAGES > 1 ? i & 1 : 0;
+    cp_wait<STAGES - 1>();
     __syncthreads();  // stage st landed; the previous block's tiles consumed
     {
       const uint8_t* s = smem + RING + st * STAGE;
       uint8_t* kh = smem + KH;
       uint8_t* vh = smem + VH;
-      widen_tile<LANE, false, THREADS>(kh, s + ST_K, p.k_fmt, tid);
-      widen_tile<LANE, false, THREADS>(kh + LANE * 128, s + ST_K + LANE * 64,
-                                       p.k_fmt, tid);
-      widen_tile<LANE, true, THREADS>(vh, s + ST_V, p.v_fmt, tid);
-      widen_tile<LANE, true, THREADS>(vh + 64 * LANE * 2, s + ST_V + 64 * LANE,
-                                      p.v_fmt, tid);
+#pragma unroll
+      for (int sg = 0; sg < D / 64; ++sg)
+        widen_tile<LANE, false, THREADS>(kh + sg * LANE * 128,
+                                         s + ST_K + sg * LANE * 64, p.k_fmt,
+                                         tid);
+      widen_tile<DV, true, THREADS>(vh, s + ST_V, p.v_fmt, tid);
+      widen_tile<DV, true, THREADS>(vh + 64 * DV * 2, s + ST_V + 64 * DV,
+                                    p.v_fmt, tid);
       const int* words = reinterpret_cast<const int*>(s + ST_M);
       if (tid < LANE)
         ck[tid] = col_key(p, j * LANE + tid, kv_words ? words[tid] : 0);
     }
     fence_async_smem();
     __syncthreads();
-    if (i + 2 < nlive) load(list[3 + i], st);
+    if (i + STAGES < nlive) load(list[1 + i + STAGES], st);
     cp_commit();
     FWD_TICK(P_STAGE)
     if (!wg_live) continue;
@@ -527,7 +564,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
       for (int ks = 0; ks < LANE / 16; ++ks)
         fp8::wgmma_n128_rs<1>(
             pv, a[ks],
-            slice_desc<true>(sv + (ks >> 2) * (64 * LANE * 2), ks & 3));
+            slice_desc<true>(sv + (ks >> 2) * (64 * DV * 2), ks & 3));
       wg_commit();
       wg_wait<0>();
       fence_acc(pv);
@@ -553,14 +590,14 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
 
   // O = (acc * f_o) / d_safe -> bf16; dead rows hold acc = l = 0 and give
   // exact zeros.
-  __nv_bfloat16* ob = p.o + (long long)(b * p.H + h) * p.Q * D;
+  __nv_bfloat16* ob = p.o + (long long)(b * p.H + h) * p.Q * D + dh * DV;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = row0 + warp * 16 + g + 8 * hf;
     if (row >= p.Q) continue;
     const float dsafe = l[hf] > 0.f ? l[hf] : 1.f;
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
       const float* a2 = acc + 4 * dt + 2 * hf;
       const float o0 = div_rn(__fmul_rn(a2[0], p.f_o), dsafe);
       const float o1 = div_rn(__fmul_rn(a2[1], p.f_o), dsafe);
@@ -576,12 +613,14 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
     red[1][warp] = mag_p;
   }
   __syncthreads();
-  if (tid == 0) {
+  // The amaxes and counts: the output halves of a q tile observe the same
+  // scores, and the first one writes them.
+  if (tid == 0 && dh == 0) {
     for (int w = 1; w < THREADS / 32; ++w) {
       mag_s = max(mag_s, red[0][w]);
       mag_p = max(mag_p, red[1][w]);
     }
-    const long long idx = (long long)(b * p.H + h) * gridDim.z + iq;
+    const long long idx = (long long)(b * p.H + h) * (gridDim.z / F::DH) + iq;
     p.amax_s[idx] = byte_to_f32(mag_s, p.fmt_s);
     p.amax_p[idx] = byte_to_f32(mag_p, p.fmt_p);
   }
@@ -589,8 +628,9 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
     // The stash is free from here on: its words hold the block's sums.
     int sums[5];
     fp8::block_counts<5, THREADS / 32>(cnt, stash, sums);
-    if (tid == 0) {
-      int* c = p.counts + ((long long)(b * p.H + h) * gridDim.z + iq) * 6;
+    if (tid == 0 && dh == 0) {
+      int* c = p.counts +
+               ((long long)(b * p.H + h) * (gridDim.z / F::DH) + iq) * 6;
       c[0] = sums[0] / 8;
       c[1] = sums[1] / 8;
       c[2] = sums[2] / 8;
@@ -623,24 +663,24 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
 #endif
 }
 
-template <bool COUNTS>
+template <bool COUNTS, int D>
 cudaError_t prepare(int smem) {
-  return cudaFuncSetAttribute(attn_fwd_kernel<COUNTS>,
+  return cudaFuncSetAttribute(attn_fwd_kernel<COUNTS, D>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
 
-template <bool COUNTS>
+template <bool COUNTS, int D>
 int info(int nk, int* out) {
-  const int smem = smem_bytes(nk);
-  cudaError_t err = prepare<COUNTS>(smem);
+  const int smem = smem_bytes<D>(nk);
+  cudaError_t err = prepare<COUNTS, D>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, attn_fwd_kernel<COUNTS>);
+  err = cudaFuncGetAttributes(&a, attn_fwd_kernel<COUNTS, D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int resident = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, attn_fwd_kernel<COUNTS>, THREADS, smem);
+      &resident, attn_fwd_kernel<COUNTS, D>, THREADS, smem);
   out[0] = smem;
   out[1] = a.numRegs;
   out[2] = static_cast<int>(a.localSizeBytes);
@@ -648,36 +688,46 @@ int info(int nk, int* out) {
   return static_cast<int>(err);
 }
 
-template <bool COUNTS>
+template <bool COUNTS, int D>
 int launch(const Args& p, int B, int H, int Q, int S, cudaStream_t stream) {
-  const int smem = smem_bytes(S / LANE);
-  cudaError_t err = prepare<COUNTS>(smem);
+  const int smem = smem_bytes<D>(S / LANE);
+  cudaError_t err = prepare<COUNTS, D>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(H, B, (Q + BQ - 1) / BQ);
-  attn_fwd_kernel<COUNTS><<<grid, THREADS, smem, stream>>>(p);
+  dim3 grid(H, B, Fwd<D>::DH * ((Q + BQ - 1) / BQ));
+  attn_fwd_kernel<COUNTS, D><<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The kernel at nk kv blocks, the count variant if `counts`: out =
-// {dynamic shared memory bytes, registers a thread, local (spill) bytes a
-// thread, blocks resident per SM}. Returns a cudaError_t.
-extern "C" int attn_fwd_info(int nk, int counts, int* out) {
-  return counts ? info<true>(nk, out) : info<false>(nk, out);
+// A library holds the kernel at one head dim, FP8_ATTN_D (128 unless the
+// build defines it 256: kernels/build.py builds both, in parallel), and
+// refuses the other (cudaErrorInvalidValue).
+#ifndef FP8_ATTN_D
+#define FP8_ATTN_D 128
+#endif
+
+// The kernel at head dim d and nk kv blocks, the count variant if
+// `counts`: out = {dynamic shared memory bytes, registers a thread, local
+// (spill) bytes a thread, blocks resident per SM}. Returns a cudaError_t.
+extern "C" int attn_fwd_info(int d, int nk, int counts, int* out) {
+  if (d != FP8_ATTN_D) return static_cast<int>(cudaErrorInvalidValue);
+  return counts ? info<true, FP8_ATTN_D>(nk, out)
+                : info<false, FP8_ATTN_D>(nk, out);
 }
 
-// Launch on `stream`: grid (H, B, ceil(Q/128)), 256 threads, ~178 KB of
-// dynamic shared memory at S = 512. D must be 128 and S a multiple of 128
-// (the wrapper pads). A non-null `counts` launches the count variant.
-// Returns cudaGetLastError().
+// Launch on `stream`: grid (H, B, ceil(Q/128) at D = 128, twice that at
+// D = 256), 256 threads, ~178 KB of dynamic shared memory at D = 128 and
+// S = 512, ~225 KB at D = 256 and S = 4096. D must be the library's
+// FP8_ATTN_D and S a multiple of 128 (the wrapper pads). A non-null
+// `counts` launches the count variant. Returns cudaGetLastError().
 extern "C" int attn_fwd_launch(
     const void* q, const void* k, const void* v, const int* kvm,
     const int* chunk, void* o, float* amax_s, float* amax_p, int* counts,
     int B, int H,
     int Hkv, int Q, int S, int s_len, int mask, int window,
     int q_fmt, int k_fmt, int v_fmt, int fmt_s, int fmt_p, int sr_s, int sr_p,
-    int sat_s, int sat_p, float f_s, float s_s, float f_p, float f_o,
+    int sat_s, int sat_p, int D, float f_s, float s_s, float f_p, float f_o,
     const void* seed, void* stream) {
   Args p{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), kvm, chunk,
@@ -687,8 +737,9 @@ extern "C" int attn_fwd_launch(
          sr_p, sat_s, sat_p, f_s, s_s, f_p, f_o,
          static_cast<const uint32_t*>(seed)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return counts ? launch<true>(p, B, H, Q, S, st)
-                : launch<false>(p, B, H, Q, S, st);
+  if (D != FP8_ATTN_D) return static_cast<int>(cudaErrorInvalidValue);
+  return counts ? launch<true, FP8_ATTN_D>(p, B, H, Q, S, st)
+                : launch<false, FP8_ATTN_D>(p, B, H, Q, S, st);
 }
 
 #ifdef FWD_PROBE

@@ -4,7 +4,10 @@ Each `csrc/<name>.cu` exports plain C launch functions and is compiled on
 first use into the build directory (`src/repro_torch/_build/`, or
 $REPRO_TORCH_BUILD_DIR), named by a hash of its source and flags, so a stale
 library is never loaded. Nothing is compiled at import time: this module is
-imported on machines without nvcc, where only the plain versions run.
+imported on machines without nvcc, where only the plain versions run. The
+attention kernels build once per head dim: `fp8_attention_{fwd,bwd}` at
+D = 128 and `fp8_attention_{fwd,bwd}_d256` from the same sources with
+`-DFP8_ATTN_D=256` (`attention_lib`), four nvcc processes side by side.
 
 Every kernel is compiled with `--fmad=false`: the reference computes
 `s8 * s_s - m` and `acc * c + pv` as separate roundings, which nvcc would
@@ -26,7 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 KERNELS = ("fused_quant_matmul", "fp8_attention_fwd", "fp8_attention_bwd",
+           "fp8_attention_fwd_d256", "fp8_attention_bwd_d256",
            "stochastic_round")
+# Libraries built from another library's source: name -> (source, flags).
+VARIANTS = {f"fp8_attention_{k}_d256": (f"fp8_attention_{k}",
+                                        ("-DFP8_ATTN_D=256",))
+            for k in ("fwd", "bwd")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
@@ -47,9 +55,21 @@ def nvcc() -> str:
                        "kernels build only on a machine with the CUDA toolkit")
 
 
+def attention_lib(name: str, head_dim: int) -> str:
+    """The library of attention kernel `name` ('fp8_attention_fwd' /
+    'fp8_attention_bwd') built for `head_dim` (128 or 256)."""
+    return name if head_dim == 128 else f"{name}_d{head_dim}"
+
+
+def _source(name: str):
+    """(source stem, extra nvcc flags) of library `name`."""
+    return VARIANTS.get(name, (name, ()))
+
+
 def lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    src, extra = _source(name)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
+    for f in [CSRC / f"{src}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.read_bytes())
     digest = h.hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
@@ -74,7 +94,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     for n, p in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
         os.close(fd)
-        cmd = [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        src, extra = _source(n)
+        cmd = [exe, *NVCC_FLAGS, *extra, "-o", tmp, str(CSRC / f"{src}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)

@@ -26,17 +26,20 @@ count the launches of the three kernels (the forward's also by mask,
 `launches_by_mask`; the forward's and the dQ kernel's count variants also
 in `launches_with_counts`; the dQ kernel's also by variant,
 `launches_by_variant`: 'stash' for spans of up to STASH_BLOCKS kv blocks,
-'long' past them, chosen by `dq_variant`). `fwd_tile_order`,
+'long' past them, chosen by `dq_variant`; each of the three also by the
+build it ran, `launches_by_head_dim`: 128 or 256). `fwd_tile_order`,
 `fwd_live_blocks` and `fwd_dead_warps` state the forward kernel's
 schedule: its 128-row query tiles in launch order, the kv blocks each
 visits and the warps that skip their epilogue; `dkv_block_order` and
 `dkv_live_tiles` the dK/dV kernel's: its 64-row kv blocks in launch order
 and the query tiles each block's chain visits.
 
-Padding contract (the reference's): the head dim is zero-padded to 128 and
-the kv length to a multiple of 128 (slot positions pad with -1, validity
-with 0); padded columns are masked and padded head lanes contribute exact
-zeros, so outputs and amaxes do not depend on the padding.
+Padding contract (the reference's): the head dim is zero-padded to the
+next multiple of 128 the kernels are built for (128 or 256: `HEAD_DIMS`)
+and the kv length to a multiple of 128 (slot positions pad with -1,
+validity with 0); padded columns are masked and padded head lanes
+contribute exact zeros, so outputs and amaxes do not depend on the
+padding. A head dim above 256 raises on the card.
 """
 from __future__ import annotations
 
@@ -52,11 +55,22 @@ from repro_torch.kernels.fp8_attention import ref as _ref
 from repro_torch.kernels.fused_quant_matmul.ops import aligned
 
 LANE = _ref.LANE
-HEAD_DIM = 128
+HEAD_DIM = 128             # the narrowest build: smaller heads pad to it
+HEAD_DIMS = (128, 256)     # the head dims the kernels are built for
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _MASK_ID = {"causal": 0, "full": 1, "kv": 2, "chunk": 3}
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 17
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
              + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
+
+
+def padded_head_dim(d: int) -> int:
+    """The build a head dim of d runs on: the next multiple of 128 among
+    HEAD_DIMS (the reference's padding to a LANE multiple); ValueError
+    above the widest."""
+    for hd in HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(f"head dim {d} > {HEAD_DIMS[-1]} is not supported")
 
 
 def _pad_bytes(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
@@ -162,15 +176,15 @@ def fwd_live_blocks(iq: int, b: int, *, q_rows: int, s_len: int,
 def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
             s_len, fmt_s, fmt_p, rounding_s, rounding_p, saturate_s,
             saturate_p, lib=None, counts=False):
-    """Kernel 2 on padded CUDA payloads (D = 128, S a multiple of 128),
-    through `lib` (a probe build) or the package's library. Returns (o,
+    """Kernel 2 on padded CUDA payloads (D in HEAD_DIMS, S a multiple of
+    128), through `lib` (a probe build) or the package's library. Returns (o,
     amaxes (2, B, H, tiles): the S and P amax of each query tile), and with
     `counts` (the count variant) also the (B, H, tiles, 2, 3) int32 S / P
     [saturated, flushed, observed] counts of each query tile."""
     b_, h_, q_rows, d = q8.shape
     hkv, s_pad = k8.shape[1], k8.shape[2]
-    if d != HEAD_DIM or s_pad % LANE:
-        raise ValueError(f"kernel needs D={HEAD_DIM}, S % {LANE} == 0")
+    if d not in HEAD_DIMS or s_pad % LANE:
+        raise ValueError(f"kernel needs D in {HEAD_DIMS}, S % {LANE} == 0")
     dev = q8.device
     o = torch.empty((b_, h_, q_rows, d), dtype=torch.bfloat16, device=dev)
     nq = len(fwd_tile_order(q_rows))
@@ -179,7 +193,8 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
     amax_p = amax_s + 4 * b_ * h_ * nq
     cnt = (torch.empty((b_, h_, nq, 2, 3), dtype=torch.int32, device=dev)
            if counts else None)
-    fn = (lib or _build.load("fp8_attention_fwd")).attn_fwd_launch
+    fn = (lib or _build.load(_build.attention_lib("fp8_attention_fwd",
+                                                   d))).attn_fwd_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     f_s, s_s, f_p, f_o = (float(np.float32(x)) for x in scal)
@@ -194,11 +209,12 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
              _FMT_ID[format_of_dtype(k8.dtype).name],
              _FMT_ID[format_of_dtype(v8.dtype).name], _FMT_ID[fmt_s],
              _FMT_ID[fmt_p], int(rounding_s == "sr"), int(rounding_p == "sr"),
-             int(saturate_s), int(saturate_p), f_s, s_s, f_p, f_o,
+             int(saturate_s), int(saturate_p), d, f_s, s_s, f_p, f_o,
              seed_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_fwd")
     fp8_attention_fwd.launches += 1
     fp8_attention_fwd.launches_by_mask[mask_mode] += 1
+    fp8_attention_fwd.launches_by_head_dim[d] += 1
     fp8_attention_fwd.launches_with_counts += int(counts)
     if counts:
         return o, amax, cnt
@@ -208,13 +224,14 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
 def _fwd_cuda(q8, k8, v8, seed, scal, *, mask_mode, window, kv_mask,
               chunk_pos, lib=None, **kw):
     """Kernel 2 on CUDA payloads of the wrapper's arguments, padded to
-    D = 128 and S a multiple of 128, through `lib` (a probe build) or the
-    package's library. Returns _launch's (o, per-tile amaxes[, per-tile
-    counts])."""
+    D in HEAD_DIMS and S a multiple of 128, through `lib` (a probe build)
+    or the package's library. Returns _launch's (o, per-tile amaxes[,
+    per-tile counts])."""
     s_len = k8.shape[2]
-    qp = aligned(_pad_bytes(q8.contiguous(), 3, HEAD_DIM))
-    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
-    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, HEAD_DIM), 2, LANE))
+    hd = padded_head_dim(q8.shape[3])
+    qp = aligned(_pad_bytes(q8.contiguous(), 3, hd))
+    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, hd), 2, LANE))
+    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, hd), 2, LANE))
     kvm = cpos = None
     pad = kp.shape[2] - s_len
     if mask_mode == "kv":
@@ -277,13 +294,12 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
             **kw)
     if dev != "cuda":
         raise ValueError(f"fp8_attention_fwd: unsupported device {q8.device}")
-    if d > HEAD_DIM:
-        raise ValueError(f"head dim {d} > {HEAD_DIM} is not supported")
+    hd = padded_head_dim(d)
     out = _fwd_cuda(q8, k8, v8, seed, scal, mask_mode=mask_mode,
                     window=window, kv_mask=kv_mask, chunk_pos=chunk_pos,
                     counts=with_counts, **kw)
     o, amax = out[:2]
-    if d != HEAD_DIM:
+    if d != hd:
         o = o[..., :d].contiguous()
     amax = torch.amax(amax.view(2, -1), dim=1)
     if with_counts:
@@ -300,6 +316,7 @@ def tile_counts(per_tile: torch.Tensor) -> torch.Tensor:
 fp8_attention_fwd.launches = 0
 fp8_attention_fwd.launches_by_mask = dict.fromkeys(_MASK_ID, 0)
 fp8_attention_fwd.launches_with_counts = 0
+fp8_attention_fwd.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -321,15 +338,15 @@ def _bwd_args(q8, k8, v8, do8, *, scal, q_len, s_len,
               saturate_e=False):
     b_, h_, q_rows, d = q8.shape
     hkv, s_pad = k8.shape[1], k8.shape[2]
-    if d != HEAD_DIM or s_pad % LANE:
-        raise ValueError(f"kernel needs D={HEAD_DIM}, S % {LANE} == 0")
+    if d not in HEAD_DIMS or s_pad % LANE:
+        raise ValueError(f"kernel needs D in {HEAD_DIMS}, S % {LANE} == 0")
     fid = [_FMT_ID[format_of_dtype(x.dtype).name] for x in (q8, k8, v8, do8)]
-    iv = (ctypes.c_int * 22)(
+    iv = (ctypes.c_int * 23)(
         b_, h_, hkv, q_rows, s_pad, q_len, s_len, int(mask_mode == "causal"),
         window, *fid, _FMT_ID[fmt_s], _FMT_ID[fmt_p], _FMT_ID[fmt_e],
         int(rounding_s == "sr"), int(rounding_p == "sr"),
         int(rounding_e == "sr"), int(saturate_s), int(saturate_p),
-        int(saturate_e))
+        int(saturate_e), d)
     fv = (ctypes.c_float * 10)(*(float(np.float32(x)) for x in scal))
     return iv, fv
 
@@ -367,8 +384,8 @@ def dq_variant(q_rows: int, s_pad: int, mask_mode: str,
 
 def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None,
                          counts=False, **kw):
-    """Kernel 1 of the backward on padded CUDA payloads (D = 128, S a
-    multiple of 128): returns (dq (B,H,Q,D) f32, m, l, rd (B,H,Q) f32,
+    """Kernel 1 of the backward on padded CUDA payloads (D in HEAD_DIMS, S
+    a multiple of 128): returns (dq (B,H,Q,D) f32, m, l, rd (B,H,Q) f32,
     amax_dp, amax_ds (B,H,ceil(Q/64)) f32 per q tile), and with `counts`
     (the count variant) also the (B,H,ceil(Q/64),2,3) int32 dP / dS
     [saturated, flushed, observed] counts per q tile. `kw`: mask_mode,
@@ -391,7 +408,7 @@ def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None,
     cnt = (torch.empty((b_, h_, nq, 2, 3), dtype=torch.int32, device=dev)
            if counts else None)
     seed_t = seed_tensor(seed, dev)
-    lib = _build.load("fp8_attention_bwd")
+    lib = _build.load(_build.attention_lib("fp8_attention_bwd", d))
     fn = {"stash": lib.attn_bwd_dq_stash_launch,
           "long": lib.attn_bwd_dq_launch}[variant]
     fn.argtypes = _BWD_DQ_ARGTYPES
@@ -403,6 +420,7 @@ def fp8_attention_bwd_dq(q8, k8, v8, do8, seed, scal, variant=None,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"fp8_attention_bwd_dq ({variant})")
     fp8_attention_bwd_dq.launches += 1
+    fp8_attention_bwd_dq.launches_by_head_dim[d] += 1
     fp8_attention_bwd_dq.launches_by_variant[variant] += 1
     fp8_attention_bwd_dq.launches_with_counts += int(counts)
     if counts:
@@ -457,7 +475,8 @@ def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, lib=None,
     part = (torch.empty((2, b_, h_, s_pad, d), dtype=torch.float32,
                         device=dev) if h_ != hkv else None)
     seed_t = seed_tensor(seed, dev)
-    fn = (lib or _build.load("fp8_attention_bwd")).attn_bwd_dkv_launch
+    fn = (lib or _build.load(_build.attention_lib(
+        "fp8_attention_bwd", d))).attn_bwd_dkv_launch
     fn.argtypes = _BWD_DKV_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
@@ -467,13 +486,16 @@ def fp8_attention_bwd_dkv(q8, k8, v8, do8, seed, scal, m, l, rd, lib=None,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_bwd_dkv")
     fp8_attention_bwd_dkv.launches += 1
+    fp8_attention_bwd_dkv.launches_by_head_dim[d] += 1
     return dk, dv
 
 
 fp8_attention_bwd_dq.launches = 0
 fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
 fp8_attention_bwd_dq.launches_with_counts = 0
+fp8_attention_bwd_dq.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
 fp8_attention_bwd_dkv.launches = 0
+fp8_attention_bwd_dkv.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
@@ -495,9 +517,10 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
     CPU tensors take the plain version (ref.py); CUDA tensors run the dQ
     kernel, then the dK/dV kernel (each counts its launches), or raise.
-    Padding (the reference's): D to 128 and S to a multiple of 128 with
-    zeros, which contribute exact zeros and are masked out of the
-    observations; Q needs none (the kernels guard ragged rows)."""
+    Padding (the reference's): D to 128 or 256 (`padded_head_dim`) and S
+    to a multiple of 128 with zeros, which contribute exact zeros and are
+    masked out of the observations; Q needs none (the kernels guard ragged
+    rows)."""
     if mask_mode not in ("causal", "full"):
         raise ValueError(f"fused attention backward supports causal/full, "
                          f"not {mask_mode!r}")
@@ -524,20 +547,19 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                                           with_counts=with_counts, **kw)
     if dev != "cuda":
         raise ValueError(f"fp8_attention_bwd: unsupported device {q8.device}")
-    if d > HEAD_DIM:
-        raise ValueError(f"head dim {d} > {HEAD_DIM} is not supported")
-    qp = aligned(_pad_bytes(q8.contiguous(), 3, HEAD_DIM))
-    dop = aligned(_pad_bytes(do8.contiguous(), 3, HEAD_DIM))
-    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, HEAD_DIM), 2, LANE))
-    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, HEAD_DIM), 2, LANE))
+    hd = padded_head_dim(d)
+    qp = aligned(_pad_bytes(q8.contiguous(), 3, hd))
+    dop = aligned(_pad_bytes(do8.contiguous(), 3, hd))
+    kp = aligned(_pad_bytes(_pad_bytes(k8.contiguous(), 3, hd), 2, LANE))
+    vp = aligned(_pad_bytes(_pad_bytes(v8.contiguous(), 3, hd), 2, LANE))
     kw.update(q_len=q_rows, s_len=s_len)
     dq, m, l, rd, amax_dp, amax_ds, *cnt = fp8_attention_bwd_dq(
         qp, kp, vp, dop, seed, scal, counts=with_counts, **kw)
     dk, dv = fp8_attention_bwd_dkv(qp, kp, vp, dop, seed, scal, m, l, rd,
                                    **kw)
-    if d != HEAD_DIM:
+    if d != hd:
         dq = dq[..., :d].contiguous()
-    if d != HEAD_DIM or kp.shape[2] != s_len:
+    if d != hd or kp.shape[2] != s_len:
         dk = dk[:, :, :s_len, :d].contiguous()
         dv = dv[:, :, :s_len, :d].contiguous()
     out = (dq, dk, dv, torch.amax(amax_dp), torch.amax(amax_ds))
@@ -549,7 +571,10 @@ def reset_launches():
     fp8_attention_fwd.launches = 0
     fp8_attention_fwd.launches_by_mask = dict.fromkeys(_MASK_ID, 0)
     fp8_attention_fwd.launches_with_counts = 0
+    fp8_attention_fwd.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
     fp8_attention_bwd_dq.launches = 0
     fp8_attention_bwd_dq.launches_by_variant = {"stash": 0, "long": 0}
     fp8_attention_bwd_dq.launches_with_counts = 0
+    fp8_attention_bwd_dq.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
     fp8_attention_bwd_dkv.launches = 0
+    fp8_attention_bwd_dkv.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)

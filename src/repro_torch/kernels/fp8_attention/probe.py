@@ -277,7 +277,7 @@ def fwd_main(card):
         print(f"card: {card}")
         for var, (lib, log) in libs.items():
             info = (ctypes.c_int * 4)()
-            _build.check(lib.attn_fwd_info(4, 0, info), "probe")
+            _build.check(lib.attn_fwd_info(128, 4, 0, info), "probe")
             print(f"{var} build: ptxas {ptxas_line(log, 'attn_fwd_kernel')}; "
                   f"{info[0]} bytes of shared memory at S=512, {info[1]} "
                   f"registers, {info[2]} local bytes, {info[3]} blocks per "
@@ -426,7 +426,7 @@ def dkv_main(card):
         print(f"card: {card}")
         for var, (lib, log) in libs.items():
             info = (ctypes.c_int * 6)()
-            _build.check(lib.attn_bwd_dkv_info(info), "probe")
+            _build.check(lib.attn_bwd_dkv_info(128, info), "probe")
             print(f"{var} build: ptxas "
                   f"{ptxas_line(log, 'attn_bwd_dkv_kernel_head')}; group "
                   f"sum {ptxas_line(log, 'attn_bwd_dkv_kernel_group_sum')}; "
@@ -504,7 +504,7 @@ def main():
         print("ptxas (probe build):", ptxas_line(log, "stash"))
         info = (ctypes.c_int * 4)()
         _build.check(lib.attn_bwd_dq_stash_info(
-            ops.dq_span_blocks(s, s, "causal"), 0, info), "probe")
+            d, ops.dq_span_blocks(s, s, "causal"), 0, info), "probe")
         resident = info[3]
         print(f"{info[0]} bytes of shared memory, {resident} blocks per SM")
         plain = _build.load("fp8_attention_bwd")

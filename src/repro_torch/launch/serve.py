@@ -62,7 +62,9 @@ def main(argv=None):
                                           ServeConfig, ServeEngine)
 
     cfg = build_config(args.arch, smoke=args.smoke)
-    cfg.check_ported(serving=True)   # the engines serve no encoder-decoder
+    # The engines serve no encoder-decoder; paged serving holds attention
+    # stacks only (a recurrent stack is served with --legacy).
+    cfg.check_ported(serving=True, paged=not args.legacy)
     if args.fp8_kv:
         cfg = cfg.replace(policy=dataclasses.replace(
             cfg.policy, kv_cache_format="e5m2"))

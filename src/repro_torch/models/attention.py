@@ -75,15 +75,18 @@ _CACHE_DTYPES = {None: torch.bfloat16, "e5m2": torch.float8_e5m2,
 _CACHE_CLIP = {torch.float8_e5m2: 57344.0, torch.float8_e4m3fn: 448.0}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
-    """One layer's fixed-slot KV cache: k / v (B, max_len, Hkv, dh) in the
-    cache format, the absolute position held by each slot (-1 = empty) and
-    the per-row fill count."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+               window: int = 0):
+    """One layer's fixed-slot KV cache: k / v (B, C, Hkv, dh) in the cache
+    format, the absolute position held by each slot (-1 = empty) and the
+    per-row fill count. C = max_len, or for a local layer (window > 0) a
+    ring of min(window, max_len) slots, as in the reference."""
+    cap = min(window, max_len) if window else max_len
+    shape = (batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = _CACHE_DTYPES[cfg.policy.kv_cache_format]
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
-            "slot_pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+            "slot_pos": torch.full((batch, cap), -1, dtype=torch.int32,
                                    device=device),
             "length": torch.zeros((batch,), dtype=torch.int32,
                                   device=device)}

@@ -10,9 +10,9 @@ from repro_torch.core.precision_policy import PAPER_POLICY, PrecisionPolicy
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Same fields and defaults as the reference. The port runs attention
-    decoders (dense and mixture-of-experts) and encoder-decoders; the
-    recurrent families' fields are kept so configs read alike, and are
-    refused where they would change the computation."""
+    decoders (dense and mixture-of-experts), the RG-LRU / local-attention
+    hybrid and encoder-decoders; the xLSTM fields are kept so configs read
+    alike, and are refused where they would change the computation."""
     arch: str = "custom"
     family: str = "dense"
     n_layers: int = 4
@@ -101,20 +101,25 @@ class ModelConfig:
                                            + 2 * d * d)
         return emb + per_layer + enc
 
-    def check_ported(self, *, serving: bool = False):
-        """Raise for what the port does not run: the recurrent families
-        (RG-LRU, local attention, xLSTM); with serving=True (the engines,
-        paged serving) also an encoder-decoder, which the reference's
-        engines do not serve either. Attention decoders (dense or with the
-        mixture-of-experts FFN, with or without the patch stub's prefix)
-        and encoder-decoders (with or without the frame stub) run."""
-        bad = [k for k in self.pattern() if k != "attn"]
+    def check_ported(self, *, serving: bool = False, paged: bool = False):
+        """Raise for what the port does not run: the xLSTM kinds (mLSTM,
+        sLSTM); with serving=True (the engines, paged serving) also an
+        encoder-decoder, which the reference's engines do not serve
+        either; with paged=True (paged serving: its pools, engine and
+        chunk step) also any layer kind but attention, as the reference's
+        `init_paged_stack_state` refuses (ValueError). Attention decoders
+        (dense or with the mixture-of-experts FFN, with or without the
+        patch stub's prefix), the RG-LRU / local-attention hybrid and
+        encoder-decoders (with or without the frame stub) run."""
+        bad = [k for k in self.pattern()
+               if k not in ("attn", "local_attn", "rglru")]
         if bad:
             raise NotImplementedError(
                 f"arch {self.arch!r}: layer kinds {sorted(set(bad))} are not "
                 "ported yet; the port runs attention decoders (dense and "
-                "mixture-of-experts) and encoder-decoders so far, the "
-                "recurrent families are queued in ROADMAP.md")
+                "mixture-of-experts), the RG-LRU / local-attention hybrid "
+                "and encoder-decoders so far, the xLSTM kinds are queued in "
+                "ROADMAP.md")
         if self.frontend not in (None, "patch_stub", "audio_stub"):
             raise NotImplementedError(
                 f"arch {self.arch!r}: frontend {self.frontend!r} is not "
@@ -127,3 +132,9 @@ class ModelConfig:
                 "add_request never passes; its chunk step passes no "
                 "enc_out); serve one through train.step.make_serve_prefill "
                 "/ make_serve_decode")
+        if paged:
+            kinds = [k for k in self.pattern()
+                     if k not in ("attn", "local_attn")]
+            if kinds:
+                raise ValueError(f"paged serving supports attention stacks "
+                                 f"only, got layer kinds {kinds}")

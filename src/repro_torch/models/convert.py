@@ -6,8 +6,11 @@ converts with `jax.tree_util.tree_map(np.asarray, params)`), and returns
 the port's parameter dict on `device`. Scanned stacks (`stack_{p}`, with a
 leading group axis) are split into the unscanned `layer_{i}` layout the
 port runs, in the decoder and, for an encoder-decoder, in the encoder
-(whose one-kind stack holds `n_encoder_layers` groups); `layer_{i}` /
-`rem_{i}` trees pass through, as do `enc_norm` and each decoder layer's
+(whose one-kind stack holds `n_encoder_layers` groups); the unrolled
+remainder layers `rem_{i}` of a block pattern that does not divide the
+depth become `layer_{n_groups * len(pattern) + i}`; `layer_{i}` trees
+pass through (an RG-LRU layer's `rglru` leaves among them), as do
+`enc_norm` and each decoder layer's
 `cross_norm` / `cross_attn`, and a mixture-of-experts layer's `moe`
 subtree (`router` (D, E) and the expert stacks `w_gate` / `w_up` (E, D, F)
 and `w_down` (E, F, D), their shapes checked against the config). Nothing
@@ -31,15 +34,19 @@ def _to_torch(tree, device):
 
 
 def _split_stacks(stack: Dict[str, Any], n_layers: int, n_kinds: int):
-    """A stack's `stack_{p}` entries (n_layers // n_kinds groups each) as
-    `layer_{i}` entries; other entries pass through."""
+    """A stack's `stack_{p}` entries (n_layers // n_kinds groups each) and
+    remainder `rem_{i}` entries as `layer_{i}` entries; other entries pass
+    through."""
     out: Dict[str, Any] = {}
+    n_groups = n_layers // n_kinds
     for key, sub in stack.items():
+        if key.startswith("rem_"):
+            out[f"layer_{n_groups * n_kinds + int(key[len('rem_'):])}"] = sub
+            continue
         if not key.startswith("stack_"):
             out[key] = sub
             continue
         pos = int(key[len("stack_"):])
-        n_groups = n_layers // n_kinds
 
         def take(t, g):
             return {k: take(v, g) for k, v in t.items()} \
@@ -47,7 +54,9 @@ def _split_stacks(stack: Dict[str, Any], n_layers: int, n_kinds: int):
 
         for g in range(n_groups):
             out[f"layer_{g * n_kinds + pos}"] = take(sub, g)
-    return out
+    # Layers in execution order.
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0][6:])
+                       if kv[0].startswith("layer_") else -1))
 
 
 def _check_moe(layers: Dict[str, Any], cfg: ModelConfig):

@@ -8,7 +8,7 @@ from repro_torch.models.config import ModelConfig
 ARCHS = ["qwen2-1.5b", "paper-resnet", "paper-transformer",
          "codeqwen1.5-7b", "internlm2-20b", "mistral-large-123b",
          "moonshot-v1-16b-a3b", "dbrx-132b", "llava-next-34b",
-         "seamless-m4t-large-v2"]
+         "seamless-m4t-large-v2", "recurrentgemma-9b"]
 
 
 def _module(arch: str):

@@ -1,4 +1,4 @@
-"""Dense decoder and encoder-decoder LM assembly (counterpart of
+"""Decoder, hybrid and encoder-decoder LM assembly (counterpart of
 `repro.models.transformer`).
 
 Parameters are nested dicts of tensors laid out like the reference's
@@ -8,7 +8,17 @@ unscanned tree: {"embed": {"table"[, "head"]}, "final_norm": {"scale"},
 "cross_attn" in each decoder layer. Layers run in a plain Python loop (the
 reference's lax.scan), each under the site scope of its key, so scale-site
 keys are the reference's `scan_layers=False` keys (the encoder's under
-"encoder/", a decoder layer's cross-attention under ".../cross_attn/").
+"encoder/", a decoder layer's cross-attention under ".../cross_attn/"),
+except that the reference's unrolled remainder layers `rem_{i}` (a block
+pattern that does not divide the depth) are the port's
+`layer_{n_groups * len(pattern) + i}`, in the same order.
+
+Layer kinds follow the config's block pattern (`cfg.layer_kinds()`):
+'attn' (self-attention), 'local_attn' (self-attention within
+`cfg.window` positions, with a ring of that many cache slots), each with
+the gated MLP or the mixture-of-experts FFN; 'rglru' (the RG-LRU block,
+`models.rglru`, whose sites sit at the layer's scope, then the gated MLP
+under "mlp" when `cfg.d_ff`).
 
 `lm_loss` is the training objective (the reference's `lm_loss` with its
 sequence-chunked cross-entropy `_chunked_ce`): the 16-bit logits head, a
@@ -18,10 +28,12 @@ carry their own custom gradients, and save fp8 payloads for the backward.
 
 Activation recomputation follows the reference's scanned stack: with
 `cfg.remat` and `cfg.scan_layers` (both on by default) and more than one
-layer, each layer of a stack (the decoder's, and the encoder's) is
-recomputed in the training backward (`models.remat.checkpointed`), exactly
+group of the block pattern, each layer of a stack's groups (the
+decoder's, and the encoder's) is recomputed in the training backward
+(`models.remat.checkpointed`), an RG-LRU layer like any other, exactly
 where the reference's `jax.checkpoint` of the scan body recomputes it;
-with `scan_layers=False` the reference does not, and neither does the port.
+the remainder layers after the groups, and every layer with
+`scan_layers=False`, are not recomputed there, and neither are they here.
 
 Serving an encoder-decoder (`forward(..., enc_out=)` in the prefill and
 decode modes): the decoder's self-attention caches as a decoder's do; the
@@ -43,21 +55,42 @@ from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        logits_head, mlp, rmsnorm)
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.remat import checkpointed
+from repro_torch.models.rglru import (init_rglru, init_rglru_state,
+                                      rglru_block)
 from repro_torch.scaling import context as scale_ctx
 
 
 def _layer_names(cfg: ModelConfig):
-    """Decoder keys in execution order (one-kind pattern: no remainder)."""
+    """Decoder keys in execution order, the remainder layers of a block
+    pattern that does not divide the depth included (38 = 12 x 3 + 2:
+    layer_0 .. layer_37); `cfg.layer_kinds()` gives each one's kind."""
     return [f"layer_{i}" for i in range(cfg.n_layers)]
 
 
+def _mlp_init(cfg: ModelConfig, **kw):
+    return {"up": dense_init(cfg.d_model, cfg.d_ff, **kw),
+            "down": dense_init(cfg.d_ff, cfg.d_model, scale=0.5, **kw),
+            "gate": dense_init(cfg.d_model, cfg.d_ff, **kw)}
+
+
 def init_layer(cfg: ModelConfig, *, generator, device,
-               cross: bool = False):
-    """One layer: self-attention and the gated MLP (the mixture-of-experts
-    FFN, "moe", when `cfg.n_experts`), with a cross-attention block
-    between them for an encoder-decoder's decoder (cross=True)."""
+               cross: bool = False, kind: str = "attn"):
+    """One layer of `kind`: 'attn' / 'local_attn', self-attention and the
+    gated MLP (the mixture-of-experts FFN, "moe", when `cfg.n_experts`),
+    with a cross-attention block between them for an encoder-decoder's
+    decoder (cross=True); 'rglru', the RG-LRU block and, when `cfg.d_ff`,
+    the gated MLP."""
     kw = dict(generator=generator, device=device)
     ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
+    if kind == "rglru":
+        p = {"norm1": {"scale": ones.clone()},
+             "rglru": init_rglru(cfg, **kw)}
+        if cfg.d_ff:
+            p["norm2"] = {"scale": ones.clone()}
+            p["mlp"] = _mlp_init(cfg, **kw)
+        return p
+    if kind not in ("attn", "local_attn"):
+        raise ValueError(f"unknown layer kind {kind!r}")
     p = {"norm1": {"scale": ones.clone()},
          "attn": init_attention(cfg, **kw)}
     if cross:
@@ -67,10 +100,7 @@ def init_layer(cfg: ModelConfig, *, generator, device,
     if cfg.n_experts:
         p["moe"] = init_moe(cfg, **kw)
     else:
-        p["mlp"] = {"up": dense_init(cfg.d_model, cfg.d_ff, **kw),
-                    "down": dense_init(cfg.d_ff, cfg.d_model, scale=0.5,
-                                       **kw),
-                    "gate": dense_init(cfg.d_model, cfg.d_ff, **kw)}
+        p["mlp"] = _mlp_init(cfg, **kw)
     return p
 
 
@@ -86,8 +116,9 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
         "final_norm": {"scale": torch.ones((cfg.d_model,),
                                            dtype=torch.float32, device=dev)},
         "decoder": {name: init_layer(cfg, generator=gen, device=dev,
-                                     cross=cfg.is_encoder_decoder)
-                    for name in _layer_names(cfg)},
+                                     cross=cfg.is_encoder_decoder, kind=kind)
+                    for name, kind in zip(_layer_names(cfg),
+                                          cfg.layer_kinds())},
     }
     if cfg.is_encoder_decoder:
         params["encoder"] = {
@@ -102,39 +133,82 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
     return params
 
 
+def init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     *, device):
+    """One layer's fixed-slot serving state: {"kv": init_cache} for an
+    attention layer (a ring of `cfg.window` slots for 'local_attn'), {"rec":
+    init_rglru_state} for an RG-LRU layer."""
+    if kind == "rglru":
+        return {"rec": init_rglru_state(cfg, batch, device=device)}
+    window = cfg.window if kind == "local_attn" else 0
+    return {"kv": init_cache(cfg, batch, max_len, device=device,
+                             window=window)}
+
+
 def init_stack_state(cfg: ModelConfig, batch: int, max_len: int, *,
                      device=None):
-    """Per-layer fixed-slot KV caches (`init_cache`), keyed like the
-    decoder params: the self-attention's only (an encoder-decoder's
-    cross-attention keeps no cache)."""
+    """Per-layer fixed-slot serving states (`init_layer_state`), keyed like
+    the decoder params: the self-attention's caches only (an
+    encoder-decoder's cross-attention keeps no cache)."""
     cfg.check_ported()
     dev = resolve_device(device)
-    return {name: {"kv": init_cache(cfg, batch, max_len, device=dev)}
-            for name in _layer_names(cfg)}
+    return {name: init_layer_state(cfg, kind, batch, max_len, device=dev)
+            for name, kind in zip(_layer_names(cfg), cfg.layer_kinds())}
 
 
 def init_paged_stack_state(cfg: ModelConfig, n_slots: int, *, device=None):
-    """Per-layer paged KV pools, keyed like the decoder params."""
-    cfg.check_ported(serving=True)
+    """Per-layer paged KV pools, keyed like the decoder params. An
+    attention-stack feature: other layer kinds are refused (ValueError),
+    as the reference refuses them."""
+    cfg.check_ported(serving=True, paged=True)
     dev = resolve_device(device)
     return {name: {"kv": init_paged_pool(cfg, n_slots, device=dev)}
             for name in _layer_names(cfg)}
 
 
+def _write_rec(rec, new, page):
+    """The RG-LRU state after a prefill or decode, written into the carried
+    `rec` in place: every row, or with page["slot"] (the fixed-slot
+    engine's admission) that row alone, as the reference's _merge_slot
+    takes it."""
+    rows = slice(None) if page is None else slice(page["slot"],
+                                                   page["slot"] + 1)
+    for name in ("h", "conv"):
+        rec[name][rows] = new[name][rows].to(rec[name].dtype)
+    return rec
+
+
 def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
                 positions: torch.Tensor, mode: str, state=None, page=None,
                 enc_out: Optional[torch.Tensor] = None,
-                qgen: Optional[torch.Generator] = None):
-    """One layer: a decoder layer ('attn' kind; with enc_out, its
-    cross-attention block too) or, with mode 'encode', an encoder layer.
-    Returns (h, new_state, aux): aux holds the mixture-of-experts FFN's
-    aux losses ({} for a dense layer)."""
+                qgen: Optional[torch.Generator] = None, kind: str = "attn"):
+    """One layer of `kind`: a decoder layer ('attn' or 'local_attn'; with
+    enc_out, its cross-attention block too), or with mode 'encode' an
+    encoder layer, or an RG-LRU layer ('rglru': its state {"rec"} carried
+    in place; a prefill starts the conv from the row's carried window, as
+    the reference's does, and h from zero). Returns (h, new_state, aux):
+    aux holds the mixture-of-experts FFN's aux losses ({} otherwise)."""
+    if kind == "rglru":
+        rec = None if state is None else state["rec"]
+        r, new_rec = rglru_block(
+            p["rglru"], rmsnorm(p["norm1"], h, eps=cfg.norm_eps), cfg=cfg,
+            qcfg=qcfg, mode=mode, state=rec, qgen=qgen)
+        h = h + r
+        if "mlp" in p:
+            with scale_ctx.scope("mlp"):
+                h = h + mlp(p["mlp"], rmsnorm(p["norm2"], h,
+                                              eps=cfg.norm_eps),
+                            act=cfg.act, qcfg=qcfg, qgen=qgen)
+        if new_rec is None:
+            return h, None, {}
+        return h, {"rec": _write_rec(rec, new_rec, page)}, {}
+    window = cfg.window if kind == "local_attn" else 0
     with scale_ctx.scope("attn"):
         a, cache = attention(
             p["attn"], rmsnorm(p["norm1"], h, eps=cfg.norm_eps), cfg=cfg,
             qcfg=qcfg, positions=positions, mode=mode,
-            cache_layer=None if state is None else state["kv"], page=page,
-            qgen=qgen)
+            cache_layer=None if state is None else state["kv"],
+            window=window, page=page, qgen=qgen)
     h = h + a
     if "cross_attn" in p and enc_out is not None:
         with scale_ctx.scope("cross_attn"):
@@ -167,10 +241,14 @@ def merge_aux(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
     return dst
 
 
-def _remat(cfg: ModelConfig, n_layers: int) -> bool:
-    """Recompute a training stack's layers? Where the reference's scanned
-    stack does: remat on, scanned layers, more than one layer."""
-    return cfg.remat and cfg.scan_layers and n_layers > 1
+def _remat(cfg: ModelConfig, n_layers: int, n_kinds: int = 1) -> int:
+    """How many of a training stack's leading layers are recomputed: where
+    the reference's scanned stack does (remat on, scanned layers, more
+    than one group of the block pattern), its groups' layers; not the
+    remainder layers it applies unrolled after the scan."""
+    n_groups = n_layers // n_kinds
+    return n_groups * n_kinds \
+        if cfg.remat and cfg.scan_layers and n_groups > 1 else 0
 
 
 def _apply_stack_layer(p, h, *, remat: bool, qgen, **kw):
@@ -204,15 +282,17 @@ def _backbone(params, tokens, *, cfg: ModelConfig, mode: str, states,
         positions = torch.arange(s, device=h.device)[None].expand(b, s)
     new_states = {} if states is not None else None
     aux: Dict[str, torch.Tensor] = {}
-    remat = mode == "train" and _remat(cfg, cfg.n_layers)
+    n_remat = _remat(cfg, cfg.n_layers, len(cfg.pattern())) \
+        if mode == "train" else 0
     with scale_ctx.scope("decoder"):
-        for name in _layer_names(cfg):
+        for i, (name, kind) in enumerate(zip(_layer_names(cfg),
+                                             cfg.layer_kinds())):
             with scale_ctx.scope(name):
                 h, ns, layer_aux = _apply_stack_layer(
-                    params["decoder"][name], h, remat=remat, qgen=qgen,
+                    params["decoder"][name], h, remat=i < n_remat, qgen=qgen,
                     cfg=cfg, qcfg=qcfg, positions=positions, mode=mode,
                     state=None if states is None else states[name],
-                    page=page, enc_out=enc_out)
+                    page=page, enc_out=enc_out, kind=kind)
             merge_aux(aux, layer_aux)
             if states is not None:
                 new_states[name] = ns
@@ -230,7 +310,7 @@ def encode(params, enc_inputs, *, cfg: ModelConfig,
     h = torch.as_tensor(enc_inputs).to(device=dev).to(torch.bfloat16)
     b, t, _ = h.shape
     positions = torch.arange(t, device=dev)[None].expand(b, t)
-    remat = _remat(cfg, cfg.n_encoder_layers)
+    remat = _remat(cfg, cfg.n_encoder_layers) > 0
     with scale_ctx.scope("encoder"):
         for i in range(cfg.n_encoder_layers):
             name = f"layer_{i}"

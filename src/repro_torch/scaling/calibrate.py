@@ -89,8 +89,9 @@ def calibrate(params, cfg: ModelConfig, batches: Iterable, *,
     batches also hold "enc_inputs" (B, T, D), and a patch-stub model's
     may hold "extra_embeds" (B, P, D), which the forward prepends (the
     reference's calibration passes tokens only, so its batches are text).
-    A mixture-of-experts model's expert sites ("moe/w_gate" ...) are
-    observed like any other. Returns the DelayedScaling bundle and the
+    A mixture-of-experts model's expert sites ("moe/w_gate" ...), and a
+    hybrid stack's RG-LRU projections (wx, wg, wa, wi, wo at the layer's
+    scope) and local layers' KV-cache sites, are observed like any other. Returns the DelayedScaling bundle and the
     converged ScaleState."""
     cfg.check_ported()
     ecfg = _delayed_eval_cfg(cfg)

@@ -303,7 +303,7 @@ class PagedServeEngine:
         from repro_torch.train.step import make_serve_chunk
 
         self.device = resolve_device(device)
-        cfg.check_ported(serving=True)
+        cfg.check_ported(serving=True, paged=True)
         self.cfg = cfg
         self.params = params
         self.serve = serve

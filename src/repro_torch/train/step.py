@@ -249,8 +249,9 @@ def make_serve_chunk(cfg: ModelConfig, frozen_scales=None):
     (B, C), chunk_pos (B, 2), last_row (B,) — int tensors on the device.
     Returns (logits (B, 1, V), states); the pools update in place. An
     encoder-decoder is refused: the reference's chunk step passes no
-    enc_out."""
-    cfg.check_ported(serving=True)
+    enc_out; so is a stack with other layers than attention, which paged
+    serving does not hold (ValueError, as the reference's)."""
+    cfg.check_ported(serving=True, paged=True)
     ecfg = _eval_cfg(cfg, frozen_scales)
 
     def chunk_step(params, batch, states):

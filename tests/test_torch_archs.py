@@ -281,13 +281,28 @@ def test_llava_calibration_observes_extra_embeds():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
 def test_recurrent_archs_still_refused(arch):
-    """Not in the port's registry, and their layer patterns refused by
-    check_ported; both errors name ROADMAP.md."""
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        build_config(arch)
+    """xlstm-125m: not in the port's registry, and its layer pattern
+    refused by check_ported; both errors name ROADMAP.md.
+    recurrentgemma-9b (ported): paged serving refuses its stack with the
+    reference's ValueError, the fixed-slot path takes it."""
     ref = dataclasses.asdict(j_build_config(arch, smoke=True))
     ref.pop("policy")
     cfg = tmc.ModelConfig(**ref)
+    if arch == "recurrentgemma-9b":
+        assert build_config(arch, smoke=True) == cfg.replace(
+            policy=build_config(arch, smoke=True).policy)
+        cfg.check_ported(serving=True)
+        msg = "paged serving supports attention stacks only"
+        with pytest.raises(ValueError, match=msg):
+            cfg.check_ported(serving=True, paged=True)
+        with pytest.raises(ValueError, match=msg):
+            ttr.init_paged_stack_state(cfg, 64, device="cpu")
+        with pytest.raises(ValueError, match=msg):
+            jtr.init_paged_stack_state(j_build_config(arch, smoke=True), 64,
+                                       n_layers=cfg.n_layers)
+        return
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        build_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cfg.check_ported()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

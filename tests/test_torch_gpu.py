@@ -363,6 +363,52 @@ def test_attention_bwd_kernels_match_plain(card, kind, mask, recipe,
         assert torch.equal(x, y)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "stepped"])
+@pytest.mark.parametrize("d", [256, 192])
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("group, window", [(1, 0), (16, 0), (16, 300)],
+                         ids=["mha", "mqa", "mqa_window"])
+@pytest.mark.parametrize("s, variant", [(200, "stash"), (700, "long")],
+                         ids=["stash", "long"])
+def test_attention_kernels_at_head_dim_256_match_plain(card, kind, d,
+                                                       rounding, group,
+                                                       window, s, variant):
+    """Kernels 2-4 on their D = 256 build (recurrentgemma-9b's heads; 192
+    pads to it) against the plain versions run on the card, bit for bit on
+    the exact fixtures (hybrid recipe): the forward's output and amaxes,
+    the backward's dq, dk, dv and amaxes; MQA (a GQA group of 16, the
+    dK/dV kernel's group sum) with and without a window; the dQ kernel on
+    the variant the span selects (ids: the variant without a window)."""
+    from repro_torch.kernels.fp8_attention import ref
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, do, scal = (x.to(card) if isinstance(x, torch.Tensor) else x
+                         for x in _bwd_case(kind, group, "e4m3", "e5m2", gen,
+                                            s=s, d=d))
+    q, do = q[:1], do[:1]
+    k, v = k[:1, :1].contiguous(), v[:1, :1].contiguous()
+    if group == 1:
+        q, do = q[:, :1].contiguous(), do[:, :1].contiguous()
+    fk = dict(mask_mode="causal", window=window, fmt_s="e4m3", fmt_p="e4m3",
+              rounding_s=rounding, rounding_p=rounding)
+    got = attn.fp8_attention_fwd(q, k, v, 9, scal[:4], **fk)
+    want = ref.fp8_attention_fwd_ref(q, k, v, 9, scal[:4], **fk)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    kw = dict(fk, fmt_e="e5m2", rounding_e=rounding)
+    # The window narrows the span: 300 at S = 700 fits the stash.
+    variant = attn.dq_variant(s, -(-s // 128) * 128, "causal", window)
+    n_var = attn.fp8_attention_bwd_dq.launches_by_variant[variant]
+    got = attn.fp8_attention_bwd(q, k, v, do, 9, scal, **kw)
+    want = ref.fp8_attention_bwd_ref(q, k, v, do, 9, scal, **kw)
+    torch.cuda.synchronize()
+    assert attn.fp8_attention_bwd_dq.launches_by_variant[variant] \
+        == n_var + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 def _bwd_overflow_case(group, fmt_a, fmt_e, gen, s=200, d=64):
     """_bwd_case's uniform fixture with dP overflowing e5m2 (unsaturated)
     at masked positions inside a visited pair only: rows r < 32 take dO =
@@ -526,7 +572,7 @@ def test_attention_dkv_kernel_residency(card):
     import ctypes
     from repro_torch.kernels import build
     info = (ctypes.c_int * 6)()
-    assert build.load("fp8_attention_bwd").attn_bwd_dkv_info(info) == 0
+    assert build.load("fp8_attention_bwd").attn_bwd_dkv_info(128, info) == 0
     assert info[2] == 0 and info[3] >= 2 and info[5] == 0, list(info)
 
 

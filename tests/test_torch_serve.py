@@ -228,11 +228,11 @@ def test_from_jax_params_splits_scanned_stacks():
 
 def test_unported_archs_are_refused():
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        build_config("recurrentgemma-9b")
+        build_config("xlstm-125m")
     cfg = build_config("qwen2-1.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_kv_heads) == (28, 1536, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.replace(block_pattern=("rglru",)).check_ported()
+        cfg.replace(block_pattern=("mlstm",)).check_ported()
 
 
 @pytest.mark.parametrize("k,p", [(5, 1.0), (0, 0.7), (8, 0.9)])
