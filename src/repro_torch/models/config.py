@@ -11,8 +11,8 @@ from repro_torch.core.precision_policy import PAPER_POLICY, PrecisionPolicy
 class ModelConfig:
     """Same fields and defaults as the reference. The port runs attention
     decoders (dense and mixture-of-experts), the RG-LRU / local-attention
-    hybrid and encoder-decoders; the xLSTM fields are kept so configs read
-    alike, and are refused where they would change the computation."""
+    hybrid, the xLSTM stack (mLSTM and sLSTM blocks) and
+    encoder-decoders."""
     arch: str = "custom"
     family: str = "dense"
     n_layers: int = 4
@@ -102,24 +102,23 @@ class ModelConfig:
         return emb + per_layer + enc
 
     def check_ported(self, *, serving: bool = False, paged: bool = False):
-        """Raise for what the port does not run: the xLSTM kinds (mLSTM,
-        sLSTM); with serving=True (the engines, paged serving) also an
-        encoder-decoder, which the reference's engines do not serve
-        either; with paged=True (paged serving: its pools, engine and
-        chunk step) also any layer kind but attention, as the reference's
-        `init_paged_stack_state` refuses (ValueError). Attention decoders
-        (dense or with the mixture-of-experts FFN, with or without the
-        patch stub's prefix), the RG-LRU / local-attention hybrid and
-        encoder-decoders (with or without the frame stub) run."""
+        """Raise for what the port does not run: a layer kind or frontend
+        the reference does not define; with serving=True (the engines,
+        paged serving) also an encoder-decoder, which the reference's
+        engines do not serve either; with paged=True (paged serving: its
+        pools, engine and chunk step) also any layer kind but attention,
+        as the reference's `init_paged_stack_state` refuses (ValueError).
+        Attention decoders (dense or with the mixture-of-experts FFN, with
+        or without the patch stub's prefix), the RG-LRU / local-attention
+        hybrid, the xLSTM stack and encoder-decoders (with or without the
+        frame stub) run."""
         bad = [k for k in self.pattern()
-               if k not in ("attn", "local_attn", "rglru")]
+               if k not in ("attn", "local_attn", "rglru", "mlstm", "slstm")]
         if bad:
             raise NotImplementedError(
                 f"arch {self.arch!r}: layer kinds {sorted(set(bad))} are not "
-                "ported yet; the port runs attention decoders (dense and "
-                "mixture-of-experts), the RG-LRU / local-attention hybrid "
-                "and encoder-decoders so far, the xLSTM kinds are queued in "
-                "ROADMAP.md")
+                "layer kinds of the reference (attn, local_attn, rglru, "
+                "mlstm, slstm); ROADMAP.md lists what the port runs")
         if self.frontend not in (None, "patch_stub", "audio_stub"):
             raise NotImplementedError(
                 f"arch {self.arch!r}: frontend {self.frontend!r} is not "

@@ -11,14 +11,17 @@ keys are the reference's `scan_layers=False` keys (the encoder's under
 "encoder/", a decoder layer's cross-attention under ".../cross_attn/"),
 except that the reference's unrolled remainder layers `rem_{i}` (a block
 pattern that does not divide the depth) are the port's
-`layer_{n_groups * len(pattern) + i}`, in the same order.
+`layer_{n_groups * len(pattern) + i}`, in the same order
+(`scaling.calibrate.reference_keys` / `port_keys` map a frozen-scales
+file's keys between the two layouts).
 
 Layer kinds follow the config's block pattern (`cfg.layer_kinds()`):
 'attn' (self-attention), 'local_attn' (self-attention within
 `cfg.window` positions, with a ring of that many cache slots), each with
 the gated MLP or the mixture-of-experts FFN; 'rglru' (the RG-LRU block,
 `models.rglru`, whose sites sit at the layer's scope, then the gated MLP
-under "mlp" when `cfg.d_ff`).
+under "mlp" when `cfg.d_ff`); 'mlstm' and 'slstm' (the xLSTM blocks,
+`models.xlstm`, after `norm1`, their sites at the layer's scope, no MLP).
 
 `lm_loss` is the training objective (the reference's `lm_loss` with its
 sequence-chunked cross-entropy `_chunked_ce`): the 16-bit logits head, a
@@ -31,7 +34,9 @@ Activation recomputation follows the reference's scanned stack: with
 group of the block pattern, each layer of a stack's groups (the
 decoder's, and the encoder's) is recomputed in the training backward
 (`models.remat.checkpointed`), an RG-LRU layer like any other, exactly
-where the reference's `jax.checkpoint` of the scan body recomputes it;
+where the reference's `jax.checkpoint` of the scan body recomputes it
+(an xLSTM layer too, and within it each mLSTM chunk as the reference's
+`_mlstm_parallel` checkpoints it);
 the remainder layers after the groups, and every layer with
 `scan_layers=False`, are not recomputed there, and neither are they here.
 
@@ -57,7 +62,15 @@ from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.remat import checkpointed
 from repro_torch.models.rglru import (init_rglru, init_rglru_state,
                                       rglru_block)
+from repro_torch.models.xlstm import (init_mlstm, init_mlstm_state,
+                                      init_slstm, init_slstm_state,
+                                      mlstm_block, slstm_block)
 from repro_torch.scaling import context as scale_ctx
+
+
+# The xLSTM kinds: (init, state init).
+_XLSTM = {"mlstm": (init_mlstm, init_mlstm_state),
+          "slstm": (init_slstm, init_slstm_state)}
 
 
 def _layer_names(cfg: ModelConfig):
@@ -79,9 +92,12 @@ def init_layer(cfg: ModelConfig, *, generator, device,
     gated MLP (the mixture-of-experts FFN, "moe", when `cfg.n_experts`),
     with a cross-attention block between them for an encoder-decoder's
     decoder (cross=True); 'rglru', the RG-LRU block and, when `cfg.d_ff`,
-    the gated MLP."""
+    the gated MLP; 'mlstm' / 'slstm', the xLSTM block alone."""
     kw = dict(generator=generator, device=device)
     ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
+    if kind in _XLSTM:
+        return {"norm1": {"scale": ones.clone()},
+                kind: _XLSTM[kind][0](cfg, **kw)}
     if kind == "rglru":
         p = {"norm1": {"scale": ones.clone()},
              "rglru": init_rglru(cfg, **kw)}
@@ -137,9 +153,12 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      *, device):
     """One layer's fixed-slot serving state: {"kv": init_cache} for an
     attention layer (a ring of `cfg.window` slots for 'local_attn'), {"rec":
-    init_rglru_state} for an RG-LRU layer."""
+    init_rglru_state} for an RG-LRU layer, {"rec": init_mlstm_state /
+    init_slstm_state} for an xLSTM layer."""
     if kind == "rglru":
         return {"rec": init_rglru_state(cfg, batch, device=device)}
+    if kind in _XLSTM:
+        return {"rec": _XLSTM[kind][1](cfg, batch, device=device)}
     window = cfg.window if kind == "local_attn" else 0
     return {"kv": init_cache(cfg, batch, max_len, device=device,
                              window=window)}
@@ -167,14 +186,15 @@ def init_paged_stack_state(cfg: ModelConfig, n_slots: int, *, device=None):
 
 
 def _write_rec(rec, new, page):
-    """The RG-LRU state after a prefill or decode, written into the carried
-    `rec` in place: every row, or with page["slot"] (the fixed-slot
-    engine's admission) that row alone, as the reference's _merge_slot
-    takes it."""
+    """A recurrent layer's state after a prefill or decode (each tensor the
+    block returns: RG-LRU h and conv, mLSTM C, n and m, sLSTM h, c, n and
+    m), written into the carried `rec` in place: every row, or with
+    page["slot"] (the fixed-slot engine's admission) that row alone, as
+    the reference's _merge_slot takes it."""
     rows = slice(None) if page is None else slice(page["slot"],
                                                    page["slot"] + 1)
-    for name in ("h", "conv"):
-        rec[name][rows] = new[name][rows].to(rec[name].dtype)
+    for name, value in new.items():
+        rec[name][rows] = value[rows].to(rec[name].dtype)
     return rec
 
 
@@ -186,8 +206,21 @@ def apply_layer(p, h: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,
     enc_out, its cross-attention block too), or with mode 'encode' an
     encoder layer, or an RG-LRU layer ('rglru': its state {"rec"} carried
     in place; a prefill starts the conv from the row's carried window, as
-    the reference's does, and h from zero). Returns (h, new_state, aux):
-    aux holds the mixture-of-experts FFN's aux losses ({} otherwise)."""
+    the reference's does, and h from zero), or an xLSTM layer ('mlstm',
+    'slstm': its state {"rec"} carried in place; an mLSTM prefill starts
+    from zero, an sLSTM prefill from the row's carried state, as the
+    reference's do). Returns (h, new_state, aux): aux holds the
+    mixture-of-experts FFN's aux losses ({} otherwise)."""
+    if kind in _XLSTM:
+        rec = None if state is None else state["rec"]
+        block = mlstm_block if kind == "mlstm" else slstm_block
+        r, new_rec = block(
+            p[kind], rmsnorm(p["norm1"], h, eps=cfg.norm_eps), cfg=cfg,
+            qcfg=qcfg, mode=mode, state=rec, qgen=qgen)
+        h = h + r
+        if new_rec is None:
+            return h, None, {}
+        return h, {"rec": _write_rec(rec, new_rec, page)}, {}
     if kind == "rglru":
         rec = None if state is None else state["rec"]
         r, new_rec = rglru_block(

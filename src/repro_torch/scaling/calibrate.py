@@ -8,7 +8,10 @@ registers every site it touches (the reference discovers them by an
 abstract trace, which eager PyTorch has no counterpart of; its first batch
 runs at unit scales either way). `freeze` emits {site_key: float};
 `save_frozen` / `load_frozen` / `load_frozen_formats` keep it in the
-reference's JSON file, which either package reads. An encoder-decoder's
+reference's JSON file under the reference's keys for the config, whose
+remainder layers sit under `rem_{i}` and scanned stacks under `stack_{p}`
+(`reference_keys`, `port_keys`), so either package reads a file the other
+wrote. An encoder-decoder's
 batches also hold "enc_inputs": `encode` runs before the decoder, so the
 encoder's and the cross-attention's sites are observed too, as in the
 reference.
@@ -143,11 +146,100 @@ def freeze_with_formats(ds: DelayedScaling, state: ScaleState,
     return ds.freeze(state), ds.frozen_formats(kv_format=kv_format)
 
 
+def _stacks(cfg: ModelConfig):
+    """(scope prefix, depth, kinds a group) of each layer stack, as the
+    reference lays its scale sites out."""
+    out = [("decoder/", cfg.n_layers, len(cfg.pattern()))]
+    if cfg.is_encoder_decoder:
+        out.append(("encoder/", cfg.n_encoder_layers, 1))
+    return out
+
+
+def _split_key(key: str, prefix: str):
+    """(layer part, rest) of a key under `prefix` ("layer_3", "/wq#a.A"),
+    or None."""
+    if not key.startswith(prefix):
+        return None
+    head, sep, rest = key[len(prefix):].partition("/")
+    return (head, sep + rest) if sep else None
+
+
+def reference_keys(values: Dict[str, object], cfg: ModelConfig
+                   ) -> Dict[str, object]:
+    """Port keys -> the reference's, for a frozen-scales or formats dict
+    of `cfg`: the remainder layers after the groups of a block pattern
+    that does not divide the depth (`layer_{n_groups * len(pattern) + i}`
+    here) under `rem_{i}`; and where the reference scans the stack
+    (`cfg.scan_layers` and more than one group), each group position's
+    layers under `stack_{p}`, a list of one value a layer in group order
+    (its `freeze(per_layer=True)` layout, which its serving threads
+    through the scan) or, for formats, the one value they share. Other
+    keys pass through."""
+    out: Dict[str, object] = {}
+    stacked: Dict[str, Dict[int, object]] = {}
+    for key, value in values.items():
+        for prefix, depth, kinds in _stacks(cfg):
+            parts = _split_key(key, prefix)
+            if parts is None or not parts[0].startswith("layer_"):
+                continue
+            i, rest = int(parts[0][len("layer_"):]), parts[1]
+            n_groups = depth // kinds
+            base = n_groups * kinds
+            if i >= base:
+                key = f"{prefix}rem_{i - base}{rest}"
+            elif cfg.scan_layers and n_groups > 1:
+                stacked.setdefault(f"{prefix}stack_{i % kinds}{rest}",
+                                   {})[i // kinds] = value
+                key = None
+            break
+        if key is not None:
+            out[key] = value
+    for key, by_group in stacked.items():
+        vals = [by_group[g] for g in sorted(by_group)]
+        out[key] = vals[0] if all(isinstance(v, str) for v in vals) \
+            else [float(v) for v in vals]
+    return out
+
+
+def port_keys(values: Dict[str, object], cfg: ModelConfig
+              ) -> Dict[str, object]:
+    """The reference's keys -> the port's (`reference_keys` inverted, as
+    `models.convert` splits its parameter stacks): `rem_{i}` to the
+    remainder layer's `layer_{...}`, and `stack_{p}` to each of the
+    position's layers, with its own value from a per-layer list or the
+    shared value (a max envelope, or a format) otherwise."""
+    out: Dict[str, object] = {}
+    for key, value in values.items():
+        for prefix, depth, kinds in _stacks(cfg):
+            parts = _split_key(key, prefix)
+            if parts is None:
+                continue
+            head, rest = parts
+            n_groups = depth // kinds
+            if head.startswith("rem_"):
+                key = f"{prefix}layer_{n_groups * kinds + int(head[4:])}" \
+                    + rest
+            elif head.startswith("stack_"):
+                pos = int(head[len("stack_"):])
+                for g in range(n_groups):
+                    out[f"{prefix}layer_{g * kinds + pos}{rest}"] = \
+                        value[g] if isinstance(value, list) else value
+                key = None
+            break
+        if key is not None:
+            out[key] = value
+    return out
+
+
 def save_frozen(directory, scales: Dict[str, float],
-                formats: Optional[Dict[str, str]] = None):
-    """Write FROZEN_SCALES_FILE in `directory`: {"scales", "formats"}, or
-    the plain legacy {key: scale} layout without `formats` (the
-    reference's file, byte for byte)."""
+                formats: Optional[Dict[str, str]] = None, *,
+                cfg: ModelConfig):
+    """Write FROZEN_SCALES_FILE in `directory` under the reference's keys
+    for `cfg` (`reference_keys`), so its `load_frozen` serves the file:
+    {"scales", "formats"}, or the plain legacy {key: scale} layout without
+    `formats` (the reference's file, byte for byte)."""
+    scales = reference_keys(scales, cfg)
+    formats = None if formats is None else reference_keys(formats, cfg)
     p = Path(directory)
     p.mkdir(parents=True, exist_ok=True)
     doc = scales if formats is None else {"scales": scales,
@@ -160,13 +252,19 @@ def _load_doc(directory) -> dict:
     return json.loads((Path(directory) / FROZEN_SCALES_FILE).read_text())
 
 
-def load_frozen(directory) -> Dict[str, float]:
+def load_frozen(directory, cfg: ModelConfig) -> Dict[str, float]:
+    """The scales of a frozen-scales file (the reference's keys for `cfg`,
+    its remainder layers under `rem_{i}`, its scanned stacks under
+    `stack_{p}`) under the port's keys (`port_keys`)."""
     doc = _load_doc(directory)
-    return doc["scales"] if isinstance(doc.get("scales"), dict) else doc
+    scales = doc["scales"] if isinstance(doc.get("scales"), dict) else doc
+    return port_keys(scales, cfg)
 
 
-def load_frozen_formats(directory) -> Dict[str, str]:
-    """The formats of a frozen-scales file ({} for the legacy layout)."""
+def load_frozen_formats(directory, cfg: ModelConfig) -> Dict[str, str]:
+    """The formats of a frozen-scales file ({} for the legacy layout)
+    under the port's keys for `cfg`."""
     doc = _load_doc(directory)
-    return doc.get("formats", {}) if isinstance(doc.get("scales"), dict) \
+    formats = doc.get("formats", {}) if isinstance(doc.get("scales"), dict) \
         else {}
+    return port_keys(formats, cfg)

@@ -16,8 +16,9 @@ about every config:
   * llava's `make_serve_prefill` with "extra_embeds": the logits and the
     cache (prefix and tokens) against the reference's; its calibration
     observes the prefix;
-  * the recurrent families still raise, naming ROADMAP.md, and the
-    engines still refuse seamless (an encoder-decoder).
+  * the recurrent families (ported) are served by the fixed-slot path
+    and refused by paged serving, and the engines still refuse seamless
+    (an encoder-decoder).
 
 The reference runs with XLA's `xla_allow_excess_precision` off, as in
 tests/test_torch_serve.py.
@@ -281,32 +282,24 @@ def test_llava_calibration_observes_extra_embeds():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
 def test_recurrent_archs_still_refused(arch):
-    """xlstm-125m: not in the port's registry, and its layer pattern
-    refused by check_ported; both errors name ROADMAP.md.
-    recurrentgemma-9b (ported): paged serving refuses its stack with the
-    reference's ValueError, the fixed-slot path takes it."""
+    """Both recurrent archs are ported: each config equals the
+    reference's, the fixed-slot path takes it, and paged serving refuses
+    its stack with the reference's ValueError."""
     ref = dataclasses.asdict(j_build_config(arch, smoke=True))
     ref.pop("policy")
     cfg = tmc.ModelConfig(**ref)
-    if arch == "recurrentgemma-9b":
-        assert build_config(arch, smoke=True) == cfg.replace(
-            policy=build_config(arch, smoke=True).policy)
-        cfg.check_ported(serving=True)
-        msg = "paged serving supports attention stacks only"
-        with pytest.raises(ValueError, match=msg):
-            cfg.check_ported(serving=True, paged=True)
-        with pytest.raises(ValueError, match=msg):
-            ttr.init_paged_stack_state(cfg, 64, device="cpu")
-        with pytest.raises(ValueError, match=msg):
-            jtr.init_paged_stack_state(j_build_config(arch, smoke=True), 64,
-                                       n_layers=cfg.n_layers)
-        return
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        build_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.check_ported()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttr.init_lm(cfg, device="cpu")
+    assert build_config(arch, smoke=True) == cfg.replace(
+        policy=build_config(arch, smoke=True).policy)
+    cfg.check_ported(serving=True)
+    ttr.init_stack_state(cfg, 2, 16, device="cpu")
+    msg = "paged serving supports attention stacks only"
+    with pytest.raises(ValueError, match=msg):
+        cfg.check_ported(serving=True, paged=True)
+    with pytest.raises(ValueError, match=msg):
+        ttr.init_paged_stack_state(cfg, 64, device="cpu")
+    with pytest.raises(ValueError, match=msg):
+        jtr.init_paged_stack_state(j_build_config(arch, smoke=True), 64,
+                                   n_layers=cfg.n_layers)
 
 
 def test_engines_refuse_seamless():

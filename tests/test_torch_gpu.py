@@ -12,6 +12,8 @@ across kv blocks so every exp is 0 or 1), on which the kernels must match
 the plain versions bit for bit — NaN payload bytes compared as
 NaN, since GPU arithmetic returns a canonical NaN.
 """
+import math
+
 import pytest
 import torch
 
@@ -278,7 +280,7 @@ def test_decode_equals_chunk_at_one_token(card):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
-    x = torch.zeros((2, 2, 8, 256), dtype=torch.float8_e4m3fn, device=card)
+    x = torch.zeros((2, 2, 8, 320), dtype=torch.float8_e4m3fn, device=card)
     with pytest.raises(ValueError, match="head dim"):
         attn.fp8_attention_fwd(x, x, x, 0, [1.0] * 4)
     with pytest.raises(ValueError):
@@ -641,6 +643,70 @@ def test_fp8_matmul_kernel_matches_plain(card, shape, fmts, out):
     assert mm.fp8_matmul.launches == launches + 1
     assert mm.fp8_matmul.launches_by_tile[tile] == by_tile + 1
     assert got.dtype == out and torch.equal(got, want)
+
+
+# xlstm-125m's projections, (C, N): the mLSTM's w_up / w_gate, wq / wk /
+# wv, w_if (N = 2 x 4 heads = 8), w_down; the sLSTM's w_zifo, ff_up /
+# ff_gate, ff_down. Its training step runs each at M = B x S = 4 x 2048
+# rows in the forward (nn), dgrad (nt: w_if's contracts K = 8) and wgrad
+# (tn: w_if's writes N = 8) layouts; serving's decode runs the forward at
+# M = 4.
+XLSTM_PROJ = [(768, 1536), (1536, 1536), (1536, 8), (1536, 768),
+              (768, 3072), (768, 1024), (1024, 768)]
+XLSTM_M = 4 * 2048
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("proj", XLSTM_PROJ,
+                         ids=["x".join(map(str, p)) for p in XLSTM_PROJ])
+def test_gemm_kernels_at_xlstm_shapes_match_plain(card, proj):
+    """Kernel 1 in each layout of the training step (the recipe's formats:
+    e4m3 forward, e5m2 adjoints; RNE and SR) and kernel 5 at the forward
+    shapes (e5m2 x e5m2, f32 out), at xlstm-125m's shapes, against their
+    plain versions on the card: bit for bit on exact inputs, amax and
+    counts equal; the padding of N = 8 / K = 8 to a whole tile moves
+    neither."""
+    from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
+    c, n = proj
+    gen = torch.Generator().manual_seed(12)
+    cases = [("nn", (XLSTM_M, c), (c, n), "e4m3", "e4m3"),
+             ("nt", (XLSTM_M, n), (c, n), "e5m2", "e4m3"),
+             ("tn", (XLSTM_M, c), (XLSTM_M, n), "e4m3", "e5m2"),
+             ("nn", (4, c), (c, n), "e4m3", "e4m3")]
+    for dims, sa, sb, fa, fb in cases:
+        a = exact_fp8(sa, fa, gen).to(card)
+        b = exact_fp8(sb, fb, gen).to(card)
+        m, nn, k = fq_ref.gemm_shape(a.shape, b.shape, dims)
+        out = "e4m3" if dims == "nn" else "e5m2"
+        scale = 2.0 ** round(math.log2(
+            fq_ref.dot_f32(a, b, dims).abs().max().item() / 200.0))
+        rand8 = torch.randint(0, 256, (m, nn), dtype=torch.uint8,
+                              generator=gen).to(card)
+        for rounding in ("rne", "sr"):
+            kw = dict(dims=dims, out_format=out, rounding=rounding,
+                      saturate=dims == "nn")
+            launches = fq.fused_quant_matmul.launches
+            q, amax, counts = fq.fused_quant_matmul(
+                a, b, scale, rand8=rand8, with_amax=True, with_counts=True,
+                **kw)
+            qp, ap, cp = fq_ref.fused_quant_matmul_ref(
+                a, b, rand8 if rounding == "sr" else None, scale, **kw)
+            torch.cuda.synchronize()
+            assert fq.fused_quant_matmul.launches == launches + 1
+            assert q.shape == (m, nn)
+            assert torch.equal(canon(q), canon(qp)), (dims, sa, rounding)
+            assert torch.equal(amax, ap)
+            assert torch.equal(counts, cp / torch.tensor(float(m * nn),
+                                                         device=card))
+        if dims == "nn":
+            a5 = exact_fp8(sa, "e5m2", gen).to(card)
+            b5 = exact_fp8(sb, "e5m2", gen).to(card)
+            launches = mm.fp8_matmul.launches
+            got = mm.fp8_matmul(a5, b5, torch.float32)
+            want = a5.float() @ b5.float()
+            torch.cuda.synchronize()
+            assert mm.fp8_matmul.launches == launches + 1
+            assert torch.equal(got, want), (sa, sb)
 
 
 SPECIAL = [float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-40,

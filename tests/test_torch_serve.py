@@ -45,6 +45,7 @@ from repro_torch.scaling.state import ScalingConfig as TScalingConfig
 from repro_torch.serve import sampling as tsampling
 from repro_torch.serve.engine import PagedServeConfig as TServeConfig
 from repro_torch.serve.engine import PagedServeEngine as TEngine
+from repro_torch.train.step import make_optimizer_for, make_train_step
 from repro_torch.train.step import make_serve_chunk as t_make_serve_chunk
 
 jax.config.update("jax_platform_name", "cpu")
@@ -227,12 +228,18 @@ def test_from_jax_params_splits_scanned_stacks():
 
 
 def test_unported_archs_are_refused():
+    """What stays unported is refused, naming ROADMAP.md: an arch outside
+    the registry, and make_train_step's amax_sync= and plan= (slice 10,
+    distribution)."""
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        build_config("xlstm-125m")
+        build_config("gpt-unknown-1b")
     cfg = build_config("qwen2-1.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_kv_heads) == (28, 1536, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.replace(block_pattern=("mlstm",)).check_ported()
+    small = build_config("qwen2-1.5b", smoke=True)
+    opt = make_optimizer_for(small)
+    for kw in ({"amax_sync": object()}, {"plan": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_train_step(small, opt, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("k,p", [(5, 1.0), (0, 0.7), (8, 0.9)])

@@ -12,6 +12,7 @@ NaN payload bytes are compared as NaN: ml_dtypes and torch write
 different NaN encodings of e5m2 (0x7E, 0x7F), both NaN.
 """
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -253,11 +254,17 @@ def test_frozen_file_reads_the_same_in_both_packages(tmp_path, with_formats):
     formats = {k: ("e5m2" if "/kv/" in k else "e4m3") for k in scales} \
         if with_formats else None
     want_formats = formats or {}
-    for save, loads in ((tcal.save_frozen, (j_load_frozen,
-                                            j_load_frozen_formats)),
-                        (j_save_frozen, (tcal.load_frozen,
-                                         tcal.load_frozen_formats))):
-        d = tmp_path / save.__module__
+    # Unscanned, two layers and no remainder: the keys are the same in
+    # both packages (tests/test_torch_frozen_keys.py maps the others).
+    cfg = t_build_config("qwen2-1.5b", smoke=True).replace(
+        n_layers=2, scan_layers=False)
+    for name, save, loads in (
+            (tcal.__name__, partial(tcal.save_frozen, cfg=cfg),
+             (j_load_frozen, j_load_frozen_formats)),
+            (j_save_frozen.__module__, j_save_frozen,
+             (partial(tcal.load_frozen, cfg=cfg),
+              partial(tcal.load_frozen_formats, cfg=cfg)))):
+        d = tmp_path / name
         save(d, scales, formats)
         assert loads[0](d) == scales and loads[1](d) == want_formats
     a, b = (tmp_path / m / tcal.FROZEN_SCALES_FILE
