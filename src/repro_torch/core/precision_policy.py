@@ -1,8 +1,8 @@
 """Precision policy: which tensor gets which format/rounding/saturation.
 
 Counterpart of `repro.core.precision_policy` (the paper's recipe and the
-hybrid e4m3/e5m2 recipe, per tensor class W/A/E/G). The distribution policy
-(`DistConfig`) belongs to a later slice of the port.
+hybrid e4m3/e5m2 recipe, per tensor class W/A/E/G) and the distribution
+policy `DistConfig` that `distributed.strategy.ParallelPlan.build` reads.
 """
 from __future__ import annotations
 
@@ -119,9 +119,38 @@ HYBRID_DELAYED_FP8 = QuantConfig(recipe="hybrid", scaling="delayed")
 
 
 @dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """Static parallelism policy (the reference's fields, defaults and
+    errors): which strategies compose into the ParallelPlan and what format
+    the collectives put on the wire.
+
+    wire: the data-parallel gradient reduction — "full" (f32 sums) or
+    "fp8_ef" (the e5m2 error-feedback all-reduce of
+    `distributed.grad_compress`, the residual riding the train state).
+    wire_zero_gather: the ZeRO-1 weight all-gather leg, "full" or "fp8"
+    (e4m3 payloads). wire_axis: the mesh dim the compressed reduction runs
+    over; None takes the slowest data-parallel link present ('pod' if the
+    mesh has it, else 'data')."""
+    dp: bool = True
+    zero1: bool = True
+    tp: bool = True
+    wire: str = "full"
+    wire_zero_gather: str = "full"
+    wire_axis: Optional[str] = None
+
+    def __post_init__(self):
+        if self.wire not in ("full", "fp8_ef"):
+            raise ValueError(f"unknown wire format {self.wire!r}")
+        if self.wire_zero_gather not in ("full", "fp8"):
+            raise ValueError(
+                f"unknown zero-gather format {self.wire_zero_gather!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class PrecisionPolicy:
     """Model-level policy: where FP8 applies and master-weight precision."""
     quant: QuantConfig = PAPER_FP8
+    dist: DistConfig = DistConfig()
     quantize_embedding: bool = False
     quantize_logits_head: bool = False
     master_weight_dtype: str = "float16"

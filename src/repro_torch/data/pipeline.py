@@ -110,3 +110,14 @@ def synthetic_image_batches(*, batch_size: int = 64, image_size: int = 32,
         eps = rng.standard_normal(base.shape).astype(np.float32) * noise
         yield {"image": base + eps, "label": labels}
         step += 1
+
+
+def host_shard(batch: Dict[str, np.ndarray], host_id: int,
+               n_hosts: int) -> Dict[str, np.ndarray]:
+    """This rank's slice of the global batch: rows [host_id * per,
+    (host_id + 1) * per) of every entry, per = rows // n_hosts (the
+    reference's pure slice)."""
+    def slc(x):
+        per = x.shape[0] // n_hosts
+        return x[host_id * per:(host_id + 1) * per]
+    return {k: slc(v) for k, v in batch.items()}

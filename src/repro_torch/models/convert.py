@@ -15,6 +15,11 @@ pass through (an RG-LRU layer's `rglru` leaves among them), as do
 subtree (`router` (D, E) and the expert stacks `w_gate` / `w_up` (E, D, F)
 and `w_down` (E, F, D), their shapes checked against the config). Nothing
 is padded: the embedding already has `padded_vocab_size` rows.
+
+The data-parallel wire's residual has two layouts, the reference's one
+tree stacked over the wire's ranks and the port's one tree a rank:
+`stack_wire_error`, `unstack_wire_error` and `wire_error_from_jax` convert
+(the checkpoint stores the stacked one).
 """
 from __future__ import annotations
 
@@ -88,3 +93,50 @@ def from_jax_params(tree, cfg: ModelConfig, device=None):
         raise ValueError(f"embedding {emb.shape} does not match the config "
                          f"({cfg.padded_vocab_size}, {cfg.d_model})")
     return _to_torch(tree, dev)
+
+
+# ---------------------------------------------------------------------------
+# The error-feedback residual's two layouts. The reference holds the wire's
+# N ranks' residuals in one tree, each leaf stacked on a leading (N,) axis
+# (its "stacked contract"); each rank of the port holds its own residual,
+# a tree of f32 tensors like the master weights.
+# ---------------------------------------------------------------------------
+
+def stack_wire_error(residuals):
+    """[rank 0's residual, rank 1's, ...] -> one tree whose leaves carry
+    the ranks on a leading axis (the reference's layout, which the
+    checkpoint stores)."""
+    first = residuals[0]
+    if isinstance(first, dict):
+        return {k: stack_wire_error([r[k] for r in residuals])
+                for k in first}
+    return torch.stack(list(residuals))
+
+
+def unstack_wire_error(stacked, index: int):
+    """Rank `index`'s residual out of the stacked layout (a view)."""
+    if isinstance(stacked, dict):
+        return {k: unstack_wire_error(v, index) for k, v in stacked.items()}
+    return stacked[index]
+
+
+def wire_error_from_jax(stacked, cfg: ModelConfig, device=None):
+    """The reference's stacked residual (numpy leaves, its parameter tree's
+    layout) -> the port's per-rank residuals, a list in rank order."""
+    n = int(np.shape(next(_np_leaves(stacked)))[0])
+    return [from_jax_params(_np_slice(stacked, i), cfg, device=device)
+            for i in range(n)]
+
+
+def _np_slice(tree, i):
+    if isinstance(tree, dict):
+        return {k: _np_slice(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _np_leaves(v)
+    else:
+        yield tree

@@ -415,7 +415,8 @@ def _chunked_ce(params, h, labels, mask, *, cfg: ModelConfig,
 
 def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
             qgen: Optional[torch.Generator] = None,
-            loss_scale: Optional[torch.Tensor] = None):
+            loss_scale: Optional[torch.Tensor] = None,
+            loss_denom: Optional[torch.Tensor] = None):
     """Causal-LM (or seq2seq) cross-entropy plus the layers' aux losses.
     batch: {"tokens", "labels"} (B, S) int and an optional "loss_mask"
     (B, S), tensors on the params' device or numpy; an encoder-decoder's
@@ -428,7 +429,11 @@ def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
     entry (the mixture-of-experts' lb_loss, router_z_loss and
     dropped_frac, as the reference adds every aux entry that is not an
     observation). With `loss_scale` (a 0-d tensor) the loss is multiplied
-    by it (scale before backprop, unscale in the optimizer)."""
+    by it (scale before backprop, unscale in the optimizer). `loss_denom`
+    (a 0-d f32 tensor) replaces the batch's own max(mask sum, 1) as the
+    nll's divisor: a data-parallel rank's shard divides by the global
+    batch's count, as the reference's one program over the global batch
+    does."""
     cfg.check_ported()
     enc_out = encode(params, batch["enc_inputs"], cfg=cfg, qgen=qgen) \
         if cfg.is_encoder_decoder else None
@@ -453,7 +458,8 @@ def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,
                           states=None, positions=None, page=None, qgen=qgen,
                           enc_out=enc_out, extra_embeds=extra)
     h = rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(mask.sum(), 1.0) if loss_denom is None \
+        else loss_denom
     nll_sum = _chunked_ce(params, h, labels, mask, cfg=cfg,
                           head_cfg=head_cfg,
                           chunk=min(h.shape[1], cfg.attn_chunk_size))

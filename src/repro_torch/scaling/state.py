@@ -10,7 +10,7 @@ scales by value.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -139,10 +139,13 @@ class DelayedScaling:
         return scale_ctx.activate(
             scale_ctx.collect_context(self.scales_dict(state)))
 
-    def update(self, state: ScaleState,
-               observed: Mapping[str, float]) -> ScaleState:
+    def update(self, state: ScaleState, observed: Mapping[str, float], *,
+               sync: Optional[Callable] = None) -> ScaleState:
         """Fold one step of observations into history and re-derive scales
-        (sites not observed carry their newest history value forward)."""
+        (sites not observed carry their newest history value forward).
+        sync: an optional cross-replica reduction of the dense observation
+        vector (`distributed.amax_sync.make_amax_sync(group)`): one MAX
+        over the replicas for every site, not one collective per site."""
         obs = state.amax_history[:, 0].copy()
         seen = np.zeros((len(self.registry),), bool)
         for k, v in observed.items():
@@ -150,6 +153,8 @@ class DelayedScaling:
             if i is not None:
                 obs[i] = np.float32(v)
                 seen[i] = True
+        if sync is not None:
+            obs = np.asarray(sync(obs), np.float32)
         fmax = self.registry.fmt_max_vector(self.qcfg)
         cap = state.scale * fmax
         growth = np.float32(self.config.growth)

@@ -20,8 +20,22 @@
 
 The step is `train.step.make_train_step` on `device` (CUDA unless the
 caller asks for the CPU). With `scaling` (a DelayedScaling) its ScaleState
-is checkpointed beside the optimizer state. `plan=` / `amax_sync=` are not
-ported and raise.
+is checkpointed beside the optimizer state.
+
+Data parallelism (`plan`, a `distributed.strategy.ParallelPlan`; the loop
+runs on every rank of its mesh): each rank takes its slice of every global
+batch (`data.pipeline.host_shard` at `plan.dp_rank`). When the plan
+compresses (wire "fp8_ef") the error-feedback residual rides the step like
+ScaleState: checkpointed under "wire_error" in the reference's layout (the
+wire's ranks stacked on a leading axis, gathered for the save; each rank
+restores its own slot), returned by `run()`, and timed by a sampled
+`allreduce` span (the wire collective on the residual, every `log_every`
+steps). Records carry the modeled `comm/*` bytes of `plan.wire_bytes` and
+the bytes `distributed.comm` counted in the step (`comm/sent_payload_bytes`,
+`comm/sent_reduce_bytes`, `comm/staged_bytes`). Rank 0 alone writes the
+checkpoint and the metrics file; the ranks meet at a barrier after the
+last save, and a preemption signal that reaches any rank stops them all
+after the same step.
 """
 from __future__ import annotations
 
@@ -34,15 +48,20 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.master_weights import MixedPrecisionOptimizer
+from repro_torch.data.pipeline import host_shard
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import stack_wire_error, unstack_wire_error
 from repro_torch.models.transformer import init_lm
 from repro_torch.obs.health import HealthConfig, HealthMonitor
 from repro_torch.obs.metrics import MetricsLogger, jsonable
 from repro_torch.obs.trace import Tracer
+from repro_torch.optim.optimizers import tmap
 from repro_torch.scaling.state import DelayedScaling
 from repro_torch.train.step import make_train_step
 
@@ -50,6 +69,8 @@ from repro_torch.train.step import make_train_step
 @dataclasses.dataclass
 class LoopConfig:
     total_steps: int = 100
+    # Steps between checkpoints (and one at the end and on preemption);
+    # 0 turns checkpointing off.
     checkpoint_every: int = 50
     checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
                                        "repro_torch_ckpt")
@@ -79,13 +100,11 @@ class TrainLoop:
                  health: Optional[HealthConfig] = None,
                  scaling: Optional[DelayedScaling] = None,
                  amax_sync=None, plan=None, device=None):
-        """data: an iterator of batches, or a callable data(start_step)
-        returning one that starts at that step. on_metrics(step, record):
-        every serialized record (health_events included)."""
-        if plan is not None or amax_sync is not None:
-            raise NotImplementedError(
-                "TrainLoop: a ParallelPlan and cross-replica amax sync are "
-                "not ported yet (ROADMAP.md, queue 1)")
+        """data: an iterator of global batches, or a callable
+        data(start_step) returning one that starts at that step.
+        on_metrics(step, record): every serialized record (health_events
+        included). plan / amax_sync: as make_train_step takes them (module
+        docstring)."""
         self.cfg = cfg
         self.optimizer = optimizer
         self.data = data
@@ -94,13 +113,24 @@ class TrainLoop:
         self.on_straggler = on_straggler
         self.on_metrics = on_metrics
         self.scaling = scaling
+        self.plan = plan
         self.device = resolve_device(device)
+        # Built first: it refuses what the plan asks that is not ported.
+        self._step_fn = make_train_step(
+            cfg, optimizer, n_microbatches=loop.n_microbatches,
+            scaling=scaling, amax_sync=amax_sync, plan=plan,
+            device=self.device)
+        self.wire = plan is not None and plan.compresses
+        self.shard = plan is not None and plan.dp is not None \
+            and plan.dp_size > 1
+        self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
         self.ckpt = Checkpointer(loop.checkpoint_dir,
                                  keep_last_k=loop.keep_last_k)
         self._stop = False
-        self._step_fn = make_train_step(
-            cfg, optimizer, n_microbatches=loop.n_microbatches,
-            scaling=scaling, device=self.device)
+        # The wire collective alone, timed every log_every steps on the
+        # (gradient-shaped) residual under the `allreduce` span.
+        self._wire_probe = plan.dp_allreduce() if self.wire else None
+        self._comm: Dict[str, float] = {}
         self.tracer = Tracer(loop.trace_path)
         self.monitor = HealthMonitor(
             health,
@@ -119,6 +149,8 @@ class TrainLoop:
         if self.scaling is not None:
             # Row order of the dense health/amax_sites vector.
             meta["sites"] = list(self.scaling.registry.keys)
+        if self.plan is not None:
+            meta["dist"] = self.plan.describe()
         return meta
 
     def install_signal_handlers(self):
@@ -129,18 +161,40 @@ class TrainLoop:
         signal.signal(signal.SIGTERM, handler)
         signal.signal(signal.SIGINT, handler)
 
-    def _pack(self, state, scale_state):
-        if self.scaling is None:
+    def _pack(self, state, scale_state, err=None):
+        """The checkpoint's tree; `err` is the residual in the stacked
+        layout."""
+        if self.scaling is None and not self.wire:
             return state
-        return {"train": state, "amax_scales": scale_state}
+        tree = {"train": state}
+        if self.scaling is not None:
+            tree["amax_scales"] = scale_state
+        if self.wire:
+            tree["wire_error"] = err
+        return tree
 
     def _unpack(self, tree):
-        if self.scaling is None:
-            return tree, None
-        return tree["train"], tree["amax_scales"]
+        if self.scaling is None and not self.wire:
+            return tree, None, None
+        return (tree["train"], tree.get("amax_scales"),
+                tree.get("wire_error"))
+
+    def _stacked_error(self, err):
+        """Every wire rank's residual, stacked (one all-gather a leaf over
+        the wire group; each rank takes part, rank 0 saves)."""
+        group = self.plan.group(self.plan.wire_axis)
+        return tmap(lambda e: comm.all_gather(e, group), err)
+
+    def _save(self, step, state, scale_state, err, extra):
+        stacked = self._stacked_error(err) if self.wire else None
+        if self.rank0:
+            self.ckpt.save(step, self._pack(state, scale_state, stacked),
+                           extra=extra)
+        del stacked
 
     def run(self) -> Dict[str, Any]:
-        with MetricsLogger(self.loop.metrics_path, meta=self._logger_meta(),
+        path = self.loop.metrics_path if self.rank0 else None
+        with MetricsLogger(path, meta=self._logger_meta(),
                            window=self.loop.metrics_window) as logger:
             try:
                 return self._run(logger)
@@ -152,13 +206,26 @@ class TrainLoop:
         state = self.optimizer.init(init_lm(self.cfg, seed=self.seed,
                                             device=dev))
         scale_state = self.scaling.init() if self.scaling else None
+        err = self.plan.init_wire_state(state.master) if self.wire else None
+        if self.wire:
+            self._comm = {f"comm/{k}": v for k, v in
+                          self.plan.wire_bytes(state.master).items()
+                          if isinstance(v, (int, float))}
         start_step = 0
         ema = None
         stragglers = 0
         if self.ckpt.latest_step() is not None:
+            stacked = stack_wire_error([err] * self.plan.n_wire) \
+                if self.wire else None
             tree, start_step = self.ckpt.restore(
-                self._pack(state, scale_state))
-            state, scale_state = self._unpack(tree)
+                self._pack(state, scale_state, stacked))
+            state, scale_state, stacked = self._unpack(tree)
+            if self.wire:
+                # This rank's slot of the stacked residual, in its own
+                # tensors.
+                tmap(lambda e, s: e.copy_(s), err,
+                      unstack_wire_error(stacked, self.plan.wire_rank))
+                del stacked
             extra = self.ckpt.manifest(start_step).get("extra", {}) or {}
             ema = extra.get("straggler_ema")
             stragglers = int(extra.get("stragglers", 0))
@@ -179,10 +246,20 @@ class TrainLoop:
             t0 = time.time()
             with self.tracer.span("data_wait", step=step):
                 batch = next(self.data)
+                if self.shard:
+                    batch = host_shard(batch, self.plan.dp_rank,
+                                       self.plan.dp_size)
             gen = torch.Generator(device=dev).manual_seed(
                 step_seed(self.seed, step))
+            sent0 = comm.counts()
             with self.tracer.span("step_dispatch", step=step):
-                if self.scaling is None:
+                if self.wire and self.scaling is None:
+                    (state, err), metrics = self._step_fn(
+                        state, err, batch, gen)
+                elif self.wire:
+                    (state, scale_state, err), metrics = self._step_fn(
+                        state, scale_state, err, batch, gen)
+                elif self.scaling is None:
                     state, metrics = self._step_fn(state, batch, gen)
                 else:
                     (state, scale_state), metrics = self._step_fn(
@@ -190,6 +267,25 @@ class TrainLoop:
             with self.tracer.span("device_sync", step=step):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
+            counted = _count_delta(sent0, comm.counts()) if self.shard \
+                else {}
+            if self.wire and step % self.loop.log_every == 0:
+                # Sampled wire-collective timing: the residual is exactly
+                # gradient-shaped, so reducing it runs the real collective
+                # (its result discarded, the residual untouched).
+                with self.tracer.span("allreduce", step=step):
+                    self._wire_probe(err, err)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            # One reading of the stop flag decides this step's save and
+            # stop. A signal may reach the ranks at different steps: under
+            # a plan they stop together, after the first step at whose
+            # reading any of them had seen it.
+            stop = self._stop
+            if self.plan is not None and dist.is_initialized():
+                flag = torch.full((1,), float(stop), device=dev)
+                stop = bool(comm.all_reduce(flag, "max",
+                                            dist.group.WORLD)[0])
             dt = time.time() - t0
             # Straggler detection (the first step of a run is a warm-up).
             if step > start_step:
@@ -204,19 +300,20 @@ class TrainLoop:
                     + (1 - self.loop.straggler_ema) * dt
 
             done = step + 1 >= self.loop.total_steps
-            save = self._stop or done or \
-                (step + 1) % self.loop.checkpoint_every == 0
+            every = self.loop.checkpoint_every
+            save = every > 0 and (stop or done or (step + 1) % every == 0)
             if save:
                 with self.tracer.span("checkpoint", step=step):
-                    self.ckpt.save(step + 1, self._pack(state, scale_state),
-                                   extra={"straggler_ema": ema,
-                                          "stragglers": stragglers})
+                    self._save(step + 1, state, scale_state, err,
+                               extra={"straggler_ema": ema,
+                                      "stragglers": stragglers})
 
             # Serialize first, then let the detectors see the exact record,
             # so events land on the record whose metrics triggered them.
             record = {k: jsonable(v) for k, v in metrics.items()}
             record.update(step=step, step_time_s=round(dt, 4),
-                          stragglers=stragglers, **self.tracer.durations())
+                          stragglers=stragglers, **self._comm, **counted,
+                          **self.tracer.durations())
             events = self.monitor.observe(step, record)
             if events:
                 record["health_events"] = events
@@ -232,10 +329,23 @@ class TrainLoop:
                 scale = f"{scale:.0f}" if isinstance(scale, float) else scale
                 print(f"[train] step {step} loss={loss} scale={scale} "
                       f"t={dt:.3f}s")
-            if self._stop and save:
-                print(f"[train] preempted: checkpointed at {step + 1}")
+            if stop:
+                print(f"[train] preempted: "
+                      f"{'checkpointed' if save else 'stopped'} at {step + 1}")
                 break
         self.ckpt.wait()
+        if dist.is_initialized() and self.plan is not None:
+            # No rank reads the directory before rank 0's last write ends.
+            dist.barrier()
         return {"state": state, "scale_state": scale_state,
-                "last_step": step + 1, "metrics": last_metrics,
-                "stragglers": stragglers}
+                "wire_error": err, "last_step": step + 1,
+                "metrics": last_metrics, "stragglers": stragglers}
+
+
+def _count_delta(before: Dict, after: Dict) -> Dict[str, float]:
+    """The bytes `distributed.comm` counted between two readings, as
+    comm/* record entries."""
+    out = {f"comm/sent_{k}_bytes": v - before["sent_bytes"].get(k, 0)
+           for k, v in after["sent_bytes"].items()}
+    out["comm/staged_bytes"] = after["staged_bytes"] - before["staged_bytes"]
+    return out

@@ -10,13 +10,15 @@ paper's recipe at unit scales) or, given a DelayedScaling, its
     step's generator) -> overflow probe -> unscale in f32 -> Adam in f32
     -> fp16 master store -> loss-scale update [-> delayed-scaling update]
 
-on one device. Under delayed scaling, forward amaxes and the backward's
-error / gradient amaxes are recorded by the call sites into the step's
-scaling context, and with `track_health` the precision-health pairs beside
-them. Either way the step's loss, grad norm and overflow flag (and those
-observations) reach the host in ONE device->host read; with scaling the
-host then updates ScaleState (numpy f32, the reference's arithmetic) for
-the next step.
+on one device, or on each rank of a data-parallel `ParallelPlan` (the
+gradients reduced over the ranks in f32 or through the e5m2
+error-feedback wire; `make_train_step`'s docstring). Under delayed
+scaling, forward amaxes and the backward's error / gradient amaxes are
+recorded by the call sites into the step's scaling context, and with
+`track_health` the precision-health pairs beside them. Either way the
+step's loss, grad norm and overflow flag (and those observations) reach
+the host in ONE device->host read; with scaling the host then updates
+ScaleState (numpy f32, the reference's arithmetic) for the next step.
 
 Gradient accumulation (`n_microbatches` > 1, the reference's scan): the
 batch splits on its leading axis; each microbatch runs its forward and
@@ -39,6 +41,7 @@ from repro_torch.core.loss_scale import LossScaler
 from repro_torch.core.master_weights import (MixedPrecisionOptimizer,
                                              MixedPrecisionState)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import encode, forward, lm_loss
 from repro_torch.optim.optimizers import (make_leafwise, make_optimizer,
@@ -65,10 +68,29 @@ def make_optimizer_for(cfg: ModelConfig, *, name: str = "adam",
         accum_names=names, leaf_update=leaf)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the training step yet (ROADMAP.md, "
-        "queue 1)")
+def _refuse_slice_10b(plan):
+    """The plan's parts that belong to the next slice (ZeRO-1, tensor
+    parallelism, the fp8 ZeRO gather) raise."""
+    what = [w for w, on in (("ZeRO-1 sharding", plan.zero1 is not None),
+                            ("tensor parallelism", plan.tp is not None),
+                            ("an fp8 ZeRO gather (wire_zero_gather='fp8')",
+                             plan.dist.wire_zero_gather == "fp8")) if on]
+    if what:
+        raise NotImplementedError(
+            f"{', '.join(what)} is not ported to the training step yet "
+            "(ROADMAP.md, queue 1, slice 10b); build the plan with "
+            "DistConfig(zero1=False, tp=False, wire_zero_gather='full')")
+
+
+def _combine(gathered: torch.Tensor, op: str) -> torch.Tensor:
+    """(n, L) rows of the ranks -> (L,): "max", or "sum" / "mean" added in
+    rank order."""
+    if op == "max":
+        return gathered.amax(dim=0)
+    acc = gathered[0]
+    for i in range(1, gathered.shape[0]):
+        acc = acc + gathered[i]
+    return acc / gathered.shape[0] if op == "mean" else acc
 
 
 def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
@@ -93,23 +115,81 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     `health/<site key>` metrics, (2,) [sat_frac, flush_frac] arrays, and
     `scaling.qcfg.track_health` `health/scale_churn` (the share of sites
     whose scale moved) and `health/amax_sites` (the newest amax of every
-    site, in registry order).
+    site, in registry order). `amax_sync` (`distributed.amax_sync.
+    make_amax_sync(group)`) reduces the step's dense observation vector
+    across replicas before the ScaleState update.
 
     With `cfg.remat` (and scanned layers) each layer is recomputed in the
     backward, as in the reference (`models.remat`): the step's results are
     those without recomputation, bit for bit.
 
+    plan: a data-parallel `distributed.strategy.ParallelPlan`, the step
+    running on every rank of its mesh, each with its own shard of the
+    global batch (`data.pipeline.host_shard(batch, plan.dp_rank,
+    plan.dp_size)`) and the same generator seed. Two paths, as in the
+    reference:
+      * wire "full" (and a plan that does not compress): the reference's
+        one program over the global batch. The nll divides by the global
+        mask count (an all-reduce before the loss), the gradients are
+        summed in f32 over the dp ranks, the loss and nll summed. Each
+        rank's wgrad Q node quantizes and observes its shard's partial
+        gradient, where the reference's program quantizes the global sum
+        (ROADMAP.md, queue 3).
+      * plan.compresses (wire "fp8_ef" over a wire dim of more than one
+        rank): each rank's loss is its shard's own mean; the gradients
+        are averaged in f32 over the inner dp dims, then through the e5m2
+        error-feedback all-reduce over the wire dim, and the loss and nll
+        averaged. The step then takes and returns this rank's residual:
+        train_step(state, [scale_state,] err, batch, generator) ->
+        ((state, [scale_state,] err), metrics), err from
+        plan.init_wire_state(state.master). amax_sync is ignored there:
+        the observations are combined across the ranks already.
+    Under either, the forward and backward amaxes are MAX-combined over
+    the dp ranks and the health pairs averaged (the wire path keeps the
+    reference's MAX for the forward pairs), all in ONE all-gather of the
+    step's dense vector before its one device->host read. Every rank
+    applies the same reduced gradients, so master weights, optimizer and
+    loss-scale state and ScaleState stay equal across ranks, bit for bit,
+    and a non-finite gradient skips the step on every rank. Refused
+    (NotImplementedError): ZeRO-1, tensor parallelism and an fp8 ZeRO
+    gather (slice 10b), and a mixture-of-experts model under "full",
+    whose capacity dispatch and aux losses the reference computes over
+    the global batch (ROADMAP.md, queue 1).
+
     The master weights and optimizer state are updated in place (see
-    core.master_weights). Not ported (each raises): a ParallelPlan / fp8
-    wire, amax_sync."""
+    core.master_weights)."""
     dev = resolve_device(device)
     if n_microbatches < 1:
         raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
-    if plan is not None:
-        raise _not_ported("a ParallelPlan / fp8-on-the-wire collective")
-    if amax_sync is not None:
-        raise _not_ported("cross-replica amax sync")
     cfg.check_ported()
+    if plan is not None:
+        _refuse_slice_10b(plan)
+    wire = plan is not None and plan.compresses
+    spmd = False
+    if plan is not None:
+        spmd = not wire and plan.dp is not None and plan.dp_size > 1
+        if spmd and cfg.n_experts:
+            raise NotImplementedError(
+                "a mixture-of-experts model under wire='full': the "
+                "reference dispatches experts and computes the aux losses "
+                "over the global batch, which the ranks' shards do not "
+                "(ROADMAP.md, queue 1); use wire='fp8_ef', whose reference "
+                "is per rank")
+    if wire:
+        amax_sync = None
+    dp_group = plan.dp_group() if (wire or spmd) else None
+    wire_reduce = plan.dp_allreduce() if wire else None
+    inner = [(plan.group(a), comm.group_size(plan.group(a)))
+             for a in plan.inner_dp_axes] if wire else []
+
+    def global_denom(mb):
+        """The global batch's max(mask count, 1) for this rank's shard."""
+        mask = mb.get("loss_mask")
+        local = torch.as_tensor(mask, dtype=torch.float32).to(dev).sum() \
+            if mask is not None else torch.full(
+                (), float(np.prod(np.shape(mb["labels"]))), device=dev)
+        return torch.clamp_min(
+            comm.all_reduce(local.reshape(1), "sum", dp_group)[0], 1.0)
 
     def grads_of(params, batch, generator, scale, collect):
         """The loss pass of one step: (scaled loss, its metrics (nll and
@@ -118,9 +198,10 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         metrics' means, the contexts combined. `collect` makes a fresh
         scaling context's manager (None without scaling)."""
         def pass_(mb):
+            denom = global_denom(mb) if spmd else None
             with (collect() if collect else contextlib.nullcontext()) as ctx:
                 loss, mets = lm_loss(params, mb, cfg=cfg, qgen=generator,
-                                     loss_scale=scale)
+                                     loss_scale=scale, loss_denom=denom)
                 loss.backward()
             return loss.detach(), mets, ctx
 
@@ -145,11 +226,38 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
                 for k in metses[0]}
         return torch.stack(losses).mean(), mets, acc, ctx
 
+    def reduce_grads(grads, err):
+        """The dp reduction of the step's gradients: (reduced, new err)."""
+        with torch.no_grad():
+            if spmd:
+                return tmap(lambda g: comm.all_reduce(g.float(), "sum",
+                                                      dp_group), grads), err
+            g32 = tmap(lambda g: g.float(), grads)
+            for grp, n in inner:
+                g32 = tmap(lambda g: comm.all_reduce(g, "sum", grp) / n, g32)
+            return wire_reduce(g32, err)
+
+    def combine_ranks(local, pending, ctx):
+        """The ranks' step scalars (loss, nll, aux: summed under "full",
+        averaged under the wire) and the context's pending observations
+        (amaxes by MAX; health pairs averaged, the wire's forward pairs by
+        MAX), in one all-gather. Returns (scalars, observations)."""
+        vec = torch.cat([v.float().reshape(-1) for v in local] + pending)
+        rows = comm.all_gather(vec, dp_group)
+        n_amax = len(ctx.collected) + len(ctx.collected_bwd) if ctx else 0
+        n_fwd_health = 2 * len(ctx.health) if ctx else 0
+        cuts = np.cumsum([len(local), n_amax, n_fwd_health])
+        parts = [_combine(rows[:, :cuts[0]], "sum" if spmd else "mean"),
+                 _combine(rows[:, cuts[0]:cuts[1]], "max"),
+                 _combine(rows[:, cuts[1]:cuts[2]], "max" if wire else "mean"),
+                 _combine(rows[:, cuts[2]:], "mean")]
+        return parts[0], torch.cat(parts[1:])
+
     def run(state: MixedPrecisionState, batch: Dict,
-            generator: torch.Generator, collect):
+            generator: torch.Generator, collect, err=None):
         """One step; `collect` makes a fresh scaling context's manager
         (None without scaling). Returns (new state, metrics, the context's
-        observations, its health pairs)."""
+        observations, its health pairs, the new residual)."""
         if state.loss_scale.scale.device.type != dev.type:
             raise ValueError(f"train state on {state.loss_scale.scale.device}"
                              f", step built for {dev}")
@@ -158,17 +266,24 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         loss, mets, grads, ctx = grads_of(params, batch, generator,
                                           state.loss_scale.scale, collect)
         del params
+        if dp_group is not None:
+            grads, err = reduce_grads(grads, err)
         new_state, opt_m = optimizer.apply_gradients(state, grads)
         inv = optimizer.scaler.inverse(state.loss_scale)
         sq = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
         aux_names = [k for k in mets if k != "nll"]
-        step_vals = [loss * inv, mets["nll"], torch.sqrt(sq) * inv,
+        local = [loss, mets["nll"]] + [mets[k] for k in aux_names]
+        pending = ctx.pending() if ctx is not None else []
+        if dp_group is not None:
+            scalars, obs_vec = combine_ranks(local, pending, ctx)
+            local = list(scalars)
+            pending = [obs_vec]
+        step_vals = [local[0] * inv, local[1], torch.sqrt(sq) * inv,
                      opt_m["loss_scale"], opt_m["grads_finite"],
-                     opt_m["overflow_count"]] + [mets[k] for k in aux_names]
+                     opt_m["overflow_count"]] + local[2:]
         n = len(step_vals)
         # The step's one device->host read: its scalars and every
         # observation of the scaling context (amaxes and health pairs).
-        pending = ctx.pending() if ctx is not None else []
         host = torch.cat([v.float().reshape(-1) for v in step_vals]
                          + pending).cpu().numpy()
         metrics = {k: float(v) for k, v in zip(
@@ -176,24 +291,15 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
              "overflow_count"] + aux_names, host[:n])}
         metrics["grads_finite"] = bool(metrics["grads_finite"])
         if ctx is None:
-            return new_state, metrics, {}, {}
+            return new_state, metrics, {}, {}, err
         return (new_state, metrics, ctx.observations(host[n:]),
-                ctx.health_observations(host[n:]))
+                ctx.health_observations(host[n:]), err)
 
-    if scaling is None:
-        def train_step(state: MixedPrecisionState, batch: Dict,
-                       generator: torch.Generator):
-            new_state, metrics, _, _ = run(state, batch, generator, None)
-            return new_state, metrics
-
-        return train_step
-
-    def train_step_scaled(state: MixedPrecisionState,
-                          scale_state: ScaleState, batch: Dict,
-                          generator: torch.Generator):
-        new_state, metrics, obs, health = run(
-            state, batch, generator, lambda: scaling.collect(scale_state))
-        new_scale_state = scaling.update(scale_state, obs)
+    def scaled(state, scale_state, batch, generator, err=None):
+        new_state, metrics, obs, health, err = run(
+            state, batch, generator, lambda: scaling.collect(scale_state),
+            err)
+        new_scale_state = scaling.update(scale_state, obs, sync=amax_sync)
         metrics.update(health)
         if scaling.qcfg.track_health:
             moved = np.count_nonzero(scale_state.scale
@@ -202,9 +308,43 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
                 np.float32(moved) / np.float32(scale_state.scale.size))
             metrics["health/amax_sites"] = \
                 new_scale_state.amax_history[:, 0].copy()
-        return (new_state, new_scale_state), metrics
+        return new_state, new_scale_state, metrics, err
 
-    return train_step_scaled
+    if scaling is None and not wire:
+        def train_step(state: MixedPrecisionState, batch: Dict,
+                       generator: torch.Generator):
+            new_state, metrics, _, _, _ = run(state, batch, generator, None)
+            return new_state, metrics
+
+        return train_step
+
+    if scaling is None:
+        def train_step_wire(state: MixedPrecisionState, err, batch: Dict,
+                            generator: torch.Generator):
+            new_state, metrics, _, _, err = run(state, batch, generator,
+                                                None, err)
+            return (new_state, err), metrics
+
+        return train_step_wire
+
+    if not wire:
+        def train_step_scaled(state: MixedPrecisionState,
+                              scale_state: ScaleState, batch: Dict,
+                              generator: torch.Generator):
+            new_state, new_ss, metrics, _ = scaled(state, scale_state, batch,
+                                                   generator)
+            return (new_state, new_ss), metrics
+
+        return train_step_scaled
+
+    def train_step_wire_scaled(state: MixedPrecisionState,
+                               scale_state: ScaleState, err, batch: Dict,
+                               generator: torch.Generator):
+        new_state, new_ss, metrics, err = scaled(state, scale_state, batch,
+                                                 generator, err)
+        return (new_state, new_ss, err), metrics
+
+    return train_step_wire_scaled
 
 
 def split_batch(batch: Dict, n: int):

@@ -57,6 +57,16 @@ CASES = [(mask, group, recipe, rounding)
          for recipe in RECIPES for rounding in ("rne", "sr")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _id(case):
     return "-".join(str(c) for c in case)
 

@@ -21,6 +21,16 @@ from repro_torch.kernels.fp8_attention import ref
 LANE, BQ, WR = ops.LANE, ops.FWD_BQ, ops.FWD_WARP_ROWS
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_case(mode, seed):
     """(q_rows, s_len, window, kv_mask, chunk_pos) for B = 3 batch rows."""
     rng = np.random.default_rng(seed)

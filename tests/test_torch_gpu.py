@@ -26,6 +26,16 @@ from repro_torch.kernels.stochastic_round import ref as sr_ref
 FP8 = {"e4m3": (torch.float8_e4m3fn, 3), "e5m2": (torch.float8_e5m2, 2)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -753,3 +763,50 @@ def test_sr_kernels_match_plain(card, shape, dtype, fmt, saturate):
     assert torch.equal(canon(got6), canon(want6))
     assert torch.equal(canon(got7), canon(want7))
     assert torch.equal(canon(got_off), canon(want_off))
+
+
+@pytest.mark.gpu
+def test_two_rank_fp8_wire_step_on_the_card(card, tmp_path):
+    """The data-parallel launcher's fp8_ef step, two ranks on the card
+    over gloo (NCCL refuses two ranks on one device): each rank runs the
+    smoke qwen2's hybrid step through the kernels; afterwards the ranks'
+    master weights, optimizer and loss-scale state and ScaleState are
+    equal bit for bit, and the bytes comm counted for the step's
+    reduction are the ring model's fp8 figure plus each leaf's padding to
+    an even count, half of bf16's."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.launch.train import _leaves
+    from repro_torch.models.registry import build_config
+    from repro_torch.models.transformer import init_lm
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    report = tmp_path / "report"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "repro_torch.launch.train",
+           "--backend", "gloo", "--smoke", "--wire", "fp8_ef", "--steps",
+           "1", "--recipe", "hybrid", "--seq", "64", "--ckpt-dir",
+           str(tmp_path / "ckpt"), "--report", str(report)]
+    res = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    reps = [json.loads((report / f"rank{r}.json").read_text())
+            for r in range(2)]
+    for key in ("state_digest", "scale_state_digest"):
+        assert reps[0][key] == reps[1][key]
+    assert reps[0]["launches"]["fused_quant_matmul.nn"] > 0
+    shapes = [tuple(p.shape) for p in _leaves(init_lm(
+        build_config("qwen2-1.5b", smoke=True), device="cpu"))]
+    numel = sum(int(np.prod(s)) for s in shapes)
+    pad = sum(int(np.prod(s)) % 2 for s in shapes)
+    for rep in reps:
+        rec = rep["records"][0]
+        assert rec["comm/bytes_fp8_ef"] == numel
+        assert rec["comm/sent_payload_bytes"] == numel + pad
+        assert rec["comm/ratio_fp8_vs_bf16"] <= 0.55

@@ -1,15 +1,27 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports jax or any module of the reference package
-`repro` (checked on the syntax tree, so lazy imports count too)."""
+"""The port stands alone: no module of `repro_torch`, not
+`chip_smoke.py`, and not the distributed tests' rank worker imports jax
+or any module of the reference package `repro` (checked on the syntax
+tree, so lazy imports count too)."""
 import ast
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dp_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _imported_modules(path: Path):

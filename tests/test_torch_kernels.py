@@ -30,6 +30,16 @@ T_DT = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
 MAN = {"e4m3": 3, "e5m2": 2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fp8_np(shape, fmt, rng, exact: bool) -> np.ndarray:
     """fp8 values as float32. exact=True: exponents {0, 1} only (all sums
     below exact in f32); otherwise log-normal magnitudes."""

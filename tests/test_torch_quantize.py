@@ -29,6 +29,16 @@ jax.config.update("jax_platform_name", "cpu")
 FMTS = ("e4m3", "e5m2")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bits(x) -> np.ndarray:
     """uint8 patterns of an fp8 payload (jax array or torch tensor), with
     every NaN canonicalized (NaN payload bits carry no meaning)."""

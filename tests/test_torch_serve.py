@@ -55,6 +55,16 @@ PROMPTS = [np.array([3, 5, 7, 11, 13, 17, 19], np.int32),
            np.array([2, 4, 6], np.int32)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @contextlib.contextmanager
 def per_op_rounding():
     """Top-level jits created inside compile with per-op bf16 rounding."""
@@ -229,17 +239,26 @@ def test_from_jax_params_splits_scanned_stacks():
 
 def test_unported_archs_are_refused():
     """What stays unported is refused, naming ROADMAP.md: an arch outside
-    the registry, and make_train_step's amax_sync= and plan= (slice 10,
-    distribution)."""
+    the registry, and make_train_step's plan= with ZeRO-1 or tensor
+    parallelism (slice 10b). amax_sync= is ported (slice 10a)."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed.strategy import (DataParallel,
+                                                  ParallelPlan,
+                                                  TensorParallel,
+                                                  ZeRO1Sharded)
     with pytest.raises(ValueError, match="ROADMAP.md"):
         build_config("gpt-unknown-1b")
     cfg = build_config("qwen2-1.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_kv_heads) == (28, 1536, 2)
     small = build_config("qwen2-1.5b", smoke=True)
     opt = make_optimizer_for(small)
-    for kw in ({"amax_sync": object()}, {"plan": object()}):
+    make_train_step(small, opt, device="cpu", amax_sync=lambda v: v)
+    dp = DataParallel(("data",))
+    for plan in (ParallelPlan(None, DistConfig(), dp, ZeRO1Sharded(), None),
+                 ParallelPlan(None, DistConfig(zero1=False), dp, None,
+                              TensorParallel())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(small, opt, device="cpu", **kw)
+            make_train_step(small, opt, device="cpu", plan=plan)
 
 
 @pytest.mark.parametrize("k,p", [(5, 1.0), (0, 0.7), (8, 0.9)])

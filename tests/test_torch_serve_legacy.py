@@ -55,6 +55,16 @@ J_FP8 = {"e5m2": jnp.float8_e5m2, "e4m3": jnp.float8_e4m3fn}
 T_FP8 = {"e5m2": torch.float8_e5m2, "e4m3": torch.float8_e4m3fn}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _with_kv(cfg, fmt):
     return cfg.replace(policy=dataclasses.replace(cfg.policy,
                                                   kv_cache_format=fmt))

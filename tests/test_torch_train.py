@@ -50,6 +50,16 @@ MAN = {"e4m3": 3, "e5m2": 2}
 RNE = dict(act_rounding="rne", error_rounding="rne", grad_rounding="rne")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def cfgs(recipe):
     return (QuantConfig(recipe=recipe, scaling="delayed",
                         backend="pallas_interpret", **RNE),

@@ -238,17 +238,31 @@ def test_microbatches_accumulate_like_one_batch():
 
 
 def test_refusals_that_stay():
+    """A plan with ZeRO-1 or tensor parallelism (slice 10b) is refused by
+    the step and the loop, naming ROADMAP.md; amax_sync and data-parallel
+    plans are ported (tests/test_torch_distributed.py)."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed.strategy import (DataParallel,
+                                                  ParallelPlan,
+                                                  TensorParallel,
+                                                  ZeRO1Sharded)
     tcfg = port_cfg()
     opt = t_make_optimizer_for(tcfg)
-    for kw in (dict(plan=object()), dict(amax_sync=object())):
+    dp = DataParallel(("data",))
+    zero1 = ParallelPlan(None, DistConfig(), dp, ZeRO1Sharded(), None)
+    tp = ParallelPlan(None, DistConfig(zero1=False), dp, None,
+                      TensorParallel())
+    for plan in (zero1, tp):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_make_train_step(tcfg, opt, device="cpu", **kw)
+            t_make_train_step(tcfg, opt, device="cpu", plan=plan)
+    assert callable(t_make_train_step(tcfg, opt, device="cpu",
+                                      amax_sync=lambda v: v))
     # Recomputation no longer refuses (tests/test_torch_step_options.py
     # holds remat=True to remat=False bit for bit).
     assert callable(t_make_train_step(tcfg.replace(remat=True), opt,
                                       device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=object(),
+        TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=zero1,
                   device="cpu")
     with pytest.raises(ValueError, match="microbatches"):
         t_make_train_step(tcfg, opt, n_microbatches=3, device="cpu")(

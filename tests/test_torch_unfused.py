@@ -78,6 +78,16 @@ LOSS_REL = 1e-2
 BAND_FACTOR = 3.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jq_cfg(**kw):
     return QuantConfig(backend="pallas_interpret", **kw)
 

@@ -42,6 +42,16 @@ OUT = {"f32": (jnp.float32, torch.float32),
        "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one intra-op thread for this file (the suite runs
+    in several worker processes on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fp8_np(shape, fmt, rng, exact: bool) -> np.ndarray:
     sign = rng.choice([-1.0, 1.0], shape)
     if exact:

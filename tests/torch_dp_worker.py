@@ -1,0 +1,389 @@
+"""One rank of tests/test_torch_distributed.py's gloo process group.
+
+    python tests/torch_dp_worker.py RANK WORKDIR
+
+Reads WORKDIR/inputs.pkl (the reference's initial weights, the batches,
+the reduction fixtures; numpy only), runs every multi-rank case of the
+port on one intra-op thread, and writes WORKDIR/rank<RANK>.pkl. It imports
+torch and repro_torch, never jax: the file records whether jax was loaded.
+
+Three process groups, one after the other, all on FileStores in WORKDIR:
+ 1. a group of one (this rank alone): the plan on a (1,) mesh;
+ 2. the four ranks: the plans on a flat (4,) 'data' mesh and a (2, 2)
+    'pod' x 'data' mesh, the compressed reductions, the error-feedback
+    law, the training steps on both wires, amax_sync, the refusals;
+ 3. ranks 0 and 1: the TrainLoop's interrupted-and-resumed run.
+"""
+import datetime
+import os
+import pickle
+import sys
+import tempfile
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+WORLD = 4
+TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def npt(tree):
+    """A tree of tensors -> a tree of numpy arrays (bf16 / fp8 as f32)."""
+    if isinstance(tree, dict):
+        return {k: npt(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float8_e5m2,
+                       torch.float8_e4m3fn):
+            t = t.float()
+        return t.numpy().copy()
+    return tree
+
+
+def join(path, rank, world):
+    dist.init_process_group("gloo", store=dist.FileStore(path, world),
+                            rank=rank, world_size=world, timeout=TIMEOUT)
+
+
+def tiny_cfg(inp):
+    """The reference tests' tiny qwen2 (inputs' `cfg_kw`), hybrid delayed
+    scaling on the xla backend, every rounding RNE."""
+    import dataclasses
+
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.registry import build_config
+    cfg = build_config("qwen2-1.5b", smoke=True, **inp["cfg_kw"])
+    quant = QuantConfig(**inp["quant_kw"])
+    return cfg.replace(policy=dataclasses.replace(cfg.policy, quant=quant))
+
+
+DISTS = {
+    "default": {},
+    "fp8": {"wire": "fp8_ef"},
+    "fp8_dp_only": {"wire": "fp8_ef", "zero1": False, "tp": False},
+    "wire_axis_data": {"wire": "fp8_ef", "wire_axis": "data"},
+    "wire_axis_pod": {"wire": "fp8_ef", "wire_axis": "pod"},
+    "dp_off": {"dp": False, "zero1": False, "tp": False},
+}
+
+
+def plan_table(mesh, params):
+    """Each DISTS entry's plan on `mesh`: its bookkeeping and wire bytes,
+    or the error build raised."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed.strategy import ParallelPlan
+    out = {}
+    for name, kw in DISTS.items():
+        try:
+            plan = ParallelPlan.build(mesh, DistConfig(**kw))
+        except (ValueError, NotImplementedError) as e:
+            out[name] = ("error", type(e).__name__, str(e))
+            continue
+        out[name] = dict(describe=plan.describe(), wire_axis=plan.wire_axis,
+                         inner_dp_axes=plan.inner_dp_axes,
+                         n_wire=plan.n_wire, compresses=plan.compresses,
+                         wire_bytes=plan.wire_bytes(params))
+    return out
+
+
+def solo(rank, workdir, inp, out):
+    """This rank alone: the (1,) mesh's plans, the inert fp8 wire, and
+    host_amax_sync on one process."""
+    from repro_torch.distributed import host_amax_sync
+    from repro_torch.models.convert import from_jax_params
+    join(os.path.join(workdir, f"solo{rank}"), 0, 1)
+    params = from_jax_params(inp["params"], tiny_cfg(inp), device="cpu")
+    mesh = DeviceMesh("cpu", torch.tensor([0]), mesh_dim_names=("data",))
+    out["plans"] = {"1": plan_table(mesh, params)}
+    vec = np.array([1.0, 2.5, 0.0], np.float32)
+    out["host_amax_sync_solo"] = host_amax_sync(vec) is vec
+    dist.destroy_process_group()
+
+
+def reductions(rank, grid, flat, inp, out):
+    """The compressed reductions at N = 4 (flat) and N = 2 (the grid's
+    'pod' groups, each taking the slot of its pod coordinate); the
+    error-feedback law's runs; the counted payload bytes."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.grad_compress import compressed_psum_mean
+    pod = dict(zip(grid.mesh_dim_names, grid.get_coordinate()))["pod"]
+    res = {}
+    for n, group, slot in ((4, flat.get_group("data"), rank),
+                           (2, grid.get_group("pod"), pod)):
+        fix = inp["compress"][n]
+        tree = {k: torch.from_numpy(v[slot].copy()) for k, v in fix.items()}
+        comm.reset_counts()
+        red, err = compressed_psum_mean(tree, None, group=group)
+        sent = comm.counts()["sent_bytes"].get("payload", 0)
+        # A second step from the first's residual.
+        red2, err2 = compressed_psum_mean(tree, err, group=group)
+        res[n] = dict(red=npt(red), err=npt(err), red2=npt(red2),
+                      err2=npt(err2), payload_bytes=sent)
+    out["compress"] = res
+    ef = []
+    for g in inp["ef"]:
+        x = {"g": torch.from_numpy(g[rank].copy())}
+        grp = flat.get_group("data")
+        red1, _ = compressed_psum_mean(x, None, group=grp)
+        acc = torch.zeros_like(x["g"])
+        err = None
+        for _ in range(16):
+            red, err = compressed_psum_mean(x, err, group=grp)
+            acc = acc + red["g"]
+        ef.append((red1["g"].numpy().copy(), acc.numpy().copy()))
+    out["ef"] = ef
+
+
+def localmean_lm_loss(orig, n_ranks):
+    """The planted fault of the "full" path: each rank's nll divided by
+    its own mask count times N, so the ranks' sum is the mean of local
+    means (the wire path's normalization), not the global mean."""
+    def lm_loss(params, batch, *, loss_denom=None, **kw):
+        mask = torch.as_tensor(batch["loss_mask"], dtype=torch.float32)
+        local = torch.clamp_min(mask.sum(), 1.0) * n_ranks
+        return orig(params, batch, loss_denom=local, **kw)
+    return lm_loss
+
+
+def train_run(rank, mesh, wire, inp, fault=False):
+    """Three steps of the port's step under a plan on `mesh`, on this
+    rank's shard of the inputs' global batches. Returns per-step metrics,
+    the final state and ScaleState, and the residual (wire)."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.data.pipeline import host_shard
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train import step as step_mod
+    cfg = tiny_cfg(inp)
+    plan = ParallelPlan.build(mesh, DistConfig(wire=wire, zero1=False,
+                                               tp=False))
+    params = from_jax_params(inp["params"], cfg, device="cpu")
+    reg = discover_lm_sites(cfg, params, inp["probe"])
+    ds = DelayedScaling(reg, qcfg=cfg.policy.quant)
+    opt = step_mod.make_optimizer_for(cfg, learning_rate=1e-3)
+    state, ss = opt.init(params), ds.init()
+    err = plan.init_wire_state(state.master) if plan.compresses else None
+    orig = step_mod.lm_loss
+    if fault:
+        step_mod.lm_loss = localmean_lm_loss(orig, plan.dp_size)
+    try:
+        step = step_mod.make_train_step(cfg, opt, scaling=ds, plan=plan,
+                                        device="cpu")
+        mets, err0 = [], None
+        for i, b in enumerate(inp["batches"]):
+            local = host_shard(b, plan.dp_rank, plan.dp_size)
+            gen = torch.Generator().manual_seed(i)
+            if err is None:
+                (state, ss), m = step(state, ss, local, gen)
+            else:
+                (state, ss, err), m = step(state, ss, err, local, gen)
+                if i == 0:
+                    err0 = npt(err)
+            mets.append({k: v for k, v in m.items()
+                         if not k.startswith("health/")})
+    finally:
+        step_mod.lm_loss = orig
+    return dict(metrics=mets, master=npt(state.master),
+                opt=npt({k: v for k, v in state.opt_state.items()}),
+                loss_scale={f: npt(getattr(state.loss_scale, f))
+                            for f in ("scale", "growth_count", "step",
+                                      "overflow_count")},
+                amax_history=ss.amax_history.copy(), scale=ss.scale.copy(),
+                keys=list(reg.keys), err=npt(err) if err is not None
+                else None, err0=err0, dp_rank=plan.dp_rank)
+
+
+def amax_sync_runs(rank, flat, inp):
+    """One step without a plan, each rank on its own shard of batch 0,
+    with and without the amax_sync hook: the ScaleStates after it."""
+    from repro_torch.data.pipeline import host_shard
+    from repro_torch.distributed import make_amax_sync
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = tiny_cfg(inp)
+    local = host_shard(inp["batches"][0], rank, WORLD)
+    out = {}
+    for name, hook in (("synced", make_amax_sync(flat.get_group("data"))),
+                       ("plain", None)):
+        params = from_jax_params(inp["params"], cfg, device="cpu")
+        reg = discover_lm_sites(cfg, params, inp["probe"])
+        ds = DelayedScaling(reg, qcfg=cfg.policy.quant)
+        opt = make_optimizer_for(cfg, learning_rate=1e-3)
+        step = make_train_step(cfg, opt, scaling=ds, amax_sync=hook,
+                               device="cpu")
+        (_, ss), _ = step(opt.init(params), ds.init(), local,
+                          torch.Generator().manual_seed(0))
+        out[name] = (ss.amax_history.copy(), ss.scale.copy())
+    return out
+
+
+def refusals(flat, inp):
+    """The messages of what the step and the loop refuse."""
+    import dataclasses
+
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.registry import build_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = tiny_cfg(inp)
+    opt = make_optimizer_for(cfg)
+    tp_mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                         mesh_dim_names=("data", "model"))
+    cases = {
+        "zero1": (cfg, ParallelPlan.build(flat, DistConfig())),
+        "tp": (cfg, ParallelPlan.build(tp_mesh, DistConfig(zero1=False))),
+        "fp8_gather": (cfg, ParallelPlan.build(flat, DistConfig(
+            zero1=False, tp=False, wire_zero_gather="fp8"))),
+    }
+    moe = build_config("moonshot-v1-16b-a3b", smoke=True).replace(
+        n_layers=2, remat=False)
+    moe = moe.replace(policy=dataclasses.replace(
+        moe.policy, quant=dataclasses.replace(moe.policy.quant,
+                                              backend="xla")))
+    cases["moe_full"] = (moe, ParallelPlan.build(flat, DistConfig(
+        zero1=False, tp=False)))
+    out = {}
+    for name, (c, plan) in cases.items():
+        try:
+            make_train_step(c, make_optimizer_for(c), plan=plan,
+                            device="cpu")
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    try:
+        TrainLoop(cfg, opt, iter(()), LoopConfig(
+            checkpoint_dir=tempfile.mkdtemp()), plan=cases["zero1"][1],
+            device="cpu")
+        out["loop_zero1"] = None
+    except NotImplementedError as e:
+        out["loop_zero1"] = str(e)
+    try:
+        ParallelPlan.build(tp_mesh, DistConfig(wire="fp8_ef"))
+        out["fp8_tp_build"] = None
+    except NotImplementedError as e:
+        out["fp8_tp_build"] = str(e)
+    # Under fp8_ef the reference's step is per rank, so MoE runs: one
+    # step on this rank's 2 rows.
+    plan = ParallelPlan.build(flat, DistConfig(wire="fp8_ef", zero1=False,
+                                               tp=False))
+    mopt = make_optimizer_for(moe)
+    state = mopt.init(init_lm(moe, seed=0, device="cpu"))
+    step = make_train_step(moe, mopt, plan=plan, device="cpu")
+    b = {k: v[2 * dist.get_rank():2 * dist.get_rank() + 2]
+         for k, v in inp["batches"][0].items()}
+    b["tokens"] = b["tokens"] % moe.vocab_size
+    b["labels"] = b["labels"] % moe.vocab_size
+    (state, _), m = step(state, plan.init_wire_state(state.master), b,
+                         torch.Generator().manual_seed(0))
+    out["moe_fp8_ef_loss"] = m["loss"]
+    out["moe_fp8_ef_master"] = npt(state.master)
+    return out
+
+
+def group(rank, workdir, inp, out):
+    from repro_torch.models.convert import from_jax_params
+    join(os.path.join(workdir, "group"), rank, WORLD)
+    flat = DeviceMesh("cpu", torch.arange(WORLD), mesh_dim_names=("data",))
+    grid = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                      mesh_dim_names=("pod", "data"))
+    params = from_jax_params(inp["params"], tiny_cfg(inp), device="cpu")
+    out["plans"]["4"] = plan_table(flat, params)
+    out["plans"]["2x2"] = plan_table(grid, params)
+    reductions(rank, grid, flat, inp, out)
+    out["train"] = {"wire": train_run(rank, grid, "fp8_ef", inp),
+                    "full": train_run(rank, flat, "full", inp),
+                    "full_localmean": train_run(rank, flat, "full", inp,
+                                                fault=True)}
+    out["amax_sync"] = amax_sync_runs(rank, flat, inp)
+    out["refusals"] = refusals(flat, inp)
+    dist.destroy_process_group()
+
+
+def pair(rank, workdir, inp, out):
+    """Ranks 0 and 1: the launcher's TrainLoop on the fp8 wire, 4 steps in
+    one run against 2 + a restore + 2, and a resumed run that skips the
+    residual's restore (a planted fault)."""
+    from repro_torch.launch.train import build_loop, build_plan
+    from repro_torch.optim.optimizers import tmap
+    join(os.path.join(workdir, "pair"), rank, 2)
+    plan = build_plan(2, "gloo", "cpu", wire="fp8_ef")
+    root = os.path.join(workdir, "loops")
+
+    def run(name, total, skip_err=False):
+        loop = build_loop(arch="qwen2-1.5b", smoke=True, n_layers=2,
+                          steps=total, batch=4, seq=32, recipe="hybrid",
+                          ckpt_dir=os.path.join(root, name),
+                          checkpoint_every=2, log_every=2, plan=plan,
+                          device="cpu")
+        if skip_err:
+            unpack = loop._unpack
+            loop._unpack = lambda tree: unpack(tree)[:2] + (
+                tmap(torch.zeros_like, unpack(tree)[2]),)
+        recs = []
+        loop.on_metrics = lambda step, rec: recs.append(rec)
+        res = loop.run()
+        return res, recs, loop._logger_meta()
+
+    def snap(res):
+        st = res["state"]
+        return dict(master=npt(st.master), opt=npt(st.opt_state),
+                    err=npt(res["wire_error"]),
+                    ss=(res["scale_state"].amax_history.copy(),
+                        res["scale_state"].scale.copy()))
+
+    # A stop flag raised on rank 1 alone (as a signal would) stops both
+    # ranks after the same step.
+    loop = build_loop(arch="qwen2-1.5b", smoke=True, n_layers=2, steps=4,
+                      batch=4, seq=32, recipe="hybrid",
+                      ckpt_dir=os.path.join(root, "stop"),
+                      checkpoint_every=0, plan=plan, device="cpu")
+
+    def raise_on_rank1(step, rec):
+        if rank == 1 and step == 0:
+            loop._stop = True
+    loop.on_metrics = raise_on_rank1
+    out["stop_last_step"] = loop.run()["last_step"]
+    full, recs, meta = run("full", 4)
+    run("resumed", 2)
+    resumed, _, _ = run("resumed", 4)
+    run("faulty", 2)
+    faulty, _, _ = run("faulty", 4, skip_err=True)
+    out["loop"] = dict(full=snap(full), resumed=snap(resumed),
+                       faulty=snap(faulty),
+                       records=[{k: v for k, v in r.items()
+                                 if k.startswith("comm/") or k in
+                                 ("loss", "step", "span/allreduce_s")}
+                                for r in recs],
+                       meta_dist=meta.get("dist"),
+                       last_step=(full["last_step"], resumed["last_step"]))
+    dist.destroy_process_group()
+
+
+def main(rank, workdir):
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {}
+    try:
+        solo(rank, workdir, inp, out)
+        group(rank, workdir, inp, out)
+        if rank < 2:
+            pair(rank, workdir, inp, out)
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    out["jax_loaded"] = "jax" in sys.modules
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), sys.argv[2])
