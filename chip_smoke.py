@@ -125,7 +125,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      and depth: (a) XL_STEPS steps of B=4 x S=2048 under the hybrid
      delayed recipe, counts reset around the steps, one step traced and
      split by the model's profiler ranges (kernel 1, the mLSTM products,
-     the sLSTM loop, the rest); (b) one pattern
+     the sLSTM loop, the rest; the traced step on XL_TRACE_S tokens);
+     (b) one pattern
      group's step against the plain versions with a planted kernel-1 fault,
      its paper-recipe step on kernel 5 with a planted kernel-5 fault, and
      two timed paper-recipe steps at 12 layers; (c) calibrated, frozen, 5
@@ -140,19 +141,40 @@ Phases, each of which raises on failure (there is no CPU fallback):
      (NCCL refuses two ranks on one device), qwen2-1.5b at full width cut
      to DP_LAYERS layers, hybrid delayed scaling with track_health, B=4 x
      S=512 a rank, DP_STEPS steps under --wire full and under --wire
-     fp8_ef on the same seeded batches, no checkpoints: replica digests equal on both
-     wires; the fp8_ef loss trajectory within the reference's convergence
+     fp8_ef on the same seeded batches, no checkpoints, ZeRO-1 on (the
+     launcher's default): replica digests (of the state gathered whole)
+     equal on both wires; the fp8_ef loss trajectory within the reference's convergence
      law of the full one (max 2e-2, mean 5e-3) and the first step's grad
      norm within DP_GNORM_TOL; the residuals nonzero; the bytes comm
      counted a step equal the ring model's fp8 figure plus the padding,
-     at most 0.55 of bf16's; the launches a step on each rank. Then
-     (chip_smoke.py itself as the ranks' script, `--dp-child`) two planted
-     faults (one rank applies its local gradients: the digests differ;
+     at most 0.55 of bf16's; the launches a step on each rank (under
+     full the weight gradients' f32 products on kernel 5, summed over the
+     ranks before their Q node). Then (chip_smoke.py itself as the ranks'
+     script, `--dp-child`) two planted faults (one rank applies its local
+     gradients, with ZeRO-1 off: the digests differ;
      the all-gather leg decoded with the first leg's scale: the band
      breaks) and the fp8_ef run interrupted at its half (a checkpoint)
      and resumed by a fresh loop, bit for bit in master weights, loss
-     scale, ScaleState and residuals; and one 1-rank NCCL process group
-     (`--nccl-child`), where the plan is inert.
+     scale, ScaleState and residuals (under ZeRO-1); and one 1-rank NCCL
+     process group (`--nccl-child`), where the plan is inert;
+  20. ZeRO-1 and the fp8 ZeRO gather, phase 19's setup, its ranks' runs
+     in phase 19's `--dp-child` launch (`zero_runs`): ZeRO-1 off on
+     both wires, digests equal to phase 19's ZeRO-1 runs bit for bit
+     (N = 2), and each rank's max_memory_allocated with ZeRO-1 on and
+     off; `--wire fp8_ef --zero-gather fp8` against phase 19's bf16
+     gather within the convergence law, its zero_gather bytes a step a
+     rank the sharded leaves' elements x (N-1)/N at one byte (0.5 of the
+     bf16 gather's); the e4m3 gather of the trained shards (rank r's
+     scaled by 1 + r/4, so that the shards' amaxes differ, as at the
+     seeded init they do not) equal on both ranks and to the plain
+     arithmetic bit for bit, and a planted fault (each rank's gather
+     scale its own, not the MAX over the ranks) that makes the ranks'
+     weights differ; and the "full" repair: under RNE,
+     from the same weights, the 2-rank full step against a one-process
+     step on the global batch (B = 8 x S = 512, in this process): the G
+     sites' first amaxes within one e5m2 notch, the loss within
+     ZERO_LOSS_TOL, the update within ZERO_UPDATE_TOL, and the planted
+     per-rank Q node outside them.
 Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
 against their plain versions and times them, holds the GEMM in every
 layout at ragged shapes that take each of its two tile widths (128x128,
@@ -5728,8 +5750,11 @@ def serve_recurrent(dev):
 XL_ARCH = "xlstm-125m"
 # Phase 18a-b: all 12 layers at full width (189 M parameters), B x S =
 # XL_B x XL_S seeded tokens: two mLSTM chunks of the config's 1024, 2048
-# steps of each sLSTM loop.
-XL_B, XL_S, XL_STEPS = 4, 2048, 6
+# steps of each sLSTM loop. XL_STEPS timed steps (6 before phases 19-20
+# grew with ZeRO-1; 3 to keep the script in its time: each host-bound
+# step takes 6-12 s).
+XL_B, XL_S, XL_STEPS = 4, 2048, 3
+XL_TRACE_S = 1024
 XL_PARITY_LAYERS = 4               # one pattern group
 # Phase 18b's hybrid step runs from the ScaleState XL_SETTLE_STEPS kernel
 # steps (on the batch's first 512 tokens) leave: after one step alone,
@@ -5880,12 +5905,13 @@ def range_kernels(prof, names):
 
 
 def xl_step_profile(step, p50_ms):
-    """One more phase-18a step traced by torch.profiler (CPU and CUDA
-    activity): its device time split into kernel 1, the mLSTM's f32
-    products and the sLSTM loop (`range_kernels`: the kernels launched in
-    the model's ranges `xlstm.MLSTM_RANGE` / `SLSTM_RANGE`, forward,
-    recomputation and their backward nodes) and the rest; the idle share
-    against the untraced step p50 (kernel durations do not change under
+    """One more phase-18a step (B = XL_B x XL_TRACE_S tokens) traced by
+    torch.profiler (CPU and CUDA activity): its device time split into
+    kernel 1, the mLSTM's f32 products and the sLSTM loop
+    (`range_kernels`: the kernels launched in the model's ranges
+    `xlstm.MLSTM_RANGE` / `SLSTM_RANGE`, forward, recomputation and their
+    backward nodes) and the rest; the idle share against `p50_ms`, an
+    untraced step at the same shape (kernel durations do not change under
     the tracer, the host's work does); the largest kernels. A
     measurement, not a check."""
     import torch
@@ -5918,9 +5944,9 @@ def xl_step_profile(step, p50_ms):
              for p, (ms, n) in by.items()}
     log(f"xlstm train profile (one step traced, CPU and CUDA activity; its "
         f"wall {wall:.1f} ms under the tracer, the trace read in "
-        f"{read_s:.1f} s): device {total:.1f} ms, idle share "
-        f"{1 - total / p50_ms:.2f} of the untraced step p50 "
-        f"{p50_ms:.1f} ms; device ms a step: "
+        f"{read_s:.1f} s; B={XL_B} x S={XL_TRACE_S}): device {total:.1f} "
+        f"ms, idle share {1 - total / p50_ms:.2f} of an untraced step of "
+        f"that shape, {p50_ms:.1f} ms; device ms a step: "
         + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
         + f"; the ranges' parts (device ms, kernels) {parts}; "
         f"{placed} kernels placed at their runtime call; largest kernels: "
@@ -5991,7 +6017,16 @@ def train_xlstm(dev):
         raise AssertionError(f"non-finite loss: {losses}")
     if launches != {k: v * XL_STEPS for k, v in want.items()}:
         raise AssertionError(f"launches {launches}, expected {want} a step")
-    prof = xl_step_profile(lambda: one(batches[XL_STEPS]), p50)
+    # The traced step runs on the extra batch's first XL_TRACE_S tokens (one
+    # mLSTM chunk, half of each sLSTM loop): tracing and reading a whole
+    # step's ~460,000 kernels took 73 s. One untraced step at that shape
+    # first gives the idle share its reference.
+    short = {k: v[:, :XL_TRACE_S] for k, v in batches[XL_STEPS].items()}
+    t0 = time.perf_counter()
+    one(short)
+    torch.cuda.synchronize()
+    prof = xl_step_profile(lambda: one(short),
+                           (time.perf_counter() - t0) * 1e3)
     del box
     gc_collect()
     return dict(launches=per_step, p50_ms=p50, tokens_s=tokens / (p50 / 1e3),
@@ -6342,12 +6377,15 @@ def xl_baseline_gap(dev, cfg, params, f32_step=False):
 # qwen2-1.5b at full width cut to DP_LAYERS layers: two replicas of the
 # 28-layer model (31.3 GiB each in phase 12) and their f32 residuals (6.2
 # GB each) do not fit in 80 GB; at 4 layers a rank holds ~420 M parameters
-# (most of them the 151936 x 1536 embedding), a 1.7 GB residual.
+# (most of them the 151936 x 1536 embedding), a 1.7 GB residual. (At 2
+# layers the fault-free first grad norm of fp8_ef against full reads
+# 2.022e-2, past DP_GNORM_TOL, which was set from 4-layer readings.)
 DP_LAYERS = 4
-# Steps a wire (the issue's 6, cut to keep the phase's time: each step
-# moves ~420 M gradients through host memory twice); the fp8_ef run is
-# also the resume check's uninterrupted run (interrupted at DP_STEPS // 2).
-DP_STEPS = 4
+# Steps a wire (4 before ZeRO-1 made each step gather the weights; 3 to
+# keep phases 19-20 in the script's time: each step moves ~420 M
+# gradients through host memory twice); the fp8_ef run is also the resume
+# check's uninterrupted run (interrupted at DP_STEPS // 2).
+DP_STEPS = 3
 DP_FAULT_STEPS = 1
 # The reference's convergence law (tests/test_strategy.py): the fp8_ef
 # loss trajectory against the full one on the same batches.
@@ -6366,42 +6404,71 @@ DP_STEP_LAUNCHES = {
     **{k: v * DP_LAYERS // 28 for k, v in STEP_LAUNCHES.items()},
     "fp8_attention_fwd_counts": DP_LAYERS,
     "fp8_attention_bwd_dq_counts": DP_LAYERS}
+# Under --wire full each projection's weight gradient is summed over the
+# ranks before its Q node: its f32 product runs on kernel 5 (fp8_matmul)
+# in place of kernel 1's tn epilogue.
+DP_FULL_STEP_LAUNCHES = {
+    **DP_STEP_LAUNCHES, "fused_quant_matmul.tn": 0,
+    "fp8_matmul": DP_STEP_LAUNCHES["fused_quant_matmul.tn"]}
 
 
 def dp_args(wire, steps, ckpt, report, checkpoint=False):
     """The launcher's flags of a phase-19 run: a checkpoint at the end
-    only with `checkpoint`; the sampled allreduce span at step 0."""
+    only with `checkpoint`; the sampled allreduce span at step 0; no
+    report with `report` None (under ZeRO-1 the report gathers the state
+    whole, seconds over gloo)."""
     return ["--backend", "gloo", "--arch", "qwen2-1.5b", "--n-layers",
             str(DP_LAYERS), "--steps", str(steps), "--batch",
             str(2 * TRAIN_B), "--seq", str(TRAIN_S), "--lr", "1e-4",
             "--recipe", "hybrid", "--track-health", "--wire", wire,
             "--log-every", str(DP_STEPS), "--checkpoint-every",
-            str(10 ** 6 if checkpoint else 0), "--ckpt-dir", str(ckpt),
-            "--report", str(report)]
+            str(10 ** 6 if checkpoint else 0), "--ckpt-dir", str(ckpt)] \
+        + ([] if report is None else ["--report", str(report)])
 
 
-def dp_launch(tmp, name, script, argv, timeout=600):
+def dp_start(tmp, name, script, argv):
     """`python -m torch.distributed.run --standalone --nproc_per_node 2`
-    on `script` (['-m', module] or [path, ...]) with `argv`, as a child
-    process (fresh interpreters: no fork after CUDA is initialized).
-    Returns its wall seconds; logs its [train] lines."""
+    on `script` (['-m', module] or [path, ...]) with `argv`, started as a
+    child process (fresh interpreters: no fork after CUDA is initialized)
+    whose output goes to files in `tmp` (no pipe to fill while it runs).
+    Returns (the process, its start time, its output paths)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "2", *script, *argv]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="4")
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                         timeout=timeout, cwd=str(tmp))
+    paths = (Path(tmp) / f"{name}.out", Path(tmp) / f"{name}.err")
+    with open(paths[0], "w") as out, open(paths[1], "w") as err:
+        proc = subprocess.Popen(cmd, env=env, stdout=out, stderr=err,
+                                cwd=str(tmp))
+    return proc, time.perf_counter(), paths
+
+
+def dp_finish(started, name, timeout=600):
+    """Waits for a `dp_start` launch; returns its wall seconds, logs its
+    [train] lines, raises on a failed exit."""
+    proc, t0, paths = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     dt = time.perf_counter() - t0
-    for ln in res.stdout.splitlines():
+    stdout, stderr = (q.read_text() for q in paths)
+    for ln in stdout.splitlines():
         if ln.startswith(("[train] parallel", "[train] built",
                           "[train] wrote", "[train] restored", "finished",
                           "[dp-child]")):
             log(f"  {name}: {ln}")
-    if res.returncode:
-        raise AssertionError(f"{name}: exit {res.returncode}\n"
-                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    if proc.returncode:
+        raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
     return dt
+
+
+def dp_launch(tmp, name, script, argv, timeout=600):
+    """`dp_start` and `dp_finish` in turn."""
+    return dp_finish(dp_start(tmp, name, script, argv), name, timeout)
 
 
 def dp_reports(path):
@@ -6461,13 +6528,35 @@ def train_dp(dev):
     import shutil
     import tempfile
     import numpy as np
+    import torch
     tmp = Path(tempfile.mkdtemp(prefix="dp_"))
     log("dp: two ranks on one card over gloo: NCCL refuses two ranks on "
         "one device ('Duplicate GPU detected'), so every exchange crosses "
         "host memory between two processes, not NVLink; these times are a "
-        "baseline, not a claim")
-    nccl = None
+        "baseline, not a claim. The launcher's plan: ZeRO-1 on (its "
+        "default, as the reference's)")
+    nccl = child = None
     try:
+        # Phase 20's one-process step on the global batch, before the
+        # launch whose ranks compare their repaired step with it.
+        loss, amax, keys, master = zero_repair_step(
+            dev, zero_repair_setup(dev))
+        torch.save({"loss": loss, "amax": amax, "keys": keys,
+                    "master": master}, tmp / "one_process.pt")
+        del master
+        gc_collect()
+        # The faults, the resume and phase 20's runs (one launch of this
+        # script as the ranks' script) and one NCCL process group of one
+        # rank (the plan inert there) run beside the two wires' launcher
+        # runs, to keep the script in its time: every step time of this
+        # phase is read with another pair of ranks on the card and host.
+        child = dp_start(tmp, "faults+resume+zero",
+                         [str(ROOT / "chip_smoke.py"), "--dp-child",
+                          str(tmp)], [])
+        nccl = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-child"],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         runs, reps = {}, {}
         for wire in ("full", "fp8_ef"):
             wall = dp_launch(tmp, wire, ["-m", "repro_torch.launch.train"],
@@ -6519,31 +6608,25 @@ def train_dp(dev):
         # Launches a step on each rank.
         launches = {}
         for wire, rr in reps.items():
+            table = DP_FULL_STEP_LAUNCHES if wire == "full" \
+                else DP_STEP_LAUNCHES
             for rep in rr:
                 per = {k: v / DP_STEPS for k, v in rep["launches"].items()}
-                want = {k: DP_STEP_LAUNCHES.get(k, 0) for k in per}
+                want = {k: table.get(k, 0) for k in per}
                 if per != want:
                     raise AssertionError(f"{wire} rank {rep['rank']}: "
                                          f"launches a step {per}, expected "
                                          f"{want}")
             launches[wire] = {k: v / DP_STEPS
                               for k, v in rr[0]["launches"].items()}
-        log(f"dp: launches a step on each rank (both wires) "
-            f"{launches['fp8_ef']}")
-        # One NCCL process group of one rank (the plan inert there), beside
-        # the faults and the resume in one launch of this script.
-        nccl = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-child"],
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        wall = dp_launch(tmp, "faults+resume",
-                         [str(ROOT / "chip_smoke.py"), "--dp-child",
-                          str(tmp)], [])
+        log(f"dp: launches a step on each rank: fp8_ef "
+            f"{launches['fp8_ef']}; full {launches['full']}")
+        wall = dp_finish(child, "faults+resume+zero", timeout=900)
         fault_reps = {k: dp_reports(tmp / f"rep_{k}")
                       for k in ("local_grads", "scale")}
         digests = [r["state_digest"] for r in fault_reps["local_grads"]]
-        log(f"dp planted fault (rank 1 applies its local gradients): "
-            f"digests {digests[0][:16]} / {digests[1][:16]}")
+        log(f"dp planted fault (rank 1 applies its local gradients, ZeRO-1 "
+            f"off): digests {digests[0][:16]} / {digests[1][:16]}")
         if digests[0] == digests[1]:
             raise AssertionError("the local-gradient fault kept the "
                                  "replicas equal")
@@ -6560,7 +6643,8 @@ def train_dp(dev):
                 for k in ("state_digest", "wire_error_digest",
                           "scale_state_digest")]
         log(f"dp resume ({DP_LAYERS} layers, fp8_ef): the {DP_STEPS}-step "
-            f"run against {DP_STEPS // 2} + a restore + {DP_STEPS // 2}: "
+            f"run against {DP_STEPS // 2} + a restore + "
+            f"{DP_STEPS - DP_STEPS // 2}: "
             f"master with loss scale, residual, ScaleState digests equal "
             f"on both ranks: {same}")
         first = [r["records"][0]["step"] for r in resumed]
@@ -6573,13 +6657,21 @@ def train_dp(dev):
             "NCCL at more than one rank is not verified on this machine")
         if nccl.returncode:
             raise AssertionError(f"NCCL child: {stderr[-2000:]}")
-        return dict(runs=runs, launches=launches["fp8_ef"], band=band,
-                    fault_band=fault_band, ratio=ratio)
-    finally:
-        if nccl is not None and nccl.poll() is None:
-            nccl.kill()
-            nccl.wait()
+        return dict(runs=runs, launches=launches["fp8_ef"],
+                    launches_full=launches["full"], band=band,
+                    fault_band=fault_band, ratio=ratio,
+                    digests={w: [(r["state_digest"], r["scale_state_digest"],
+                                  r["wire_error_digest"]) for r in rr]
+                             for w, rr in reps.items()},
+                    reports=reps, tmp=tmp, child_wall=wall)
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    finally:
+        for proc in (nccl, child[0] if child else None):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def faulty_fp8_allreduce_mean(y, *, group, fmt=None):
@@ -6622,15 +6714,26 @@ def dp_child(tmp: str) -> int:
     from repro_torch.launch import train
     tmp = Path(tmp)
 
-    def run(name, steps, checkpoint=False):
+    def run(name, steps, checkpoint=False, report=True):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         train.main(dp_args("fp8_ef", steps, tmp / "ckpt_child",
-                           tmp / f"rep_{name}", checkpoint))
+                           tmp / f"rep_{name}" if report else None,
+                           checkpoint))
         gc.collect()
         torch.cuda.empty_cache()
+        if dist.get_rank() == 0:
+            print(f"[dp-child] {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
     # Fault 1: rank 1 applies its local gradients (it still takes part in
-    # every collective).
+    # every collective), with ZeRO-1 off: under ZeRO-1 each rank updates
+    # only its shard, which both ranks then gather, so the replicas agree
+    # by construction and the digests cannot see it (phase 20 holds the
+    # ZeRO-1 state against ZeRO-1 off instead).
     orig = strategy.ParallelPlan.dp_allreduce
+    real_build = train.build_plan
+    train.build_plan = lambda *a, **k: real_build(*a, **dict(k, zero1=False))
 
     def local_on_rank1(self, *, wire=None):
         real = orig(self, wire=wire)
@@ -6645,6 +6748,7 @@ def dp_child(tmp: str) -> int:
         run("local_grads", DP_FAULT_STEPS)
     finally:
         strategy.ParallelPlan.dp_allreduce = orig
+        train.build_plan = real_build
     # Fault 2: the all-gather leg decoded with the first leg's scale.
     real = grad_compress.fp8_allreduce_mean
     grad_compress.fp8_allreduce_mean = faulty_fp8_allreduce_mean
@@ -6654,8 +6758,10 @@ def dp_child(tmp: str) -> int:
         grad_compress.fp8_allreduce_mean = real
     # The resume: the fp8_ef run's steps, interrupted at half (its one
     # checkpoint) and resumed from it by a fresh loop.
-    run("interrupted", DP_STEPS // 2, checkpoint=True)
+    run("interrupted", DP_STEPS // 2, checkpoint=True, report=False)
     run("resumed", DP_STEPS)
+    # Phase 20's runs, in the same pair of processes (one launch less).
+    zero_runs(tmp)
     print(f"[dp-child] rank {dist.get_rank()} done", flush=True)
     dist.destroy_process_group()
     return 0
@@ -6697,6 +6803,345 @@ def nccl_child() -> int:
         finally:
             dist.destroy_process_group()
     return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------------
+# phase 20: ZeRO-1 and the fp8 ZeRO gather (two ranks on the card)
+# ---------------------------------------------------------------------------
+
+# The "full" repair against one process on the global batch (B = 2 x
+# TRAIN_B rows, RNE roundings, the same weights): the G sites' first amaxes
+# within one e5m2 notch, the loss within ZERO_LOSS_TOL, the update within
+# ZERO_UPDATE_TOL (rel L2), a limit between the fault-free reading (0.0075)
+# and the planted fault's (the per-rank Q node of the parent commit:
+# 0.1055, on an H100 at 700 W; PERF.md).
+ZERO_NOTCH = 1.25
+ZERO_LOSS_TOL = 1e-3
+ZERO_UPDATE_TOL = 0.03
+
+# Kernel 5 at the "full" wire's weight-gradient shapes (a rank's 2048 rows
+# as the contraction): A's payload transposed (K_in x 2048) times dY.
+WGRAD_SHAPES = tuple((k, TRAIN_B * TRAIN_S, n) for k, n in PROJ)
+
+
+def zero_repair_setup(dev):
+    """The launcher's hybrid recipe at DP_LAYERS layers with RNE roundings,
+    its optimizer, the site registry and the global batch of the repair
+    check."""
+    import dataclasses
+    from repro_torch.core.loss_scale import LossScaler
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for
+    import numpy as np
+    cfg = train_cfg(n_layers=DP_LAYERS, rne=True)
+    cfg = cfg.replace(policy=dataclasses.replace(
+        cfg.policy, quant=dataclasses.replace(cfg.policy.quant,
+                                              track_health=True)))
+    batch = next(synthetic_lm_batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, batch_size=2 * TRAIN_B,
+        seed=0)))
+    probe = {"tokens": np.zeros((1, 128), np.int32),
+             "labels": np.zeros((1, 128), np.int32)}
+    reg = discover_lm_sites(cfg, init_lm(cfg, device=dev), probe)
+    ds = DelayedScaling(reg, qcfg=cfg.policy.quant)
+    opt = make_optimizer_for(cfg, learning_rate=1e-4, scaler=LossScaler(
+        mode="enhanced", init_scale=2.0 ** 13))
+    return cfg, opt, ds, batch
+
+
+def zero_repair_step(dev, setup, plan=None):
+    """One step of the repair check (`setup` from zero_repair_setup) from
+    init_lm(seed 0): without a plan on the global batch, with one on this
+    rank's rows. Returns (loss, the G sites' first amaxes, their keys, the
+    whole master weights after the step on the host)."""
+    import torch
+    from repro_torch.data.pipeline import host_shard
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.step import make_train_step
+    cfg, opt, ds, batch = setup
+    state = opt.init(init_lm(cfg, seed=0, device=dev))
+    if plan is not None:
+        state = plan.shard_state(state)
+        batch = host_shard(batch, plan.dp_rank, plan.dp_size)
+    step = make_train_step(cfg, opt, scaling=ds, plan=plan, device=dev)
+    (state, ss), m = step(state, ds.init(), batch,
+                          torch.Generator(device=dev).manual_seed(0))
+    if plan is not None:
+        state = plan.unshard_state(state, to_host=True)
+    keys = list(ds.registry.keys)
+    g = [i for i, k in enumerate(keys) if k.endswith("#G")]
+    return (m["loss"], ss.amax_history[g, 0].copy(), [keys[i] for i in g],
+            _to_cpu(state.master))
+
+
+def zero_update_rel(p0, master, ref_master, dev):
+    """rel L2 of the update (from the initial weights `p0`, in fp16)
+    against the reference's, leaf by leaf on the device."""
+    import torch
+    num = torch.zeros((), dtype=torch.float64, device=dev)
+    den = torch.zeros((), dtype=torch.float64, device=dev)
+    for k0, a, b in zip(_flat_leaves(p0), _flat_leaves(master),
+                        _flat_leaves(ref_master)):
+        base = k0.to(dev).to(torch.float16).float()
+        ua, ub = a.to(dev).float() - base, b.to(dev).float() - base
+        num += torch.sum(torch.square(ua - ub).double())
+        den += torch.sum(torch.square(ub).double())
+    return float(torch.sqrt(num / torch.clamp_min(den, 1e-30)))
+
+
+def _flat_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_leaves(tree[k])
+    else:
+        yield tree
+
+
+def local_e4m3_scales(shards, group):
+    """strategy.e4m3_gather_scales without the MAX over the ranks: each
+    rank quantizes its shard, and decodes every rank's payload, with its
+    own scale (the planted fault)."""
+    import torch
+    return [torch.clamp_min(x.float().abs().max() / 448.0, 1e-30)
+            for x in shards]
+
+
+def zero_runs(tmp: Path):
+    """Phase 20's work on the ranks, run by `dp_child` after phase 19's:
+    launch.train.main with ZeRO-1 off on both wires and with the fp8
+    gather, the e4m3 gather checks on its trained shards, then the "full"
+    repair's step and its planted fault against the parent's one-process
+    step (`one_process.pt`, written before the launch). Each rank writes
+    zero_rank<r>.json."""
+    import json
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import global_batch
+    from repro_torch.launch import train
+    real_build = train.build_plan
+    plans = []
+
+    def build_plan(*a, **k):
+        plans.append(real_build(*a, **k))
+        return plans[-1]
+
+    def run(name, wire, steps, zero1=None, gather="full"):
+        def make(*a, **k):
+            if zero1 is not None:
+                k["zero1"] = zero1
+            return build_plan(*a, **k)
+        train.build_plan = make
+        t0 = time.perf_counter()
+        # Each run's own peak (the process ran phase 19's runs before).
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = train.main(dp_args(wire, steps, tmp / "ckpt_zero",
+                                     tmp / f"rep_{name}")
+                             + ["--zero-gather", gather])
+        finally:
+            train.build_plan = real_build
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dist.get_rank() == 0:
+            print(f"[dp-child] {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        return out, plans[-1]
+
+    for wire in ("full", "fp8_ef"):
+        run(f"off_{wire}", wire, DP_STEPS, zero1=False)
+    out, plan = run("gather", "fp8_ef", DP_STEPS, gather="fp8")
+    gather = zero_gather_checks(plan, out["state"].master)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The repair: the launcher's ZeRO-1 "full" plan, one RNE step.
+    from repro_torch.models.transformer import init_lm
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    plan = real_build(2, "gloo", dev, "full")
+    ref = torch.load(tmp / "one_process.pt", weights_only=False)
+    setup = zero_repair_setup(dev)
+    p0 = _to_cpu(init_lm(setup[0], seed=0, device=dev))
+    repair = {}
+    for name in ("fixed", "per_rank_q"):
+        real = global_batch.GlobalBatch.sums_weight
+        if name == "per_rank_q":
+            global_batch.GlobalBatch.sums_weight = lambda self, w: False
+        try:
+            loss, amax, keys, master = zero_repair_step(dev, setup, plan)
+        finally:
+            global_batch.GlobalBatch.sums_weight = real
+        ratio = amax / ref["amax"]
+        repair[name] = dict(
+            loss=loss, loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+            ratio_min=float(ratio.min()), ratio_max=float(ratio.max()),
+            n_sites=len(keys), keys_equal=keys == ref["keys"],
+            update_rel=zero_update_rel(p0, master, ref["master"], dev))
+        del master
+        gc.collect()
+        torch.cuda.empty_cache()
+    (tmp / f"zero_rank{dist.get_rank()}.json").write_text(json.dumps(
+        {"gather": gather, "repair": repair}))
+    if dist.get_rank() == 0:
+        print(f"[dp-child] repair: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def zero_gather_checks(plan, master):
+    """The e4m3 gather on the card, on this rank's trained master shards
+    in bf16 with rank r's scaled by 1 + r / 4, so that the ranks' shard
+    amaxes differ (at the seeded init they are equal: each truncated-
+    normal shard reaches the same bf16 value next to 2 sigma, and a local
+    scale is the shared one). Returns the digest of the gathered weights
+    (the same on every rank), whether they equal the plain arithmetic on
+    the bf16-gathered whole leaves (the MAX amax over the whole leaf /
+    448, RNE to e4m3, decoded), bit for bit, and the digest under the
+    planted fault (each rank's scale its own: the ranks differ)."""
+    import torch
+    from repro_torch.core.fp8_formats import E4M3
+    from repro_torch.core.quantize import quantize_rne
+    from repro_torch.distributed import strategy
+    from repro_torch.launch.train import state_digest
+    from repro_torch.optim.optimizers import tmap
+    factor = 1.0 + plan.zero_rank / 4.0
+    shards = tmap(lambda m: (m.float() * factor).to(torch.bfloat16), master)
+    got = plan.gather_params(shards, fp8=True)
+    whole = plan.gather_params(shards, fp8=False)
+
+    def plain(w, d):
+        if d is None:
+            return w
+        scale = torch.clamp_min(w.float().abs().max() / 448.0, 1e-30)
+        q = quantize_rne(w.float() / scale, E4M3, saturate=True)
+        return (q.float() * scale).to(w.dtype)
+    want = tmap(plain, whole, plan.zero_dims())
+    exact = all(torch.equal(a, b) for a, b in zip(
+        strategy._leaves(got), strategy._leaves(want)))
+    real = strategy.e4m3_gather_scales
+    strategy.e4m3_gather_scales = local_e4m3_scales
+    try:
+        fault = plan.gather_params(shards, fp8=True)
+    finally:
+        strategy.e4m3_gather_scales = real
+    return dict(digest=state_digest(got), fault_digest=state_digest(fault),
+                exact=exact)
+
+
+def _bf16(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _bf16(v) for k, v in tree.items()}
+    return tree.to(torch.bfloat16)
+
+
+def train_zero(dev, dp):
+    """Phase 20 (module docstring): ZeRO-1 off against phase 19's ZeRO-on
+    runs, the fp8 ZeRO gather and its planted fault, the "full" repair
+    against one process and its planted fault, memory; the ranks ran in
+    phase 19's `--dp-child` launch (`zero_runs`), whose directory this
+    phase reads and removes."""
+    import json
+    import shutil
+    tmp, wall = dp["tmp"], dp["child_wall"]
+    try:
+        wgrad_rows = time_fp8_matmul(dev, WGRAD_SHAPES)
+        off = {w: dp_reports(tmp / f"rep_off_{w}")
+               for w in ("full", "fp8_ef")}
+        # ZeRO-1 off against phase 19's ZeRO-1 on, digests of the gathered
+        # state, bit for bit at N = 2.
+        for wire, rr in off.items():
+            got = [(r["state_digest"], r["scale_state_digest"],
+                    r["wire_error_digest"]) for r in rr]
+            same = got == dp["digests"][wire]
+            on = dp["digests"][wire][0][0]
+            log(f"zero {wire}: ZeRO-1 off digests {got[0][0][:16]} / "
+                f"{got[1][0][:16]} against ZeRO-1 on {on[:16]} (master, "
+                f"moments, loss scale; ScaleState and residual too): equal "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"{wire}: ZeRO-1 on differs from off")
+        # Memory a rank, ZeRO-1 on (phase 19) and off.
+        for wire in ("full", "fp8_ef"):
+            on_gib = [(r["max_memory_allocated"] or 0) / 2 ** 30
+                      for r in dp["reports"][wire]]
+            off_gib = [(r["max_memory_allocated"] or 0) / 2 ** 30
+                       for r in off[wire]]
+            log(f"zero {wire}: max_memory_allocated a rank, ZeRO-1 on "
+                f"{on_gib[0]:.2f} / {on_gib[1]:.2f} GiB, off "
+                f"{off_gib[0]:.2f} / {off_gib[1]:.2f} GiB [{CARD}]")
+        off_runs = {w: dp_summary(f"zero off {w}", off[w], wall)
+                    for w in off}
+        # The fp8 gather against the bf16 gather (phase 19's fp8_ef run).
+        gather = dp_reports(tmp / "rep_gather")
+        g_run = dp_summary("fp8 gather", gather, wall)
+        band = dp_band(dp["runs"]["fp8_ef"], g_run)
+        ranks = [json.loads((tmp / f"zero_rank{r}.json").read_text())
+                 for r in range(2)]
+        gd = [r["gather"] for r in ranks]
+        same = gd[0]["digest"] == gd[1]["digest"]
+        fault_differs = gd[0]["fault_digest"] != gd[1]["fault_digest"]
+        log(f"zero fp8 gather vs bf16 gather: loss rel max {band[0]:.3e}, "
+            f"mean {band[1]:.3e} (law: < {DP_LOSS_MAX}, < {DP_LOSS_MEAN}); "
+            f"first-step grad norm rel {band[2]:.3e}")
+        log(f"zero e4m3 gather on the trained shards (rank r's scaled by 1 "
+            f"+ r/4): equal on the two ranks {same}, the plain arithmetic "
+            f"bit for bit {[g['exact'] for g in gd]}; planted fault (each "
+            f"rank's scale its own, not the MAX over the ranks): the ranks' "
+            f"weights differ {fault_differs}")
+        if not (band[0] < DP_LOSS_MAX and band[1] < DP_LOSS_MEAN):
+            raise AssertionError(f"fp8 gather outside the law: {band}")
+        if not (same and all(g["exact"] for g in gd) and fault_differs):
+            raise AssertionError(f"the e4m3 gather: {gd}")
+        # Bytes: the gather's counted zero_gather bytes a step a rank.
+        # At N = 2 a leaf is sharded iff one of its dims is even, that is
+        # iff its element count is.
+        sharded = sum(n for n in gather[0]["leaf_numels"] if n % 2 == 0)
+        for rep in gather:
+            for rec in rep["records"]:
+                if rec["comm/sent_zero_gather_bytes"] != sharded / 2:
+                    raise AssertionError(f"zero_gather bytes {rec}")
+        bf16 = dp["reports"]["fp8_ef"][0]["records"][-1][
+            "comm/sent_zero_gather_bytes"]
+        ratio = gather[0]["records"][-1]["comm/sent_zero_gather_bytes"] \
+            / bf16
+        log(f"zero gather bytes a step a rank: e4m3 "
+            f"{gather[0]['records'][-1]['comm/sent_zero_gather_bytes']:.0f} "
+            f"= the sharded leaves' {sharded} elements x (N-1)/N at 1 "
+            f"byte; bf16 {bf16:.0f}: ratio {ratio:.4f}")
+        if ratio != 0.5:
+            raise AssertionError(f"gather ratio {ratio}")
+        # The "full" repair against one process.
+        rep = ranks[0]["repair"]
+        for name, r in rep.items():
+            log(f"zero full repair ({name}): {r['n_sites']} G sites' first "
+                f"amax / one process's in [{r['ratio_min']:.3f}, "
+                f"{r['ratio_max']:.3f}] (notch {ZERO_NOTCH}), loss rel "
+                f"{r['loss_rel']:.3e} (< {ZERO_LOSS_TOL}), update rel L2 "
+                f"{r['update_rel']:.4f} (< {ZERO_UPDATE_TOL})")
+        fixed, bad = rep["fixed"], rep["per_rank_q"]
+        in_notch = fixed["ratio_max"] <= ZERO_NOTCH \
+            and fixed["ratio_min"] >= 1 / ZERO_NOTCH
+        if not (fixed["keys_equal"] and in_notch
+                and fixed["loss_rel"] < ZERO_LOSS_TOL
+                and fixed["update_rel"] < ZERO_UPDATE_TOL):
+            raise AssertionError(f"the full repair: {fixed}")
+        if bad["ratio_min"] >= 1 / ZERO_NOTCH \
+                or bad["update_rel"] < ZERO_UPDATE_TOL:
+            raise AssertionError(f"the per-rank Q node went unseen: {bad}")
+        r19 = dp["runs"]
+        log(f"zero: step p50 ZeRO-1 on {r19['full']['p50_ms']:.1f} (full) / "
+            f"{r19['fp8_ef']['p50_ms']:.1f} (fp8_ef) ms, off "
+            f"{off_runs['full']['p50_ms']:.1f} / "
+            f"{off_runs['fp8_ef']['p50_ms']:.1f} ms, fp8 gather "
+            f"{g_run['p50_ms']:.1f} ms; the resume of phase 19 ran under "
+            f"ZeRO-1; launcher wall {wall:.1f} s [{CARD}]")
+        return dict(off=off_runs, gather=g_run, band=band, repair=rep,
+                    ratio=ratio, wgrad_rows=wgrad_rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def gc_collect():
@@ -6991,6 +7436,12 @@ def main() -> int:
     gc_collect()
     dp = phase(train_dp, dev)
     gc_collect()
+    zero = None
+    if dp is not None:
+        zero = phase(train_zero, dev, dp)
+    else:
+        failures.append("train_zero: not run (phase 19 failed)")
+    gc_collect()
     if failures:
         log(f"{len(failures)} phase(s) failed:\n  " + "\n  ".join(failures))
         return 1
@@ -7157,6 +7608,9 @@ def main() -> int:
           f"{XL_NEW} tokens, 12 layers)"] = xl_served["launches"]
     paths[f"qwen2-1.5b data parallel, fp8_ef wire, a rank of 2 "
           f"({DP_LAYERS} layers, hybrid, track_health)"] = dp["launches"]
+    paths[f"qwen2-1.5b data parallel, full wire, ZeRO-1, a rank of 2 "
+          f"({DP_LAYERS} layers, hybrid, track_health)"] = \
+        dp["launches_full"]
     other = [[dict(r, shape=f"{r['dims']} M={r['m']} K={r['c']} N={r['n']}")
               for r in t5_gemm_rows + s2s_gemm_rows + arch_gemm_rows
               + xl_gemm_rows],
@@ -7164,7 +7618,8 @@ def main() -> int:
              + [fwd_rows[m] for m in S2S_ATTN + ("mha_chunk", "mha_decode")],
              [r["dq"] for r in t5_attn_rows + arch_attn_rows],
              [r["dkv"] for r in t5_attn_rows + arch_attn_rows],
-             conv_rows + t5_mm_rows + xl_mm_rows, [], []]
+             conv_rows + t5_mm_rows + xl_mm_rows + zero["wgrad_rows"],
+             [], []]
     for entry, rows in zip(kernels[:7], other):
         name = entry["name"]
         entry["launches_by_path"] = {

@@ -58,15 +58,22 @@ class MixedPrecisionOptimizer:
         cdt = dtype_of(self.compute_dtype)
         return tmap(lambda p: p.to(cdt), state.master)
 
-    def apply_gradients(self, state: MixedPrecisionState, grads
+    def apply_gradients(self, state: MixedPrecisionState, grads,
+                        finite: Optional[torch.Tensor] = None
                         ) -> Tuple[MixedPrecisionState, dict]:
         """Returns (new state, metrics) with 0-d device tensors in metrics:
-        grads_finite, loss_scale (after the update), overflow_count."""
+        grads_finite, loss_scale (after the update), overflow_count.
+        `finite`: the overflow flag when the caller has it (under ZeRO-1,
+        that of the whole gradient, combined over the ranks whose shards
+        `grads` and the state are); otherwise `all_finite(grads)`. The
+        update is element-wise, so on a shard it is the shard of the
+        whole update."""
+        if finite is None:
+            finite = all_finite(grads)
         if self.leaf_update is not None:
-            return self._apply_gradients_fused(state, grads)
+            return self._apply_gradients_fused(state, grads, finite)
         udt = dtype_of(self.update_dtype)
         mdt = dtype_of(self.master_dtype)
-        finite = all_finite(grads)
         grads32 = self.scaler.unscale(state.loss_scale, grads)
         master32 = tmap(lambda p: p.to(udt), state.master)
         updates, new_opt = self.inner_update(grads32, state.opt_state,
@@ -86,12 +93,12 @@ class MixedPrecisionOptimizer:
         return MixedPrecisionState(master=new_master, opt_state=new_opt,
                                    loss_scale=new_ls), metrics
 
-    def _apply_gradients_fused(self, state: MixedPrecisionState, grads
+    def _apply_gradients_fused(self, state: MixedPrecisionState, grads,
+                               finite: torch.Tensor
                                ) -> Tuple[MixedPrecisionState, dict]:
         """Leaf by leaf, in place (module docstring)."""
         udt = dtype_of(self.update_dtype)
         names = self.accum_names
-        finite = all_finite(grads)
         inv = self.scaler.inverse(state.loss_scale)
         old_count = state.opt_state["count"]
         count = torch.where(finite, old_count + 1, old_count)

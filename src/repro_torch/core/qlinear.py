@@ -52,6 +52,18 @@ records precision-health pairs beside its amaxes: the operands' from their
 payload bits (`obs.counters.payload_health`), each GEMM output's from
 kernel 1's count epilogue (`with_counts=True`) — forward at #a / #b / #y,
 backward at #E, #G and #da.E.
+
+Inside a data-parallel "full" step (`distributed.global_batch.current()`
+active, and the weight operand a parameter of the step) the weight
+gradient's Q node quantizes the sum over the ranks, as the reference's one
+program over the global batch does: the backward takes the f32 product
+(the fused path's wgrad on kernel 5, `fp8_matmul`, with A's payload
+transposed contiguous, in place of kernel 1's tn epilogue), sums it in f32
+over the group, and quantizes the sum at the site's #G scale through
+`_fake_quant_grad` (the unfused path's own Q node; the unfused path casts
+the sum to the output dtype first, as its product is):
+
+    dW = Q_G(sum over ranks of Q_A(a)^T . Q_E(dY))
 """
 from __future__ import annotations
 
@@ -67,6 +79,8 @@ from repro_torch.core.precision_policy import (ACT, ERROR, GRAD, WEIGHT,
 from repro_torch.core.quantize import QTensor, fp8_amax_bits, f32
 from repro_torch.core.quantize import dequantize as _dequantize
 from repro_torch.core.quantize import quantize as _quantize
+from repro_torch.distributed import comm
+from repro_torch.distributed import global_batch
 from repro_torch.obs.counters import payload_health
 from repro_torch.scaling import context as scale_ctx
 
@@ -166,15 +180,10 @@ def _fused_dequant(out8: torch.Tensor, s_out, cfg: QuantConfig) -> torch.Tensor:
     return (out8.float() * float(f32(s_out))).to(dtype_of(cfg.output_dtype))
 
 
-def _compute(spec: str, qa: QTensor, qb: QTensor,
+def _product(spec: str, qa: QTensor, qb: QTensor,
              cfg: QuantConfig) -> torch.Tensor:
-    """fp8 x fp8 -> f32 accumulate -> times qa.scale * qb.scale ->
-    output_dtype; a '...k,kn->...n' contraction under a kernel backend runs
-    the fp8 GEMM kernel. Host scales multiply as host f32; a device scale
-    (jit amax) makes the product a device f32 scalar. The plain einsum
-    runs under the profiler range "qeinsum.einsum", so that a trace reads
-    its device time apart (the mixture-of-experts' expert GEMMs, the
-    adjoints and the 4-D attention contractions of the unfused path)."""
+    """`_compute`'s f32 product, times the operand scales, before the cast
+    to the output dtype."""
     sa, sb = qa.scale, qb.scale
     if isinstance(sa, torch.Tensor) or isinstance(sb, torch.Tensor):
         out_scale = torch.as_tensor(sa) * torch.as_tensor(sb)
@@ -188,7 +197,30 @@ def _compute(spec: str, qa: QTensor, qb: QTensor,
     else:
         with torch.profiler.record_function("qeinsum.einsum"):
             y = torch.einsum(spec, qa.data.float(), qb.data.float())
-    return (y * out_scale).to(dtype_of(cfg.output_dtype))
+    return y * out_scale
+
+
+def _compute(spec: str, qa: QTensor, qb: QTensor,
+             cfg: QuantConfig) -> torch.Tensor:
+    """fp8 x fp8 -> f32 accumulate -> times qa.scale * qb.scale ->
+    output_dtype; a '...k,kn->...n' contraction under a kernel backend runs
+    the fp8 GEMM kernel. Host scales multiply as host f32; a device scale
+    (jit amax) makes the product a device f32 scalar. The plain einsum
+    runs under the profiler range "qeinsum.einsum", so that a trace reads
+    its device time apart (the mixture-of-experts' expert GEMMs, the
+    adjoints and the 4-D attention contractions of the unfused path)."""
+    return _product(spec, qa, qb, cfg).to(dtype_of(cfg.output_dtype))
+
+
+def _summed_wgrad(spec: str, qa: QTensor, qb: QTensor, cfg: QuantConfig,
+                  group, generator, scale, out_dtype=None):
+    """A weight gradient summed over the ranks of `group` before its Q
+    node (module docstring): the f32 product, its f32 sum, cast to
+    `out_dtype` (None: kept f32), then `_fake_quant_grad`."""
+    g = comm.all_reduce(_product(spec, qa, qb, cfg), "sum", group)
+    if out_dtype is not None:
+        g = g.to(out_dtype)
+    return _fake_quant_grad(g, cfg, generator, scale)
 
 
 def _fake_quant_grad(g: torch.Tensor, cfg: QuantConfig,
@@ -212,6 +244,15 @@ def _plain_einsum(spec: str, a, b, cfg: QuantConfig) -> torch.Tensor:
 def _observe(q: QTensor) -> torch.Tensor:
     """Observed amax of a quantized operand from its payload's bits."""
     return fp8_amax_bits(q.data) * float(q.scale)
+
+
+def _sum_group(w: torch.Tensor, cls: str):
+    """The group a weight operand's gradient is summed over in the
+    backward (module docstring), or None."""
+    gb = global_batch.current()
+    if cls != WEIGHT or gb is None or not gb.sums_weight(w):
+        return None
+    return gb.group
 
 
 class _QEinsum(torch.autograd.Function):
@@ -241,6 +282,7 @@ class _QEinsum(torch.autograd.Function):
         ctx.meta = meta
         ctx.qscales = (qa.scale, qb.scale)
         ctx.dtypes = (a.dtype, b.dtype)
+        ctx.sum_group = _sum_group(b, classes[1])
         return y
 
     @staticmethod
@@ -261,10 +303,17 @@ class _QEinsum(torch.autograd.Function):
         da8, obs_da, h_da = _fused_gemm(dy2, qb_data, qdy.scale, sb, s_da,
                                         cfg, cls_a, "nt", gen)
         da = _fused_dequant(da8, s_da, cfg).reshape(qa_data.shape)
-        # dW = Q(A^T . dY): (M, K) x (M, N) -> (K, N)
-        db8, obs_db, h_db = _fused_gemm(a2, dy2, sa, qdy.scale, s_db, cfg,
-                                        cls_b, "tn", gen)
-        db = _fused_dequant(db8, s_db, cfg).reshape(qb_data.shape)
+        if ctx.sum_group is not None:
+            # dW = Q(sum over ranks of A^T . dY): kernel 5 on A^T.
+            db, obs_db, h_db = _summed_wgrad(
+                "km,mn->kn", QTensor(a2.t().contiguous(), sa),
+                QTensor(dy2, qdy.scale), cfg, ctx.sum_group, gen, s_db)
+            db = db.to(dtype_of(cfg.output_dtype)).reshape(qb_data.shape)
+        else:
+            # dW = Q(A^T . dY): (M, K) x (M, N) -> (K, N)
+            db8, obs_db, h_db = _fused_gemm(a2, dy2, sa, qdy.scale, s_db,
+                                            cfg, cls_b, "tn", gen)
+            db = _fused_dequant(db8, s_db, cfg).reshape(qb_data.shape)
         if keys is not None and sctx.mode == "collect":
             track = _track(cfg)
             zero = torch.zeros((), device=dy.device)
@@ -316,6 +365,8 @@ class _QEinsumUnfused(torch.autograd.Function):
         ctx.meta = meta
         ctx.qscales = (qa.scale, qb.scale)
         ctx.dtypes = (a.dtype, b.dtype)
+        ctx.sum_groups = (_sum_group(a, classes[0]),
+                          _sum_group(b, classes[1]))
         return y
 
     @staticmethod
@@ -326,16 +377,25 @@ class _QEinsumUnfused(torch.autograd.Function):
         qb = QTensor(qb_data, ctx.qscales[1])
         qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen)
         da_spec, db_spec = adjoint_specs(spec)
-        da = _compute(da_spec, qdy, qb, cfg)
-        db = _compute(db_spec, qa, qdy, cfg)
-        # Weight gradients are stored in FP8 (class G, paper Fig. 1b).
-        g_obs = []
-        if classes[0] == WEIGHT:
-            da, *obs = _fake_quant_grad(da, cfg, gen, scales[3])
-            g_obs.append(obs)
-        if classes[1] == WEIGHT:
-            db, *obs = _fake_quant_grad(db, cfg, gen, scales[3])
-            g_obs.append(obs)
+        out_dtype = dtype_of(cfg.output_dtype)
+        # Weight gradients are stored in FP8 (class G, paper Fig. 1b); in
+        # a "full" step summed over the ranks first.
+        g_obs, grads = [], []
+        for x, y, adj, cls, group in ((qdy, qb, da_spec, classes[0],
+                                       ctx.sum_groups[0]),
+                                      (qa, qdy, db_spec, classes[1],
+                                       ctx.sum_groups[1])):
+            if group is not None:
+                g, *obs = _summed_wgrad(adj, x, y, cfg, group, gen,
+                                        scales[3], out_dtype)
+            else:
+                g = _compute(adj, x, y, cfg)
+                if cls == WEIGHT:
+                    g, *obs = _fake_quant_grad(g, cfg, gen, scales[3])
+            if cls == WEIGHT:
+                g_obs.append(obs)
+            grads.append(g)
+        da, db = grads
         if keys is not None and sctx.mode == "collect":
             sctx.record_bwd(keys["E"], _observe(qdy))
             if g_obs:

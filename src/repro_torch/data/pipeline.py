@@ -121,3 +121,19 @@ def host_shard(batch: Dict[str, np.ndarray], host_id: int,
         per = x.shape[0] // n_hosts
         return x[host_id * per:(host_id + 1) * per]
     return {k: slc(v) for k, v in batch.items()}
+
+
+def microbatch_shard(batch: Dict[str, np.ndarray], host_id: int,
+                     n_hosts: int, n_microbatches: int
+                     ) -> Dict[str, np.ndarray]:
+    """This rank's rows for a data-parallel "full" step of n microbatches:
+    for each microbatch i in turn, its `host_shard` of the reference's
+    microbatch i, the global rows [i B / n, (i + 1) B / n), so that the
+    step's split of these rows into n gives, in microbatch i, this rank's
+    share of the reference's. One microbatch: `host_shard`."""
+    def slc(x):
+        per = x.shape[0] // (n_microbatches * n_hosts)
+        return np.concatenate([
+            x[(i * n_hosts + host_id) * per:(i * n_hosts + host_id + 1)
+              * per] for i in range(n_microbatches)])
+    return {k: slc(v) for k, v in batch.items()}

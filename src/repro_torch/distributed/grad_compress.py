@@ -123,8 +123,9 @@ def make_full_dp_allreduce(group) -> Callable:
 def wire_bytes_model(tree: Any, n: int) -> dict:
     """Cost model of one step's gradient reduction, ring-style: 2 (N - 1) /
     N x numel payload bytes a rank, at 1 byte an element for fp8_ef and 2
-    for the bf16 baseline."""
-    numel = int(sum(int(np.prod(tuple(x.shape), dtype=np.int64))
+    for the bf16 baseline. Leaves: tensors, arrays or shape tuples."""
+    numel = int(sum(int(np.prod(tuple(getattr(x, "shape", x)),
+                                dtype=np.int64))
                     for x in _leaves(tree)))
     hops = 2.0 * (n - 1) / n if n > 1 else 0.0
     full = hops * numel * 2.0

@@ -19,10 +19,24 @@ groups come from the mesh. The data-parallel reduction's wire format:
       error-feedback all-reduce (`grad_compress`); the other dp axes
       reduce in f32 first.
 
-The port runs data parallelism: ZeRO-1 and tensor parallelism are
-recorded by `build` (so `describe()` is the reference's, field for field)
-but the training step refuses them, as it refuses an fp8 ZeRO gather
-(ROADMAP.md, queue 1, slice 10b).
+  policy.dist.wire_zero_gather = "full" | "fp8"
+      "fp8" moves ZeRO-1's weight all-gather as e4m3 payloads with one
+      scale a leaf, shared over the 'data' ranks (`gather_params`), in the
+      compressing step alone: the reference's "full" step never calls it.
+
+The plan owns the specs (`param_specs`, `master_specs` / `grad_specs`,
+`train_state_specs`, `batch_specs`; `distributed.sharding`'s rules) and
+ZeRO-1's shard bookkeeping: `zero_dims(params)` fixes, from the whole
+parameter tree, the dim each master leaf is split along over 'data' (the
+'data' entry of its master spec) and keeps it for the step and the loop;
+`shard_state` / `unshard_state` move a MixedPrecisionState between the
+whole layout and this rank's shards (master weights and Adam moments;
+the scalars stay whole); `shard` / `gather` do one tree. A rank's shard
+of a leaf is chunk r of N along its dim, r its rank in the 'data' group.
+
+The port runs data parallelism and ZeRO-1; tensor parallelism is recorded
+by `build` (so `describe()` is the reference's, field for field) but the
+training step refuses it (ROADMAP.md, queue 1, slice 10c).
 """
 from __future__ import annotations
 
@@ -33,11 +47,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.fp8_formats import E5M2
+from repro_torch.core.fp8_formats import E4M3, E5M2
 from repro_torch.core.precision_policy import DistConfig
+from repro_torch.core.quantize import quantize_rne
+from repro_torch.distributed import comm, sharding
 from repro_torch.distributed.grad_compress import (
     make_compressed_dp_allreduce, make_full_dp_allreduce, wire_bytes_model)
+from repro_torch.models.convert import zero_shard, zero_unshard
 from repro_torch.optim.optimizers import tmap
+
+# e4m3's shared gather scale is floored here, as the wire's scales are.
+_SCALE_FLOOR = 1e-30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +94,8 @@ class ParallelPlan:
     zero1: Optional[ZeRO1Sharded]
     tp: Optional[TensorParallel]
     _groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+    _zero: Dict[str, Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
     # -- construction --------------------------------------------------------
@@ -208,14 +230,159 @@ class ParallelPlan:
             return make_compressed_dp_allreduce(self.group(w), fmt=E5M2)
         return make_full_dp_allreduce(self.group(w))
 
+    # -- specs ---------------------------------------------------------------
+    def param_specs(self, params: Any, path_of=lambda p: p) -> Any:
+        if self.tp is None:
+            return sharding.replicated(params)
+        return sharding.param_specs(params, mesh_sizes(self.mesh),
+                                    path_of=path_of)
+
+    def master_specs(self, params: Any, pspecs: Any = None) -> Any:
+        """TP specs plus the ZeRO-1 'data' shard on the largest free dim."""
+        if pspecs is None:
+            pspecs = self.param_specs(params)
+        if self.zero1 is None:
+            return pspecs
+        return sharding.zero1_specs(params, pspecs, mesh_sizes(self.mesh))
+
+    # Gradients share the master layout (ZeRO-sharded).
+    grad_specs = master_specs
+
+    def train_state_specs(self, state: Any) -> Any:
+        """Spec tree of a MixedPrecisionState (the master and the moments
+        in the ZeRO-1 layout, the scalars replicated)."""
+        from repro_torch.core.loss_scale import LossScaleState
+        from repro_torch.core.master_weights import MixedPrecisionState
+        mspecs = self.master_specs(state.master)
+        opt = {k: (mspecs if k in ("mu", "nu") else ())
+               for k in state.opt_state}
+        return MixedPrecisionState(master=mspecs, opt_state=opt,
+                                   loss_scale=LossScaleState((), (), (), ()))
+
+    def batch_specs(self, batch: Any) -> Any:
+        if self.dp is None:
+            return sharding.replicated(batch)
+        return sharding.batch_specs(batch, mesh_sizes(self.mesh),
+                                    batch_axes=self.dp_axes)
+
+    # -- ZeRO-1 shard bookkeeping ---------------------------------------------
+    def zero_group(self):
+        return self.group(self.zero1.axis)
+
+    @property
+    def zero_size(self) -> int:
+        return mesh_sizes(self.mesh)[self.zero1.axis] if self.zero1 else 1
+
+    @property
+    def zero_rank(self) -> int:
+        return dist.get_rank(self.zero_group()) if self.zero1 else 0
+
+    def zero_dims(self, params: Any = None) -> Any:
+        """The ZeRO dim of each master leaf (its master spec's 'data'
+        entry, or None), from the whole tree `params` (tensors or shapes),
+        kept for later calls without `params`; None without ZeRO-1."""
+        if self.zero1 is None:
+            return None
+        if params is not None:
+            specs = self.master_specs(params)
+            self._zero["dims"] = tmap(
+                lambda s: sharding.dim_of(s, self.zero1.axis), specs)
+        if "dims" not in self._zero:
+            raise ValueError("the plan has no ZeRO layout yet: call "
+                             "plan.zero_dims(params) or plan.shard_state("
+                             "state) with the whole tree first")
+        return self._zero["dims"]
+
+    def shard(self, tree: Any) -> Any:
+        """This rank's shards of a whole tree shaped like the master."""
+        return zero_shard(tree, self.zero_dims(), self.zero_rank,
+                          self.zero_size)
+
+    def gather(self, tree: Any, *, to_host: bool = False) -> Any:
+        """The whole tree of the ranks' shards (an all-gather a sharded
+        leaf over 'data', every rank taking part; any dtype). `to_host`:
+        each whole leaf moves to host memory as soon as it is gathered
+        (the device never holds more than one whole leaf)."""
+        grp = self.zero_group()
+
+        def one(x, d):
+            if d is not None:
+                x = zero_unshard(list(comm.all_gather(x, grp)), d)
+            return x.cpu() if to_host else x
+        return tmap(one, tree, self.zero_dims())
+
+    def shard_state(self, state):
+        """A whole MixedPrecisionState -> this rank's (master, mu, nu
+        sharded; fixes the layout from the whole master)."""
+        self.zero_dims(state.master)
+        return self._map_state(state, self.shard)
+
+    def unshard_state(self, state, *, to_host: bool = False):
+        """This rank's sharded MixedPrecisionState -> the whole one, on
+        every rank (`to_host`: the master and moments in host memory)."""
+        return self._map_state(
+            state, lambda t: self.gather(t, to_host=to_host))
+
+    def _map_state(self, state, fn):
+        from repro_torch.core.master_weights import MixedPrecisionState
+        opt = {k: (fn(v) if k in ("mu", "nu") else v)
+               for k, v in state.opt_state.items()}
+        return MixedPrecisionState(master=fn(state.master), opt_state=opt,
+                                   loss_scale=state.loss_scale)
+
+    def full_shapes(self, shards: Any) -> Any:
+        """The whole shapes of a tree of this rank's shards."""
+        n = self.zero_size
+
+        def one(x, d):
+            shape = list(x.shape)
+            if d is not None:
+                shape[d] *= n
+            return tuple(shape)
+        if self.zero1 is None:
+            return tmap(lambda x: tuple(x.shape), shards)
+        return tmap(one, shards, self.zero_dims())
+
+    def gather_params(self, params: Any, *, fp8: bool) -> Any:
+        """ZeRO-1's weight all-gather of the compute params (this rank's
+        shards in the compute dtype) -> the whole leaves. `fp8` (the
+        compressing step under wire_zero_gather='fp8', as the reference
+        calls `gather_params` from its wire steps alone) moves each
+        sharded leaf as e4m3 payloads in the reference's arithmetic: x the
+        shard in f32, scale = the MAX of |x| over 'data' / 448 floored at
+        1e-30 (one MAX all-reduce of every leaf's amax), q = RNE_e4m3(x /
+        scale) saturating, the payloads gathered along the leaf's dim and
+        decoded as (q * scale) in the compute dtype. Otherwise the shards
+        travel as they are (bf16 bits)."""
+        grp = self.zero_group()
+        dims = self.zero_dims()
+        if not fp8:
+            return tmap(lambda x, d: x if d is None
+                        else comm.all_gather_dim(x, d, grp), params, dims)
+        sharded = [x for x, d in zip(_leaves(params), _leaves(dims))
+                   if d is not None]
+        scales = iter(e4m3_gather_scales(sharded, grp))
+
+        def leaf(x, d):
+            if d is None:
+                return x
+            scale = next(scales)
+            q = quantize_rne(x.float() / scale, E4M3, saturate=True)
+            g = comm.all_gather_dim(q.view(torch.uint8), d, grp)
+            return (g.view(E4M3.dtype).float() * scale).to(x.dtype)
+        return tmap(leaf, params, dims)
+
     # -- error-feedback wire state -------------------------------------------
     def init_wire_state(self, params: Any) -> Any:
         """This rank's error-feedback residual: an f32 zero tensor for each
-        master leaf, on its device. The reference's stacked residual holds
-        the n_wire ranks' on a leading axis (`models.convert.
+        master leaf at its whole shape (under ZeRO-1 `params` may be this
+        rank's shards), on its device. The reference's stacked residual
+        holds the n_wire ranks' on a leading axis (`models.convert.
         stack_wire_error`); the checkpoint keeps that layout."""
-        return tmap(lambda p: torch.zeros(tuple(p.shape), dtype=torch.float32,
-                                          device=p.device), params)
+        shapes = self.full_shapes(params)
+        return tmap(lambda p, s: torch.zeros(s, dtype=torch.float32,
+                                             device=p.device),
+                    params, shapes)
 
     # -- accounting / description --------------------------------------------
     def wire_bytes(self, params: Any) -> dict:
@@ -241,3 +408,22 @@ class ParallelPlan:
             "wire_zero_gather": self.dist.wire_zero_gather,
             "compresses": self.compresses,
         }
+
+
+def e4m3_gather_scales(shards, group):
+    """Each leaf's shared e4m3 gather scale: the MAX over `group` of the
+    shard's amax (one all-reduce of the vector), / 448, floored."""
+    if not shards:
+        return []
+    amax = torch.stack([x.float().abs().max() for x in shards])
+    amax = comm.all_reduce(amax, "max", group)
+    return list(torch.clamp_min(amax / E4M3.max_normal, _SCALE_FLOOR))
+
+
+def _leaves(tree):
+    """The leaves of nested dicts, in `tmap`'s order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

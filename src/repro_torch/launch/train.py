@@ -28,15 +28,22 @@ the process group (`--backend`: NCCL by default on the card, gloo with
 `--device cpu`; each rank on card `LOCAL_RANK` modulo the cards there) and
 builds a `ParallelPlan` over a flat `('data',)` DeviceMesh from
 `--wire` / `--zero-gather`, as the reference builds one when it sees more
-than one device. `--batch` is the global batch; each rank trains its
-slice. ZeRO-1 is not ported yet (ROADMAP.md, queue 1, slice 10b): the plan
-is built with `zero1=False`, and `--zero-gather fp8` is refused by the
-step. On one process the wire flags are ignored.
+than one device: from the config's `policy.dist` with its wire formats
+replaced, so ZeRO-1 is on (`DistConfig.zero1`'s default, as in the
+reference): each rank keeps its shards of the master weights and the Adam
+moments, and `--zero-gather fp8` moves the weight all-gather as e4m3
+payloads under `--wire fp8_ef` (under `--wire full` the reference never
+calls its fp8 gather, so there it trains as `--zero-gather full` does).
+`build_plan(zero1=False)` turns ZeRO-1 off. `--batch` is the global batch;
+each rank trains its slice. On one process the wire flags are ignored.
 
 `--report DIR` writes `DIR/rank<r>.json` per rank after the run: the
-step records, digests of the final master weights with the loss-scale
-state, of ScaleState and of the residual, the master leaves' sizes, the peak device memory, the kernels' launch counts over the run
-(set to 0 just before it) and what `distributed.comm` counted.
+step records, digests of the final master weights, Adam moments and
+loss-scale state (under ZeRO-1 of the state gathered whole, so equal
+digests still mean the replicas agree), of ScaleState and of the
+residual, the master leaves' whole sizes, the peak device memory, the
+kernels' launch counts over the run (set to 0 just before it) and what
+`distributed.comm` counted.
 
 `build_loop` makes the TrainLoop that `main` runs; chip_smoke.py drives the
 same function.
@@ -134,10 +141,11 @@ def dist_env():
 
 
 def build_plan(world: int, backend: str, device, wire: str = "full",
-               zero_gather: str = "full"):
+               zero_gather: str = "full", zero1: Optional[bool] = None):
     """Joins the process group (if this process has not) and returns the
     launcher's data-parallel plan over a flat ('data',) mesh of `world`
-    ranks; ZeRO-1 off (slice 10b)."""
+    ranks: `DistConfig()` (the configs' policy.dist) with its wire formats
+    replaced, ZeRO-1 on unless `zero1=False`."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -151,11 +159,31 @@ def build_plan(world: int, backend: str, device, wire: str = "full",
     mesh_dev = "cuda" if backend == "nccl" else "cpu"
     mesh = DeviceMesh(mesh_dev, torch.arange(world),
                       mesh_dim_names=("data",))
-    return ParallelPlan.build(mesh, DistConfig(
-        wire=wire, wire_zero_gather=zero_gather, zero1=False))
+    dist_cfg = dataclasses.replace(DistConfig(), wire=wire,
+                                   wire_zero_gather=zero_gather)
+    if zero1 is not None:
+        dist_cfg = dataclasses.replace(dist_cfg, zero1=zero1)
+    return ParallelPlan.build(mesh, dist_cfg)
 
 
 _WORDS = {4: "int32", 2: "int16", 1: "uint8"}
+
+
+def _word_sum(words, index):
+    """sum_i w_i (2 h(i) + 1) mod 2^64 (an int64 tensor) over words w_i at
+    positions `index` (int64 tensors of one shape), h a multiplicative
+    hash of the position."""
+    import torch
+    h = (index * 0x9E3779B1 + 0x7F4A7C15) & 0xFFFFFFFF
+    return (words.to(torch.int64) * (2 * h + 1)).sum()
+
+
+def _words(t, nbytes: int):
+    """The word size of a tensor of `nbytes` bytes (4, 2 or 1: the largest
+    that divides them) and its torch dtype."""
+    import torch
+    size = next(k for k in (4, 2, 1) if nbytes % k == 0)
+    return size, getattr(torch, _WORDS[size])
 
 
 def _checksum(t) -> int:
@@ -165,23 +193,61 @@ def _checksum(t) -> int:
     changes it."""
     import torch
     flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
-    size = next(k for k in (4, 2, 1) if flat.numel() % k == 0)
-    words = flat.view(getattr(torch, _WORDS[size]))
+    _, dtype = _words(t, flat.numel())
+    words = flat.view(dtype)
     total = torch.zeros((), dtype=torch.int64, device=t.device)
     chunk = 1 << 26
     for lo in range(0, words.numel(), chunk):
-        w = words[lo:lo + chunk].to(torch.int64)
-        i = torch.arange(lo, lo + w.numel(), dtype=torch.int64,
-                         device=t.device)
-        h = (i * 0x9E3779B1 + 0x7F4A7C15) & 0xFFFFFFFF
-        total = total + (w * (2 * h + 1)).sum()
+        w = words[lo:lo + chunk]
+        total = total + _word_sum(w, torch.arange(
+            lo, lo + w.numel(), dtype=torch.int64, device=t.device))
     return int(total)
 
 
-def state_digest(tree) -> str:
+def _shard_checksum(shard, dim: int, plan):
+    """The whole leaf's `_checksum` from ZeRO-1 shards without gathering
+    them: this rank's words at their positions in the whole leaf, summed
+    over 'data' (wrapping mod 2^64, as the whole sum does). The shard is
+    chunk r of N along `dim`, so each of its rows over the dims before
+    `dim` is one run of the whole's bytes. None where a run does not fill
+    whole words (the caller gathers that leaf)."""
+    import torch
+
+    from repro_torch.distributed import comm
+    n, r = plan.zero_size, plan.zero_rank
+    es = shard.element_size()
+    shape = list(shard.shape)
+    outer = int(np.prod(shape[:dim], dtype=np.int64))
+    inner = int(np.prod(shape[dim + 1:], dtype=np.int64))
+    run = shape[dim] * inner * es              # a row's bytes in the shard
+    size, dtype = _words(shard, shard.numel() * es * n)
+    if run % size:
+        return None
+    per, stride = run // size, run * n // size
+    rows = shard.detach().contiguous().reshape(-1).view(torch.uint8) \
+        .reshape(outer, run).view(dtype)
+    total = torch.zeros((), dtype=torch.int64, device=shard.device)
+    step = max(1, (1 << 26) // max(per, 1))
+    for lo in range(0, outer, step):
+        w = rows[lo:lo + step]
+        o = torch.arange(lo, lo + w.shape[0], dtype=torch.int64,
+                         device=shard.device)
+        j = torch.arange(per, dtype=torch.int64, device=shard.device)
+        total = total + _word_sum(w, o[:, None] * stride + r * per + j)
+    return int(comm.all_reduce(total.reshape(1), "sum",
+                               plan.zero_group())[0])
+
+
+def state_digest(tree, plan=None, dims=None) -> str:
     """sha256 over each tensor / array leaf of a (nested dict / dataclass)
     tree, in path order: its path, dtype, shape and 64-bit checksum of its
-    bytes (`_checksum`, on the leaf's device: no copy to the host)."""
+    bytes (`_checksum`, on the leaf's device: no copy to the host). With a
+    ZeRO-1 `plan` and `dims` (a dict tree over the same top-level paths,
+    each leaf a ZeRO dim or None, a None subtree for parts kept whole),
+    the leaves of `tree` that are this rank's shards are digested as the
+    whole leaves they are chunks of (shape and checksum summed over the
+    ranks, `_shard_checksum`), so every rank writes the digest of the
+    state gathered whole without gathering it; every rank must call it."""
     import hashlib
 
     import torch
@@ -191,8 +257,33 @@ def state_digest(tree) -> str:
     for key, leaf in sorted(_flatten(tree).items()):
         t = leaf if isinstance(leaf, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(leaf))
-        h.update(f"{key}|{t.dtype}|{tuple(t.shape)}|{_checksum(t)}".encode())
+        d = _dim_at(dims, key)
+        shape, total = tuple(t.shape), None
+        if d is not None:
+            shape = tuple(s * plan.zero_size if i == d else s
+                          for i, s in enumerate(shape))
+            total = _shard_checksum(t, d, plan)
+            if total is None:
+                t = _gather_leaf(t, d, plan)
+        if total is None:
+            total = _checksum(t)
+        h.update(f"{key}|{t.dtype}|{shape}|{total}".encode())
     return h.hexdigest()
+
+
+def _dim_at(dims, key: str):
+    """The ZeRO dim of the leaf at `key` (a '/'-joined path) in `dims`."""
+    for part in key.split("/"):
+        if not isinstance(dims, dict):
+            return None
+        dims = dims.get(part)
+    return dims if isinstance(dims, int) else None
+
+
+def _gather_leaf(t, dim: int, plan):
+    from repro_torch.distributed import comm
+    from repro_torch.models.convert import zero_unshard
+    return zero_unshard(list(comm.all_gather(t, plan.zero_group())), dim)
 
 
 def reset_kernel_launches():
@@ -234,7 +325,15 @@ def write_report(path: str, rank: int, world: int, loop, out, records):
 
     from repro_torch.distributed import comm
     from repro_torch.obs.metrics import jsonable
+    from repro_torch.optim.optimizers import tmap
     state = out["state"]
+    dev = state.loss_scale.scale.device
+    plan, dims = loop.plan, None
+    if plan is not None and plan.zero1 is not None:
+        d = plan.zero_dims()
+        dims = {"master": d, "opt_state": {"mu": d, "nu": d}}
+    shapes = plan.full_shapes(state.master) if plan is not None \
+        else tmap(lambda x: tuple(x.shape), state.master)
     err = out.get("wire_error")
     err_max = max((float(e.abs().max()) for e in _leaves(err)),
                   default=0.0) if err is not None else None
@@ -246,13 +345,14 @@ def write_report(path: str, rank: int, world: int, loop, out, records):
         "records": [{k: jsonable(v) for k, v in r.items()
                      if not k.startswith("health/")} for r in records],
         "state_digest": state_digest(
-            {"master": state.master, "loss_scale": state.loss_scale}),
+            {"master": state.master, "opt_state": state.opt_state,
+             "loss_scale": state.loss_scale}, plan, dims),
         "scale_state_digest": (state_digest(out["scale_state"])
                                if out["scale_state"] is not None else None),
         "wire_error_digest": (state_digest(err) if err is not None
                               else None),
         "wire_error_absmax": err_max,
-        "leaf_numels": [int(x.numel()) for x in _leaves(state.master)],
+        "leaf_numels": [int(np.prod(x)) for x in _leaves(shapes)],
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None),
         "launches": kernel_launches(),
@@ -300,7 +400,9 @@ def main(argv=None):
                          "with error feedback (more than one process)")
     ap.add_argument("--zero-gather", default="full", choices=["full", "fp8"],
                     help="ZeRO-1 weight all-gather wire format (more than "
-                         "one process; ZeRO-1 is not ported yet)")
+                         "one process; fp8 = e4m3 payloads under --wire "
+                         "fp8_ef, inert under --wire full as in the "
+                         "reference)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],

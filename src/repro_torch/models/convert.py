@@ -19,7 +19,12 @@ is padded: the embedding already has `padded_vocab_size` rows.
 The data-parallel wire's residual has two layouts, the reference's one
 tree stacked over the wire's ranks and the port's one tree a rank:
 `stack_wire_error`, `unstack_wire_error` and `wire_error_from_jax` convert
-(the checkpoint stores the stacked one).
+(the checkpoint stores the stacked one). ZeRO-1's master weights and
+moments have two as well, the whole tree (the reference's layout, which
+the checkpoint stores) and one rank's shards: `zero_shard` and
+`zero_unshard` convert, given each leaf's ZeRO dim. `jax_path` maps a
+parameter path of the port to the reference's (the sharding rules match
+the reference's paths).
 """
 from __future__ import annotations
 
@@ -140,3 +145,51 @@ def _np_leaves(tree):
             yield from _np_leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1's two layouts. `dims` is a tree like the state's, each leaf the dim
+# the leaf is split along over the ranks (None: kept whole on every rank).
+# ---------------------------------------------------------------------------
+
+def zero_shard(tree, dims, index: int, n: int):
+    """Rank `index`'s shards of a whole tree: chunk `index` of `n` equal
+    chunks of each leaf along its dim (a contiguous copy); leaves without
+    a dim are returned as they are."""
+    if isinstance(tree, dict):
+        return {k: zero_shard(v, dims[k], index, n) for k, v in tree.items()}
+    if dims is None:
+        return tree
+    return torch.chunk(tree, n, dim=dims)[index].contiguous()
+
+
+def zero_unshard(shards, dims):
+    """[rank 0's shard tree, rank 1's, ...] -> the whole tree: each leaf's
+    shards concatenated along its dim in rank order (a leaf without a dim
+    is rank 0's)."""
+    first = shards[0]
+    if isinstance(first, dict):
+        return {k: zero_unshard([s[k] for s in shards], dims[k])
+                for k in first}
+    if dims is None:
+        return first
+    return torch.cat(list(shards), dim=dims)
+
+
+def jax_path(path: str, cfg: ModelConfig) -> str:
+    """The reference's path of a port parameter path: a decoder (or
+    encoder) `layer_{i}` is the reference's `stack_{i mod kinds}` under
+    scanned layers, `layer_{i}` unscanned, or `rem_{j}` past the whole
+    groups (the inverse of `from_jax_params`' split)."""
+    parts = path.split("/")
+    if len(parts) > 1 and parts[0] in ("decoder", "encoder") \
+            and parts[1].startswith("layer_"):
+        i = int(parts[1][len("layer_"):])
+        n, kinds = ((cfg.n_layers, len(cfg.pattern()))
+                    if parts[0] == "decoder" else (cfg.n_encoder_layers, 1))
+        groups = n // kinds
+        if i >= groups * kinds:
+            parts[1] = f"rem_{i - groups * kinds}"
+        elif cfg.scan_layers and groups > 1:
+            parts[1] = f"stack_{i % kinds}"
+    return "/".join(parts)

@@ -30,6 +30,18 @@ constraints (expert parallelism) have no single-device counterpart.
 Each function returns (y, aux) with aux {"lb_loss", "router_z_loss",
 "dropped_frac"}, 0-d f32 tensors; the first two carry gradients to the
 router, the third has none.
+
+Inside a data-parallel "full" step (`distributed.global_batch.current()`
+active) the reference computes the aux losses over the global batch, of
+which this rank holds 1 / n_ranks of the rows. Per-sample dispatch is a
+function of each row alone, so each rank dispatches its rows as the
+reference does, and the aux losses become the rank's contributions, which
+the step sums over the ranks: lb_loss = E coef sum(me_r ce_g), me_r the
+rank's router probabilities summed over its tokens over the global token
+count, ce_g the expert counts summed over the ranks over the global pair
+count (no gradient); router_z_loss the rank's sum of lse^2 over the global
+token count, times 1e-3; dropped_frac the rank's dropped pairs over the
+global pair count. (Global dispatch is refused there by the step.)
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import torch
 
 from repro_torch.core.precision_policy import QuantConfig
 from repro_torch.core.qlinear import qeinsum
+from repro_torch.distributed import comm, global_batch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -90,9 +103,24 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx = top_k(probs, k)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    flat = expert_idx.reshape(-1)
+    gb = global_batch.current()
+    if gb is not None:
+        # The rank's contributions to the global batch's aux losses: their
+        # sum over the ranks is the global value (module docstring).
+        tokens = float(flat.numel() // k * gb.n_ranks)
+        me = probs.reshape(-1, e).sum(dim=0) / tokens
+        counts = torch.zeros((e,), dtype=torch.float32,
+                             device=x.device).index_add_(
+            0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                device=x.device))
+        ce = comm.all_reduce(counts, "sum", gb.group) / (tokens * k)
+        lb_loss = e * torch.sum(me * ce) * cfg.router_aux_coef
+        z_loss = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) \
+            / tokens * 1e-3
+        return gate, expert_idx, lb_loss, z_loss
     n_pairs = expert_idx.numel()
     me = probs.reshape(-1, e).mean(dim=0)
-    flat = expert_idx.reshape(-1)
     ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
         0, flat, torch.full(flat.shape, 1.0 / n_pairs, dtype=torch.float32,
                             device=x.device))
@@ -138,8 +166,14 @@ def _combine(pair_out: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _aux(lb_loss, z_loss, keep) -> Dict[str, torch.Tensor]:
+    gb = global_batch.current()
+    if gb is not None:
+        dropped = (~keep).sum().to(torch.float32) \
+            / float(keep.numel() * gb.n_ranks)
+    else:
+        dropped = 1.0 - keep.float().mean()
     return {"lb_loss": lb_loss, "router_z_loss": z_loss,
-            "dropped_frac": 1.0 - keep.float().mean()}
+            "dropped_frac": dropped}
 
 
 def moe_ffn(params, x: torch.Tensor, *, cfg: ModelConfig, qcfg: QuantConfig,

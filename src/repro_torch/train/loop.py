@@ -24,7 +24,9 @@ is checkpointed beside the optimizer state.
 
 Data parallelism (`plan`, a `distributed.strategy.ParallelPlan`; the loop
 runs on every rank of its mesh): each rank takes its slice of every global
-batch (`data.pipeline.host_shard` at `plan.dp_rank`). When the plan
+batch (`data.pipeline.host_shard` at `plan.dp_rank`; under a "full" plan
+with several microbatches `data.pipeline.microbatch_shard`, its share of
+each of the reference's microbatches). When the plan
 compresses (wire "fp8_ef") the error-feedback residual rides the step like
 ScaleState: checkpointed under "wire_error" in the reference's layout (the
 wire's ranks stacked on a leading axis, gathered for the save; each rank
@@ -32,10 +34,18 @@ restores its own slot), returned by `run()`, and timed by a sampled
 `allreduce` span (the wire collective on the residual, every `log_every`
 steps). Records carry the modeled `comm/*` bytes of `plan.wire_bytes` and
 the bytes `distributed.comm` counted in the step (`comm/sent_payload_bytes`,
-`comm/sent_reduce_bytes`, `comm/staged_bytes`). Rank 0 alone writes the
-checkpoint and the metrics file; the ranks meet at a barrier after the
-last save, and a preemption signal that reaches any rank stops them all
-after the same step.
+`comm/sent_reduce_bytes`, `comm/sent_zero_gather_bytes`,
+`comm/staged_bytes`). Rank 0 alone writes the checkpoint and the metrics
+file; the ranks meet at a barrier after the last save, and a preemption
+signal that reaches any rank stops them all after the same step.
+
+ZeRO-1 (plan.zero1): each rank initializes the whole state, keeps its
+shards (`plan.shard_state`) and trains them. The checkpoint keeps the
+reference's layout, whole arrays: every rank takes part in gathering the
+master weights and the moments (`plan.unshard_state`) and rank 0 writes
+them; on restore every rank reads the whole arrays and keeps its slice. A
+checkpoint written without ZeRO-1 therefore restores under it, and the
+other way round. `run()` returns this rank's sharded state.
 """
 from __future__ import annotations
 
@@ -52,7 +62,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.master_weights import MixedPrecisionOptimizer
-from repro_torch.data.pipeline import host_shard
+from repro_torch.data.pipeline import host_shard, microbatch_shard
 from repro_torch.device import resolve_device
 from repro_torch.distributed import comm
 from repro_torch.models.config import ModelConfig
@@ -123,6 +133,7 @@ class TrainLoop:
         self.wire = plan is not None and plan.compresses
         self.shard = plan is not None and plan.dp is not None \
             and plan.dp_size > 1
+        self.zero = plan is not None and plan.zero1 is not None
         self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
         self.ckpt = Checkpointer(loop.checkpoint_dir,
                                  keep_last_k=loop.keep_last_k)
@@ -187,10 +198,44 @@ class TrainLoop:
 
     def _save(self, step, state, scale_state, err, extra):
         stacked = self._stacked_error(err) if self.wire else None
+        if self.zero:
+            state = self.plan.unshard_state(state, to_host=True)
         if self.rank0:
             self.ckpt.save(step, self._pack(state, scale_state, stacked),
                            extra=extra)
-        del stacked
+        del stacked, state
+
+    def _restore_target(self, state):
+        """A whole-layout state to restore into: under ZeRO-1 host tensors
+        of the whole shapes (the checkpoint holds whole arrays)."""
+        if not self.zero:
+            return state
+        shapes = self.plan.full_shapes(state.master)
+
+        def whole(x, s):
+            return torch.empty(s, dtype=x.dtype)
+        from repro_torch.core.master_weights import MixedPrecisionState
+        opt = {k: (tmap(whole, v, shapes) if k in ("mu", "nu") else v)
+               for k, v in state.opt_state.items()}
+        return MixedPrecisionState(master=tmap(whole, state.master, shapes),
+                                   opt_state=opt,
+                                   loss_scale=state.loss_scale)
+
+    def _keep_slice(self, state, whole):
+        """Copy this rank's slice of the restored whole state into its
+        shards (in place)."""
+        mine = self.plan.shard_state(whole)
+        tmap(lambda s, w: s.copy_(w), state.master, mine.master)
+        for k in ("mu", "nu"):
+            if k in state.opt_state:
+                tmap(lambda s, w: s.copy_(w), state.opt_state[k],
+                     mine.opt_state[k])
+        opt = dict(whole.opt_state)
+        for k in ("mu", "nu"):
+            if k in opt:
+                opt[k] = state.opt_state[k]
+        return dataclasses.replace(state, opt_state=opt,
+                                   loss_scale=whole.loss_scale)
 
     def run(self) -> Dict[str, Any]:
         path = self.loop.metrics_path if self.rank0 else None
@@ -205,11 +250,14 @@ class TrainLoop:
         dev = self.device
         state = self.optimizer.init(init_lm(self.cfg, seed=self.seed,
                                             device=dev))
+        if self.zero:
+            state = self.plan.shard_state(state)
         scale_state = self.scaling.init() if self.scaling else None
         err = self.plan.init_wire_state(state.master) if self.wire else None
         if self.wire:
             self._comm = {f"comm/{k}": v for k, v in
-                          self.plan.wire_bytes(state.master).items()
+                          self.plan.wire_bytes(
+                              self.plan.full_shapes(state.master)).items()
                           if isinstance(v, (int, float))}
         start_step = 0
         ema = None
@@ -218,8 +266,11 @@ class TrainLoop:
             stacked = stack_wire_error([err] * self.plan.n_wire) \
                 if self.wire else None
             tree, start_step = self.ckpt.restore(
-                self._pack(state, scale_state, stacked))
-            state, scale_state, stacked = self._unpack(tree)
+                self._pack(self._restore_target(state), scale_state,
+                           stacked))
+            whole, scale_state, stacked = self._unpack(tree)
+            state = self._keep_slice(state, whole) if self.zero else whole
+            del whole
             if self.wire:
                 # This rank's slot of the stacked residual, in its own
                 # tensors.
@@ -246,7 +297,11 @@ class TrainLoop:
             t0 = time.time()
             with self.tracer.span("data_wait", step=step):
                 batch = next(self.data)
-                if self.shard:
+                n_mb = self.loop.n_microbatches
+                if self.shard and not self.wire and n_mb > 1:
+                    batch = microbatch_shard(batch, self.plan.dp_rank,
+                                             self.plan.dp_size, n_mb)
+                elif self.shard:
                     batch = host_shard(batch, self.plan.dp_rank,
                                        self.plan.dp_size)
             gen = torch.Generator(device=dev).manual_seed(

@@ -37,11 +37,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.loss_scale import LossScaler
+from repro_torch.core.loss_scale import LossScaler, all_finite
 from repro_torch.core.master_weights import (MixedPrecisionOptimizer,
                                              MixedPrecisionState)
 from repro_torch.device import resolve_device
-from repro_torch.distributed import comm
+from repro_torch.distributed import comm, global_batch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import encode, forward, lm_loss
 from repro_torch.optim.optimizers import (make_leafwise, make_optimizer,
@@ -68,18 +68,29 @@ def make_optimizer_for(cfg: ModelConfig, *, name: str = "adam",
         accum_names=names, leaf_update=leaf)
 
 
-def _refuse_slice_10b(plan):
-    """The plan's parts that belong to the next slice (ZeRO-1, tensor
-    parallelism, the fp8 ZeRO gather) raise."""
-    what = [w for w, on in (("ZeRO-1 sharding", plan.zero1 is not None),
-                            ("tensor parallelism", plan.tp is not None),
-                            ("an fp8 ZeRO gather (wire_zero_gather='fp8')",
-                             plan.dist.wire_zero_gather == "fp8")) if on]
-    if what:
+def _refuse_unported(plan, cfg: ModelConfig, spmd: bool):
+    """What the step does not run yet raises, naming ROADMAP.md: tensor
+    parallelism (slice 10c); under "full", a mixture-of-experts model's
+    global-dispatch ablation, whose dispatch the reference computes over
+    the global batch, and a tied embedding table under a quantized head,
+    whose gradient would be summed in the backward through the head and
+    not through the embedding (`distributed.global_batch`)."""
+    if plan.tp is not None:
         raise NotImplementedError(
-            f"{', '.join(what)} is not ported to the training step yet "
-            "(ROADMAP.md, queue 1, slice 10b); build the plan with "
-            "DistConfig(zero1=False, tp=False, wire_zero_gather='full')")
+            "tensor parallelism is not ported to the training step yet "
+            "(ROADMAP.md, queue 1, slice 10c); build the plan with "
+            "DistConfig(tp=False) or a mesh without a 'model' dim")
+    if spmd and cfg.n_experts and not cfg.moe_per_sample_dispatch:
+        raise NotImplementedError(
+            "the mixture-of-experts global-dispatch ablation "
+            "(moe_per_sample_dispatch=False) under wire='full': the "
+            "reference dispatches over the tokens of the global batch, "
+            "which no rank holds (ROADMAP.md, queue 1); use per-sample "
+            "dispatch or wire='fp8_ef'")
+    if spmd and cfg.tie_embeddings and cfg.policy.quantize_logits_head:
+        raise NotImplementedError(
+            "a tied embedding table under a quantized logits head with "
+            "wire='full' (ROADMAP.md, queue 1)")
 
 
 def _combine(gathered: torch.Tensor, op: str) -> torch.Tensor:
@@ -124,17 +135,24 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     those without recomputation, bit for bit.
 
     plan: a data-parallel `distributed.strategy.ParallelPlan`, the step
-    running on every rank of its mesh, each with its own shard of the
-    global batch (`data.pipeline.host_shard(batch, plan.dp_rank,
-    plan.dp_size)`) and the same generator seed. Two paths, as in the
+    running on every rank of its mesh, each with its own rows of the
+    global batch and the same generator seed. Two paths, as in the
     reference:
       * wire "full" (and a plan that does not compress): the reference's
-        one program over the global batch. The nll divides by the global
-        mask count (an all-reduce before the loss), the gradients are
-        summed in f32 over the dp ranks, the loss and nll summed. Each
-        rank's wgrad Q node quantizes and observes its shard's partial
-        gradient, where the reference's program quantizes the global sum
-        (ROADMAP.md, queue 3).
+        one program over the global batch. The rank's rows: with one
+        microbatch its contiguous shard (`data.pipeline.host_shard(batch,
+        plan.dp_rank, plan.dp_size)`); with n > 1 microbatches, in each
+        microbatch i, its share of the reference's microbatch i, the
+        global rows [i B / n, (i + 1) B / n) (`data.pipeline.
+        microbatch_shard(batch, plan.dp_rank, plan.dp_size, n)`, which
+        the loop applies). The nll divides by the microbatch's global
+        mask count (an all-reduce before the loss); every weight-operand
+        gradient of `qeinsum` is summed in f32 over the dp ranks inside
+        the backward, before its class-G Q node, so the Q node quantizes
+        and observes the global sum (`distributed.global_batch`); the
+        other gradients are summed in f32 after the backward; the loss,
+        nll and aux losses are summed (a mixture-of-experts layer returns
+        the rank's contributions to the global batch's aux losses).
       * plan.compresses (wire "fp8_ef" over a wire dim of more than one
         rank): each rank's loss is its shard's own mean; the gradients
         are averaged in f32 over the inner dp dims, then through the e5m2
@@ -150,11 +168,24 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     step's dense vector before its one device->host read. Every rank
     applies the same reduced gradients, so master weights, optimizer and
     loss-scale state and ScaleState stay equal across ranks, bit for bit,
-    and a non-finite gradient skips the step on every rank. Refused
-    (NotImplementedError): ZeRO-1, tensor parallelism and an fp8 ZeRO
-    gather (slice 10b), and a mixture-of-experts model under "full",
-    whose capacity dispatch and aux losses the reference computes over
-    the global batch (ROADMAP.md, queue 1).
+    and a non-finite gradient skips the step on every rank.
+
+    ZeRO-1 (plan.zero1): `state` holds this rank's shards of the master
+    weights and the Adam moments (`plan.shard_state(whole state)`; the
+    count, the loss scale and the residual stay whole). The step gathers
+    the compute params over 'data' (bf16 shards; under a compressing plan
+    with wire_zero_gather="fp8" the e4m3 gather, `plan.gather_params`),
+    reduces each gradient to this rank's shard (under "full" a
+    reduce-scatter over 'data', after a sum over the other dp dims; a
+    gradient summed in the backward is sliced; under the wire the
+    reduced gradient is sliced), combines the overflow flag and the
+    squared grad norm over 'data' before the update, so that every rank
+    skips an overflowing step together, and updates its shards in place.
+    At two ranks its states are those without ZeRO-1, sliced, bit for
+    bit. Refused (NotImplementedError, naming ROADMAP.md): tensor
+    parallelism (slice 10c) and, under "full", a mixture-of-experts
+    model's global-dispatch ablation and a tied embedding under a
+    quantized head (`_refuse_unported`).
 
     The master weights and optimizer state are updated in place (see
     core.master_weights)."""
@@ -162,25 +193,31 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     if n_microbatches < 1:
         raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
     cfg.check_ported()
-    if plan is not None:
-        _refuse_slice_10b(plan)
     wire = plan is not None and plan.compresses
-    spmd = False
+    spmd = plan is not None and not wire and plan.dp is not None \
+        and plan.dp_size > 1
     if plan is not None:
-        spmd = not wire and plan.dp is not None and plan.dp_size > 1
-        if spmd and cfg.n_experts:
-            raise NotImplementedError(
-                "a mixture-of-experts model under wire='full': the "
-                "reference dispatches experts and computes the aux losses "
-                "over the global batch, which the ranks' shards do not "
-                "(ROADMAP.md, queue 1); use wire='fp8_ef', whose reference "
-                "is per rank")
+        _refuse_unported(plan, cfg, spmd)
+    zero = plan is not None and plan.zero1 is not None
+    gather_fp8 = zero and wire and plan.dist.wire_zero_gather == "fp8"
     if wire:
         amax_sync = None
-    dp_group = plan.dp_group() if (wire or spmd) else None
-    wire_reduce = plan.dp_allreduce() if wire else None
-    inner = [(plan.group(a), comm.group_size(plan.group(a)))
-             for a in plan.inner_dp_axes] if wire else []
+    # The process groups, looked up at the first call (every rank of the
+    # mesh makes a multi-dim group in the same order).
+    groups: Dict[str, object] = {}
+
+    def group_table():
+        if groups or not (wire or spmd or zero):
+            return groups
+        groups["dp"] = plan.dp_group() if (wire or spmd) else None
+        groups["wire"] = plan.dp_allreduce() if wire else None
+        groups["inner"] = [(plan.group(a), comm.group_size(plan.group(a)))
+                           for a in plan.inner_dp_axes] if wire else []
+        if zero:
+            groups["zero"] = plan.zero_group()
+            outer = tuple(a for a in plan.dp_axes if a != plan.zero1.axis)
+            groups["outer"] = plan.group(outer) if outer else None
+        return groups
 
     def global_denom(mb):
         """The global batch's max(mask count, 1) for this rank's shard."""
@@ -189,7 +226,7 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
             if mask is not None else torch.full(
                 (), float(np.prod(np.shape(mb["labels"]))), device=dev)
         return torch.clamp_min(
-            comm.all_reduce(local.reshape(1), "sum", dp_group)[0], 1.0)
+            comm.all_reduce(local.reshape(1), "sum", groups["dp"])[0], 1.0)
 
     def grads_of(params, batch, generator, scale, collect):
         """The loss pass of one step: (scaled loss, its metrics (nll and
@@ -226,16 +263,59 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
                 for k in metses[0]}
         return torch.stack(losses).mean(), mets, acc, ctx
 
-    def reduce_grads(grads, err):
-        """The dp reduction of the step's gradients: (reduced, new err)."""
+    def reduce_grads(grads, err, summed):
+        """The dp reduction of the step's gradients: (reduced, new err).
+        `summed`: a tree of bools, the leaves summed in the backward.
+        Under ZeRO-1 each leaf comes out as this rank's shard."""
+        dims = plan.zero_dims() if zero else tmap(lambda _: None, grads)
+        n_zero = plan.zero_size if zero else 1
+
+        def mine(g, d):
+            return g if d is None else \
+                torch.chunk(g, n_zero, dim=d)[plan.zero_rank]
+
         with torch.no_grad():
             if spmd:
-                return tmap(lambda g: comm.all_reduce(g.float(), "sum",
-                                                      dp_group), grads), err
+                def one(g, was_summed, d):
+                    g = g.float()
+                    if was_summed:
+                        return mine(g, d)
+                    if d is None:
+                        return comm.all_reduce(g, "sum", groups["dp"])
+                    if groups["outer"] is not None:
+                        g = comm.all_reduce(g, "sum", groups["outer"])
+                    return comm.reduce_scatter(g, d, groups["zero"])
+                return tmap(one, grads, summed, dims), err
+            if not wire:
+                return tmap(lambda g, d: mine(g.float(), d), grads,
+                            dims), err
             g32 = tmap(lambda g: g.float(), grads)
-            for grp, n in inner:
+            for grp, n in groups["inner"]:
                 g32 = tmap(lambda g: comm.all_reduce(g, "sum", grp) / n, g32)
-            return wire_reduce(g32, err)
+            red, err = groups["wire"](g32, err)
+            return tmap(mine, red, dims), err
+
+    def norm_and_finite(grads):
+        """(the whole gradient's sum of squares, its overflow flag or None
+        for `apply_gradients` to compute). Under ZeRO-1 the shards' parts
+        are summed over 'data' in one all-reduce."""
+        if not zero:
+            return sum(torch.sum(torch.square(g.float()))
+                       for g in _leaves(grads)), None
+        pairs = list(zip(_leaves(grads), _leaves(plan.zero_dims())))
+        shards = [g for g, d in pairs if d is not None]
+        whole = [g for g, d in pairs if d is None]
+        zero_ = torch.zeros((), dtype=torch.float32, device=dev)
+        part = torch.stack([
+            sum((torch.sum(torch.square(g)) for g in shards), zero_),
+            sum(((~torch.isfinite(g)).sum().float() for g in shards),
+                zero_)])
+        part = comm.all_reduce(part, "sum", groups["zero"])
+        sq = part[0] + sum((torch.sum(torch.square(g)) for g in whole),
+                           zero_)
+        finite = (part[1] == 0) & all_finite({str(i): g for i, g in
+                                              enumerate(whole)})
+        return sq, finite
 
     def combine_ranks(local, pending, ctx):
         """The ranks' step scalars (loss, nll, aux: summed under "full",
@@ -243,7 +323,7 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         (amaxes by MAX; health pairs averaged, the wire's forward pairs by
         MAX), in one all-gather. Returns (scalars, observations)."""
         vec = torch.cat([v.float().reshape(-1) for v in local] + pending)
-        rows = comm.all_gather(vec, dp_group)
+        rows = comm.all_gather(vec, groups["dp"])
         n_amax = len(ctx.collected) + len(ctx.collected_bwd) if ctx else 0
         n_fwd_health = 2 * len(ctx.health) if ctx else 0
         cuts = np.cumsum([len(local), n_amax, n_fwd_health])
@@ -261,20 +341,30 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         if state.loss_scale.scale.device.type != dev.type:
             raise ValueError(f"train state on {state.loss_scale.scale.device}"
                              f", step built for {dev}")
-        params = tmap(lambda p: p.requires_grad_(True),
-                      optimizer.compute_params(state))
-        loss, mets, grads, ctx = grads_of(params, batch, generator,
-                                          state.loss_scale.scale, collect)
+        group_table()
+        params = optimizer.compute_params(state)
+        if zero:
+            with torch.no_grad():
+                params = plan.gather_params(params, fp8=gather_fp8)
+        params = tmap(lambda p: p.requires_grad_(True), params)
+        gb = global_batch.GlobalBatch(groups["dp"], plan.dp_size,
+                                      _leaves(params)) if spmd else None
+        with global_batch.active(gb):
+            loss, mets, grads, ctx = grads_of(params, batch, generator,
+                                              state.loss_scale.scale,
+                                              collect)
+        summed = tmap(lambda p: gb is not None and id(p) in gb.summed,
+                      params)
         del params
-        if dp_group is not None:
-            grads, err = reduce_grads(grads, err)
-        new_state, opt_m = optimizer.apply_gradients(state, grads)
+        if wire or spmd or zero:
+            grads, err = reduce_grads(grads, err, summed)
+        sq, finite = norm_and_finite(grads)
+        new_state, opt_m = optimizer.apply_gradients(state, grads, finite)
         inv = optimizer.scaler.inverse(state.loss_scale)
-        sq = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
         aux_names = [k for k in mets if k != "nll"]
         local = [loss, mets["nll"]] + [mets[k] for k in aux_names]
         pending = ctx.pending() if ctx is not None else []
-        if dp_group is not None:
+        if wire or spmd:
             scalars, obs_vec = combine_ranks(local, pending, ctx)
             local = list(scalars)
             pending = [obs_vec]

@@ -810,3 +810,54 @@ def test_two_rank_fp8_wire_step_on_the_card(card, tmp_path):
         assert rec["comm/bytes_fp8_ef"] == numel
         assert rec["comm/sent_payload_bytes"] == numel + pad
         assert rec["comm/ratio_fp8_vs_bf16"] <= 0.55
+
+
+ZERO_CHILD = """
+import sys
+from repro_torch.launch import train
+if sys.argv[1] == "off":
+    real = train.build_plan
+    train.build_plan = lambda *a, **k: real(*a, **dict(k, zero1=False))
+train.main(sys.argv[2:])
+"""
+
+
+@pytest.mark.gpu
+def test_two_rank_zero1_moe_full_step_on_the_card(card, tmp_path):
+    """The launcher's "full" step of the smoke moonshot (mixture of
+    experts, per-sample dispatch), two ranks on the card over gloo, with
+    ZeRO-1 on (the launcher's default) against ZeRO-1 off: at two ranks
+    the gathered master weights, moments, loss scale and ScaleState are
+    equal bit for bit, and equal on both ranks."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro_torch
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    script = tmp_path / "zero_child.py"
+    script.write_text(ZERO_CHILD)
+    reps = {}
+    for mode in ("on", "off"):
+        report = tmp_path / f"report_{mode}"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", str(script), mode, "--backend",
+               "gloo", "--arch", "moonshot-v1-16b-a3b", "--smoke", "--wire",
+               "full", "--steps", "1", "--recipe", "hybrid", "--seq", "64",
+               "--checkpoint-every", "0", "--ckpt-dir",
+               str(tmp_path / f"ckpt_{mode}"), "--report", str(report)]
+        res = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=src),
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        reps[mode] = [json.loads((report / f"rank{r}.json").read_text())
+                      for r in range(2)]
+    assert reps["on"][0]["plan"]["zero1_axis"] == "data"
+    assert reps["off"][0]["plan"]["zero1_axis"] is None
+    for key in ("state_digest", "scale_state_digest"):
+        assert len({rep[key] for rr in reps.values() for rep in rr}) == 1
+    rec = reps["on"][0]["records"][0]
+    assert rec["comm/sent_zero_gather_bytes"] > 0
+    assert "lb_loss" in rec and rec["loss"] == reps["off"][0]["records"][0][
+        "loss"]

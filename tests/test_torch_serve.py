@@ -13,6 +13,7 @@ then the two agree bit for bit. Against the default compile the step's
 logits are held to a tolerance instead.
 """
 import contextlib
+import dataclasses
 import functools
 
 import jax
@@ -239,8 +240,13 @@ def test_from_jax_params_splits_scanned_stacks():
 
 def test_unported_archs_are_refused():
     """What stays unported is refused, naming ROADMAP.md: an arch outside
-    the registry, and make_train_step's plan= with ZeRO-1 or tensor
-    parallelism (slice 10b). amax_sync= is ported (slice 10a)."""
+    the registry, and make_train_step's plan= with tensor parallelism
+    (slice 10c). amax_sync= (slice 10a) and ZeRO-1 plans (slice 10b,
+    tests/test_torch_zero.py) are ported: a ZeRO-1 plan on a two-rank
+    'data' mesh builds a step (its process groups are looked up at the
+    first call)."""
+    import types
+
     from repro_torch.core.precision_policy import DistConfig
     from repro_torch.distributed.strategy import (DataParallel,
                                                   ParallelPlan,
@@ -254,11 +260,25 @@ def test_unported_archs_are_refused():
     opt = make_optimizer_for(small)
     make_train_step(small, opt, device="cpu", amax_sync=lambda v: v)
     dp = DataParallel(("data",))
-    for plan in (ParallelPlan(None, DistConfig(), dp, ZeRO1Sharded(), None),
-                 ParallelPlan(None, DistConfig(zero1=False), dp, None,
-                              TensorParallel())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(small, opt, device="cpu", plan=plan)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data",),
+                                 mesh=torch.arange(2))
+    tp = ParallelPlan(mesh, DistConfig(zero1=False), dp, None,
+                      TensorParallel())
+    with pytest.raises(NotImplementedError, match="slice 10c"):
+        make_train_step(small, opt, device="cpu", plan=tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(small, opt, device="cpu", plan=tp)
+    for z in (DistConfig(), DistConfig(wire_zero_gather="fp8")):
+        zero1 = ParallelPlan(mesh, z, dp, ZeRO1Sharded(), None)
+        assert callable(make_train_step(small, opt, device="cpu",
+                                        plan=zero1))
+    # Under "full" a tied embedding under a quantized head would take its
+    # gradient summed through the head alone.
+    assert small.tie_embeddings
+    quantized_head = small.replace(policy=dataclasses.replace(
+        small.policy, quantize_logits_head=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(quantized_head, opt, device="cpu", plan=zero1)
 
 
 @pytest.mark.parametrize("k,p", [(5, 1.0), (0, 0.7), (8, 0.9)])

@@ -238,9 +238,13 @@ def test_microbatches_accumulate_like_one_batch():
 
 
 def test_refusals_that_stay():
-    """A plan with ZeRO-1 or tensor parallelism (slice 10b) is refused by
-    the step and the loop, naming ROADMAP.md; amax_sync and data-parallel
-    plans are ported (tests/test_torch_distributed.py)."""
+    """A plan with tensor parallelism (slice 10c) is refused by the step
+    and the loop, naming ROADMAP.md; amax_sync, data-parallel plans
+    (tests/test_torch_distributed.py) and ZeRO-1 plans
+    (tests/test_torch_zero.py) are ported: the step and the loop build
+    with one."""
+    import types
+
     from repro_torch.core.precision_policy import DistConfig
     from repro_torch.distributed.strategy import (DataParallel,
                                                   ParallelPlan,
@@ -249,12 +253,14 @@ def test_refusals_that_stay():
     tcfg = port_cfg()
     opt = t_make_optimizer_for(tcfg)
     dp = DataParallel(("data",))
-    zero1 = ParallelPlan(None, DistConfig(), dp, ZeRO1Sharded(), None)
-    tp = ParallelPlan(None, DistConfig(zero1=False), dp, None,
+    mesh = types.SimpleNamespace(mesh_dim_names=("data",),
+                                 mesh=torch.arange(2))
+    zero1 = ParallelPlan(mesh, DistConfig(), dp, ZeRO1Sharded(), None)
+    tp = ParallelPlan(mesh, DistConfig(zero1=False), dp, None,
                       TensorParallel())
-    for plan in (zero1, tp):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_make_train_step(tcfg, opt, device="cpu", plan=plan)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        t_make_train_step(tcfg, opt, device="cpu", plan=tp)
+    assert callable(t_make_train_step(tcfg, opt, device="cpu", plan=zero1))
     assert callable(t_make_train_step(tcfg, opt, device="cpu",
                                       amax_sync=lambda v: v))
     # Recomputation no longer refuses (tests/test_torch_step_options.py
@@ -262,8 +268,9 @@ def test_refusals_that_stay():
     assert callable(t_make_train_step(tcfg.replace(remat=True), opt,
                                       device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=zero1,
-                  device="cpu")
+        TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=tp, device="cpu")
+    assert TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=zero1,
+                     device="cpu").zero
     with pytest.raises(ValueError, match="microbatches"):
         t_make_train_step(tcfg, opt, n_microbatches=3, device="cpu")(
             opt.init(t_init_lm(tcfg, device="cpu")), batch_of(batch_size=4),

@@ -1,6 +1,6 @@
 """One rank of tests/test_torch_distributed.py's gloo process group.
 
-    python tests/torch_dp_worker.py RANK WORKDIR
+    python tests/torch_dp_worker.py RANK WORKDIR [zero]
 
 Reads WORKDIR/inputs.pkl (the reference's initial weights, the batches,
 the reduction fixtures; numpy only), runs every multi-rank case of the
@@ -13,6 +13,11 @@ Three process groups, one after the other, all on FileStores in WORKDIR:
     'pod' x 'data' mesh, the compressed reductions, the error-feedback
     law, the training steps on both wires, amax_sync, the refusals;
  3. ranks 0 and 1: the TrainLoop's interrupted-and-resumed run.
+
+With `zero` it runs tests/test_torch_zero.py's cases instead (`zero_main`):
+the e4m3 gather, the "full" path's microbatch rows and mixture-of-experts
+aux losses, ZeRO-1 on against off on four ranks, then on two, the
+TrainLoop's resume and elastic restores under ZeRO-1.
 """
 import datetime
 import os
@@ -251,6 +256,9 @@ def refusals(flat, inp):
                                               backend="xla")))
     cases["moe_full"] = (moe, ParallelPlan.build(flat, DistConfig(
         zero1=False, tp=False)))
+    cases["moe_global_dispatch_full"] = (
+        moe.replace(moe_per_sample_dispatch=False),
+        ParallelPlan.build(flat, DistConfig(zero1=False, tp=False)))
     out = {}
     for name, (c, plan) in cases.items():
         try:
@@ -368,6 +376,249 @@ def pair(rank, workdir, inp, out):
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-1, the fp8 ZeRO gather and the "full" path's global batch
+# (tests/test_torch_zero.py): `python tests/torch_dp_worker.py RANK WORKDIR
+# zero`, inputs in WORKDIR/inputs.pkl.
+# ---------------------------------------------------------------------------
+
+def moe_cfg(inp):
+    """The tiny moonshot (inputs' `moe_kw`) under the same recipe."""
+    import dataclasses
+
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.registry import build_config
+    cfg = build_config("moonshot-v1-16b-a3b", smoke=True, **inp["moe_kw"])
+    return cfg.replace(policy=dataclasses.replace(
+        cfg.policy, quant=QuantConfig(**inp["quant_kw"])))
+
+
+def zrun(mesh, inp, *, wire="full", zero1=True, gather="full", n_mb=1,
+         rows="global", moe=False, steps=3):
+    """`steps` steps of the port's step under a plan on `mesh` from the
+    reference's weights. rows: "global" (the loop's rows: under "full"
+    with microbatches, this rank's share of each global microbatch) or
+    "contiguous" (the rank's contiguous shard split locally: the planted
+    fault of the microbatch rows). Returns the metrics and the state,
+    gathered whole, with this rank's shards."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.data.pipeline import host_shard, microbatch_shard
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = moe_cfg(inp) if moe else tiny_cfg(inp)
+    key = "moe" if moe else "qwen"
+    plan = ParallelPlan.build(mesh, DistConfig(
+        wire=wire, zero1=zero1, tp=False, wire_zero_gather=gather))
+    params = from_jax_params(inp["params_" + key], cfg, device="cpu")
+    reg = discover_lm_sites(cfg, params, inp["probe_" + key])
+    ds = DelayedScaling(reg, qcfg=cfg.policy.quant)
+    opt = make_optimizer_for(cfg, learning_rate=1e-3)
+    state, ss = opt.init(params), ds.init()
+    if plan.zero1 is not None:
+        state = plan.shard_state(state)
+    err = plan.init_wire_state(state.master) if plan.compresses else None
+    step = make_train_step(cfg, opt, scaling=ds, plan=plan,
+                           n_microbatches=n_mb, device="cpu")
+    mets = []
+    for i, b in enumerate(inp["batches_" + key][:steps]):
+        if n_mb > 1 and rows == "global" and not plan.compresses:
+            local = microbatch_shard(b, plan.dp_rank, plan.dp_size, n_mb)
+        else:
+            local = host_shard(b, plan.dp_rank, plan.dp_size)
+        gen = torch.Generator().manual_seed(i)
+        if err is None:
+            (state, ss), m = step(state, ss, local, gen)
+        else:
+            (state, ss, err), m = step(state, ss, err, local, gen)
+        mets.append({k: v for k, v in m.items()
+                     if not k.startswith("health/")})
+    whole = plan.unshard_state(state) if plan.zero1 is not None else state
+    digests = None
+    if plan.zero1 is not None:
+        # The launcher report's digest from the shards, and of the state
+        # gathered whole.
+        from repro_torch.launch.train import state_digest
+        d = plan.zero_dims()
+        tree = {"master": state.master, "opt_state": state.opt_state}
+        digests = (state_digest(tree, plan, {"master": d,
+                                             "opt_state": {"mu": d,
+                                                           "nu": d}}),
+                   state_digest({"master": whole.master,
+                                 "opt_state": whole.opt_state}))
+    return dict(metrics=mets, master=npt(whole.master), digests=digests,
+                mu=npt(whole.opt_state["mu"]), nu=npt(whole.opt_state["nu"]),
+                loss_scale={f: npt(getattr(whole.loss_scale, f))
+                            for f in ("scale", "growth_count", "step",
+                                      "overflow_count")},
+                amax_history=ss.amax_history.copy(), scale=ss.scale.copy(),
+                keys=list(reg.keys), shard=npt(state.master),
+                dims=plan.zero_dims() if plan.zero1 is not None else None,
+                zero_rank=plan.zero_rank, dp_rank=plan.dp_rank,
+                err=npt(err) if err is not None else None)
+
+
+def solo_step(inp, key):
+    """The first step's metrics of the port's step without a plan, on the
+    whole global batch (one process)."""
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = moe_cfg(inp) if key == "moe" else tiny_cfg(inp)
+    params = from_jax_params(inp["params_" + key], cfg, device="cpu")
+    reg = discover_lm_sites(cfg, params, inp["probe_" + key])
+    ds = DelayedScaling(reg, qcfg=cfg.policy.quant)
+    opt = make_optimizer_for(cfg, learning_rate=1e-3)
+    step = make_train_step(cfg, opt, scaling=ds, device="cpu")
+    _, m = step(opt.init(params), ds.init(), inp["batches_" + key][0],
+                torch.Generator().manual_seed(0))
+    return {k: v for k, v in m.items() if not k.startswith("health/")}
+
+
+def gather_fixtures(mesh, inp, n):
+    """The e4m3 gather of the inputs' fixture trees at N = n: each rank's
+    shards gathered whole, and the zero_gather bytes comm counted."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.strategy import ParallelPlan
+    plan = ParallelPlan.build(mesh, DistConfig(
+        wire="fp8_ef", wire_zero_gather="fp8", tp=False))
+    from repro_torch.distributed import strategy
+    out = {}
+    for name, fix in inp["gather"][n].items():
+        tree = {k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in fix.items()}
+        plan.zero_dims(tree)
+        comm.reset_counts()
+        got = plan.gather_params(plan.shard(tree), fp8=True)
+        out[name] = dict(
+            got=npt(got), dims=plan.zero_dims(),
+            bytes=comm.counts()["sent_bytes"].get("zero_gather", 0))
+    # The planted fault: each rank's scale from its own shard alone.
+    real = strategy.e4m3_gather_scales
+    strategy.e4m3_gather_scales = lambda shards, group: [
+        torch.clamp_min(x.float().abs().max() / 448.0, 1e-30)
+        for x in shards]
+    try:
+        tree = {k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in inp["gather"][n]["pow2"].items()}
+        plan.zero_dims(tree)
+        out["pow2_fault"] = npt(plan.gather_params(plan.shard(tree),
+                                                   fp8=True))
+    finally:
+        strategy.e4m3_gather_scales = real
+    return out
+
+
+def overflow_run(mesh, inp):
+    """One ZeRO-1 "full" step whose reduce-scatter leaves an inf in rank
+    1's shard of the first sharded leaf (a planted overflow): every rank
+    must skip the step."""
+    from repro_torch.distributed import comm
+    real = comm.reduce_scatter
+    hit = []
+
+    def planted(x, dim, group):
+        out = real(x, dim, group)
+        if not hit:
+            hit.append(True)
+            if dist.get_rank() == 1:
+                out.reshape(-1)[0] = float("inf")
+        return out
+    comm.reduce_scatter = planted
+    try:
+        return zrun(mesh, inp, steps=1)
+    finally:
+        comm.reduce_scatter = real
+
+
+def zero_group(rank, workdir, inp, out):
+    join(os.path.join(workdir, "zgroup"), rank, WORLD)
+    flat = DeviceMesh("cpu", torch.arange(WORLD), mesh_dim_names=("data",))
+    grid = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                      mesh_dim_names=("pod", "data"))
+    out["gather"] = {4: gather_fixtures(flat, inp, 4),
+                     2: gather_fixtures(grid, inp, 2)}
+    runs = out["runs4"] = {}
+    runs["mb2"] = zrun(flat, inp, zero1=False, n_mb=2)
+    runs["mb2_contiguous"] = zrun(flat, inp, zero1=False, n_mb=2,
+                                  rows="contiguous")
+    runs["moe"] = zrun(flat, inp, zero1=False, moe=True)
+    out["moe_solo"] = solo_step(inp, "moe")
+    for wire in ("full", "fp8_ef"):
+        for z in (False, True):
+            runs[f"{wire}/{z}"] = zrun(flat, inp, wire=wire, zero1=z)
+    runs["full/True/fp8"] = zrun(flat, inp, zero1=True, gather="fp8")
+    runs["grid_fp8_gather"] = zrun(grid, inp, wire="fp8_ef", gather="fp8")
+    runs["overflow"] = overflow_run(flat, inp)
+    dist.destroy_process_group()
+
+
+def zero_pair(rank, workdir, inp, out):
+    """Ranks 0 and 1: ZeRO-1 on against off at N = 2 on both wires; the
+    TrainLoop's resume under ZeRO-1 and the elastic restores."""
+    from repro_torch.launch.train import build_loop, build_plan
+    join(os.path.join(workdir, "zpair"), rank, 2)
+    pair_mesh = DeviceMesh("cpu", torch.arange(2), mesh_dim_names=("data",))
+    runs = out["runs2"] = {}
+    for wire in ("full", "fp8_ef"):
+        for z in (False, True):
+            runs[f"{wire}/{z}"] = zrun(pair_mesh, inp, wire=wire, zero1=z)
+    root = os.path.join(workdir, "zloops")
+    plans = {z: build_plan(2, "gloo", "cpu", wire="fp8_ef", zero1=z)
+             for z in (False, True)}
+
+    def run(name, total, zero1):
+        loop = build_loop(arch="qwen2-1.5b", smoke=True, n_layers=2,
+                          steps=total, batch=4, seq=32, recipe="hybrid",
+                          ckpt_dir=os.path.join(root, name),
+                          checkpoint_every=2, log_every=2,
+                          plan=plans[zero1], device="cpu")
+        res = loop.run()
+        st = res["state"]
+        if zero1:
+            st = plans[True].unshard_state(st)
+        return dict(master=npt(st.master), opt=npt(st.opt_state),
+                    loss_scale=npt(vars(st.loss_scale)),
+                    err=npt(res["wire_error"]),
+                    ss=(res["scale_state"].amax_history.copy(),
+                        res["scale_state"].scale.copy()),
+                    last_step=res["last_step"])
+
+    loops = out["loops"] = {}
+    loops["on"] = run("on", 4, True)
+    run("on_resumed", 2, True)
+    loops["on_resumed"] = run("on_resumed", 4, True)
+    run("off_then_on", 2, False)
+    loops["off_then_on"] = run("off_then_on", 4, True)
+    run("on_then_off", 2, True)
+    loops["on_then_off"] = run("on_then_off", 4, False)
+    dist.barrier()
+    ck = os.path.join(root, "on", "step_0000000004", "leaves.npz")
+    with np.load(ck) as data:
+        out["ckpt_shapes"] = {k: data[k].shape for k in data.files}
+    dist.destroy_process_group()
+
+
+def zero_main(rank, workdir):
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {}
+    try:
+        zero_group(rank, workdir, inp, out)
+        if rank < 2:
+            zero_pair(rank, workdir, inp, out)
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    out["jax_loaded"] = "jax" in sys.modules
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 def main(rank, workdir):
     torch.set_num_threads(1)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
@@ -386,4 +637,7 @@ def main(rank, workdir):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), sys.argv[2])
+    if sys.argv[3:] == ["zero"]:
+        zero_main(int(sys.argv[1]), sys.argv[2])
+    else:
+        main(int(sys.argv[1]), sys.argv[2])
