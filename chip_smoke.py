@@ -174,8 +174,31 @@ Phases, each of which raises on failure (there is no CPU fallback):
      step on the global batch (B = 8 x S = 512, in this process): the G
      sites' first amaxes within one e5m2 notch, the loss within
      ZERO_LOSS_TOL, the update within ZERO_UPDATE_TOL, and the planted
-     per-rank Q node outside them.
-Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
+     per-rank Q node outside them;
+  21. tensor parallelism, phase 19's model on a (data 1, model 2) mesh of
+     the same two ranks (`tp_runs`, in phase 19's `--dp-child` launch
+     after phase 20's runs; the one-process steps it is held against run
+     in this process before the launch): 3 steps under RNE at B=4 x
+     S=512 on both ranks (step p50, max_memory_allocated a rank, the
+     bytes sent over 'model' a step against `step_bytes_model`, each
+     kernel's launches a rank a step: kernels 1-5 each above 0), one
+     under SR, one of each planted fault (each rank's row-parallel
+     partial quantized before the sum; amaxes not combined over
+     'model'); each run's first step against two one-process steps on
+     the same batch, weights and seed, run in this process before the
+     launch: the plain one and the one with the two ranks' order of each
+     f32 sum (`tp_emulation`). Against the emulation: the amaxes within
+     one e5m2 notch, the loss within TP_LOSS_TOL, the update within
+     TP_UPDATE_TOL, the weight sites' health pairs equal, and the faults
+     outside; against the plain step the amaxes and the loss, and the
+     update as a reading, beside the emulation's own against the plain
+     step (what the summation order alone moves). The state TP leaves
+     whole (the replicated master leaves, the loss scale, the ScaleState)
+     equal on both ranks, by digest. `python3 chip_smoke.py --tp-probe`
+     (not part of the run) reads every leaf's gradient of the TP step and
+     of one-process variants against the plain step (`tp_probe`).
+Phase 2 also holds kernels 2-4 on a tensor-parallel rank's heads against
+the whole launch's slices (`check_attention_tp_heads`). Phase 2 also holds the unfused GEMM and both stochastic-rounding kernels
 against their plain versions and times them, holds the GEMM in every
 layout at ragged shapes that take each of its two tile widths (128x128,
 128x256; the host picks one from the shape), and holds both variants of
@@ -215,7 +238,7 @@ entries of their own, `*_d256`, launches from phase 17a; launches: the fused GEM
 kernels' from phase 6, the unfused GEMM's from phase 8, the
 stochastic-rounding kernels' from the op's path; `launches_by_path`: a
 step's launches on each training path, phases 6, 8, 10, 11, 14, 15, 16,
-18 and 19 (a rank's), a served run's on each path of phases 13, 15 and 18, and dbrx's
+18, 19 and 21 (a rank's), a served run's on each path of phases 13, 15 and 18, and dbrx's
 decode step;
 `other_shapes`: its rows at the paper's workloads' shapes); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -224,6 +247,7 @@ there is no CUDA device or the package is missing.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import gc
 import json
@@ -1922,6 +1946,53 @@ def time_gemm_train(dev, m=TRAIN_B * TRAIN_S, proj=PROJ,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=err, launch_ms=launch))
     return rows
+
+
+def check_attention_tp_heads(dev):
+    """Kernels 2-4 on a tensor-parallel rank's heads (phase 21's call
+    pattern): at the training shape, for each of the two ranks of a
+    'model' dim of 2, the kernels on the rank's 6 q heads and 1 kv head
+    with `heads=(12, 6 r)` against the same kernels on all 12 heads,
+    sliced, under SR (the in-kernel hash reads the whole tensor's head
+    index): o, dq, dk, dv bitwise equal, the ranks' amaxes' MAX the
+    whole's. A planted fault (rank 1 without `heads`: the hash reads the
+    local index) must differ."""
+    import torch
+    from repro_torch.kernels.fp8_attention import ops as at
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = attn_train_inputs(dev, gen, "e4m3")
+    do = torch.randn(q.shape, generator=gen, device=dev).to(
+        fp8_dtype("e5m2"))
+    bscal = bwd_scalars(q.shape[-1])
+    fscal = [0.088388, 1.0, 1.0, 1.0]
+    kw = dict(fmt_s="e4m3", fmt_p="e4m3", rounding_s="sr", rounding_p="sr")
+    bkw = dict(kw, fmt_e="e5m2", rounding_e="sr", saturate_e=False)
+    whole_f = at.fp8_attention_fwd(q, k, v, 7, fscal, **kw)
+    whole_b = at.fp8_attention_bwd(q, k, v, do, 7, bscal, **bkw)
+    same, amax_f, amax_b = [], [], []
+    for r in range(2):
+        hq, hk = slice(6 * r, 6 * r + 6), slice(r, r + 1)
+        part = (q[:, hq], k[:, hk], v[:, hk])
+        f = at.fp8_attention_fwd(*part, 7, fscal, heads=(12, 6 * r), **kw)
+        g = at.fp8_attention_bwd(*part, do[:, hq], 7, bscal, heads=(12, 6 * r),
+                                 **bkw)
+        same += [torch.equal(f[0], whole_f[0][:, hq]),
+                 torch.equal(g[0], whole_b[0][:, hq]),
+                 torch.equal(g[1], whole_b[1][:, hk]),
+                 torch.equal(g[2], whole_b[2][:, hk])]
+        amax_f.append(torch.stack(f[1:3]))
+        amax_b.append(torch.stack(g[3:5]))
+    amax_ok = torch.equal(torch.maximum(*amax_f), torch.stack(whole_f[1:3])) \
+        and torch.equal(torch.maximum(*amax_b), torch.stack(whole_b[3:5]))
+    fault = at.fp8_attention_fwd(q[:, 6:], k[:, 1:], v[:, 1:], 7, fscal,
+                                 **kw)[0]
+    seen = not torch.equal(fault, whole_f[0][:, 6:])
+    log(f"attention on a TP rank's heads (B={TRAIN_B} H=12/2 ranks Hkv=2 "
+        f"S={TRAIN_S}, SR): o, dq, dk, dv of both ranks equal the whole "
+        f"launch's slices {same}, amaxes' MAX the whole's {amax_ok}; "
+        f"planted fault (no head offset) differs {seen}")
+    if not (all(same) and amax_ok and seen):
+        raise AssertionError(f"TP heads: {same}, {amax_ok}, {seen}")
 
 
 def bwd_fixture(kind, fmt_a, fmt_e, gen, dev, b=TRAIN_B, h=12, hkv=2,
@@ -4129,17 +4200,21 @@ def trainer_launch_counts():
     return out
 
 
-def trainer_loop(ckpt_dir, steps, n_layers=None, metrics_path=None):
+def trainer_loop(ckpt_dir, steps, n_layers=None, metrics_path=None,
+                 save=True):
     """launch/train.py's TrainLoop for qwen2-1.5b at full width: the hybrid
     recipe, delayed scaling with track_health, two microbatches over
-    B=4 x S=512, HealthConfig(), checkpoints only at the end."""
+    B=4 x S=512, HealthConfig(), a checkpoint only at the end (none
+    without `save`; a checkpoint in the directory is restored either
+    way)."""
     from repro_torch.launch.train import build_loop
     from repro_torch.obs.health import HealthConfig
     return build_loop(arch="qwen2-1.5b", n_layers=n_layers, steps=steps,
                       batch=TRAIN_B, seq=TRAIN_S, lr=1e-4,
                       microbatches=TRAINER_MICROBATCHES, recipe="hybrid",
                       track_health=True, ckpt_dir=str(ckpt_dir),
-                      checkpoint_every=10 ** 6, metrics_path=metrics_path,
+                      checkpoint_every=10 ** 6 if save else 0,
+                      metrics_path=metrics_path,
                       health=HealthConfig(), log_every=1)
 
 
@@ -4255,9 +4330,12 @@ def trainer_resume_parity(dev):
     half = TRAINER_STEPS // 2
 
     def run(name, stops, unpack=None):
+        # Only an interrupted run's first loop saves (its checkpoint is
+        # what the next loop restores): the states compared are in memory.
         recs, out = [], None
         for total in stops:
-            loop = trainer_loop(os.path.join(tmp, name), total, n_layers=2)
+            loop = trainer_loop(os.path.join(tmp, name), total, n_layers=2,
+                                save=total != stops[-1])
             if unpack is not None and total != stops[0]:
                 loop._unpack = unpack.__get__(loop)
             loop.on_metrics = lambda step, rec: recs.append(
@@ -5751,10 +5829,11 @@ XL_ARCH = "xlstm-125m"
 # Phase 18a-b: all 12 layers at full width (189 M parameters), B x S =
 # XL_B x XL_S seeded tokens: two mLSTM chunks of the config's 1024, 2048
 # steps of each sLSTM loop. XL_STEPS timed steps (6 before phases 19-20
-# grew with ZeRO-1; 3 to keep the script in its time: each host-bound
-# step takes 6-12 s).
-XL_B, XL_S, XL_STEPS = 4, 2048, 3
-XL_TRACE_S = 1024
+# grew with ZeRO-1, 3 before phase 21 joined them; 2 to keep the script
+# in its time: each host-bound step takes 6-12 s). The traced step runs on
+# XL_TRACE_S tokens (1024 before phase 21).
+XL_B, XL_S, XL_STEPS = 4, 2048, 2
+XL_TRACE_S = 512
 XL_PARITY_LAYERS = 4               # one pattern group
 # Phase 18b's hybrid step runs from the ScaleState XL_SETTLE_STEPS kernel
 # steps (on the batch's first 512 tokens) leave: after one step alone,
@@ -6017,9 +6096,9 @@ def train_xlstm(dev):
         raise AssertionError(f"non-finite loss: {losses}")
     if launches != {k: v * XL_STEPS for k, v in want.items()}:
         raise AssertionError(f"launches {launches}, expected {want} a step")
-    # The traced step runs on the extra batch's first XL_TRACE_S tokens (one
-    # mLSTM chunk, half of each sLSTM loop): tracing and reading a whole
-    # step's ~460,000 kernels took 73 s. One untraced step at that shape
+    # The traced step runs on the extra batch's first XL_TRACE_S tokens (half
+    # an mLSTM chunk, a quarter of each sLSTM loop): tracing and reading a
+    # whole step's ~460,000 kernels took 73 s. One untraced step at that shape
     # first gives the idle share its reference.
     short = {k: v[:, :XL_TRACE_S] for k, v in batches[XL_STEPS].items()}
     t0 = time.perf_counter()
@@ -6382,10 +6461,11 @@ def xl_baseline_gap(dev, cfg, params, f32_step=False):
 # 2.022e-2, past DP_GNORM_TOL, which was set from 4-layer readings.)
 DP_LAYERS = 4
 # Steps a wire (4 before ZeRO-1 made each step gather the weights; 3 to
-# keep phases 19-20 in the script's time: each step moves ~420 M
-# gradients through host memory twice); the fp8_ef run is also the resume
-# check's uninterrupted run (interrupted at DP_STEPS // 2).
-DP_STEPS = 3
+# keep phases 19-20 in the script's time, 2 since phase 21 joined them:
+# each step moves ~420 M gradients through host memory twice); the fp8_ef
+# run is also the resume check's uninterrupted run (interrupted at
+# DP_STEPS // 2).
+DP_STEPS = 2
 DP_FAULT_STEPS = 1
 # The reference's convergence law (tests/test_strategy.py): the fp8_ef
 # loss trajectory against the full one on the same batches.
@@ -6529,6 +6609,7 @@ def train_dp(dev):
     import tempfile
     import numpy as np
     import torch
+    from repro_torch.models.transformer import init_lm
     tmp = Path(tempfile.mkdtemp(prefix="dp_"))
     log("dp: two ranks on one card over gloo: NCCL refuses two ranks on "
         "one device ('Duplicate GPU detected'), so every exchange crosses "
@@ -6544,6 +6625,24 @@ def train_dp(dev):
         torch.save({"loss": loss, "amax": amax, "keys": keys,
                     "master": master}, tmp / "one_process.pt")
         del master
+        gc_collect()
+        # Phase 21's one-process steps on its batch, under RNE and SR: the
+        # plain step and the emulation of two ranks' summation order
+        # (tp_emulation), with the emulation's readings against the plain.
+        tp_ref = {}
+        for r in ("rne", "sr"):
+            setup = zero_repair_setup(dev, TRAIN_B, rne=r == "rne")
+            group, patches = tp_emulation(setup[0])
+            tp_ref[r] = {"plain": tp_step(dev, setup),
+                         "split": tp_step(dev, setup, group=group,
+                                          patches=patches)}
+            tp_ref[r]["split vs plain"] = tp_compare(
+                tp_ref[r]["split"], tp_ref[r]["plain"], dev,
+                _to_cpu(init_lm(setup[0], seed=0, device=dev)))
+            gc_collect()
+        torch.save(tp_ref, tmp / "tp_one_process.pt")
+        tp_emulated = {r: v["split vs plain"] for r, v in tp_ref.items()}
+        del tp_ref
         gc_collect()
         # The faults, the resume and phase 20's runs (one launch of this
         # script as the ranks' script) and one NCCL process group of one
@@ -6663,7 +6762,8 @@ def train_dp(dev):
                     digests={w: [(r["state_digest"], r["scale_state_digest"],
                                   r["wire_error_digest"]) for r in rr]
                              for w, rr in reps.items()},
-                    reports=reps, tmp=tmp, child_wall=wall)
+                    reports=reps, tmp=tmp, child_wall=wall,
+                    tp_emulated=tp_emulated)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -6762,6 +6862,8 @@ def dp_child(tmp: str) -> int:
     run("resumed", DP_STEPS)
     # Phase 20's runs, in the same pair of processes (one launch less).
     zero_runs(tmp)
+    # Phase 21's, on a (data 1, model 2) mesh of the same two ranks.
+    tp_runs(tmp)
     print(f"[dp-child] rank {dist.get_rank()} done", flush=True)
     dist.destroy_process_group()
     return 0
@@ -6824,10 +6926,11 @@ ZERO_UPDATE_TOL = 0.03
 WGRAD_SHAPES = tuple((k, TRAIN_B * TRAIN_S, n) for k, n in PROJ)
 
 
-def zero_repair_setup(dev):
-    """The launcher's hybrid recipe at DP_LAYERS layers with RNE roundings,
-    its optimizer, the site registry and the global batch of the repair
-    check."""
+def zero_repair_setup(dev, batch_size=2 * TRAIN_B, rne=True):
+    """The launcher's hybrid recipe at DP_LAYERS layers with RNE roundings
+    (`rne`; else the recipe's SR), track_health, its optimizer, the site
+    registry and the global batch of `batch_size` rows of the repair check
+    (and of phase 21's)."""
     import dataclasses
     from repro_torch.core.loss_scale import LossScaler
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
@@ -6836,12 +6939,12 @@ def zero_repair_setup(dev):
     from repro_torch.scaling.state import DelayedScaling
     from repro_torch.train.step import make_optimizer_for
     import numpy as np
-    cfg = train_cfg(n_layers=DP_LAYERS, rne=True)
+    cfg = train_cfg(n_layers=DP_LAYERS, rne=rne)
     cfg = cfg.replace(policy=dataclasses.replace(
         cfg.policy, quant=dataclasses.replace(cfg.policy.quant,
                                               track_health=True)))
     batch = next(synthetic_lm_batches(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, batch_size=2 * TRAIN_B,
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, batch_size=batch_size,
         seed=0)))
     probe = {"tokens": np.zeros((1, 128), np.int32),
              "labels": np.zeros((1, 128), np.int32)}
@@ -6869,12 +6972,13 @@ def zero_repair_step(dev, setup, plan=None):
     step = make_train_step(cfg, opt, scaling=ds, plan=plan, device=dev)
     (state, ss), m = step(state, ds.init(), batch,
                           torch.Generator(device=dev).manual_seed(0))
-    if plan is not None:
-        state = plan.unshard_state(state, to_host=True)
+    # The master alone is gathered whole (the moments are not read).
+    master = plan.gather(state.master, to_host=True) if plan is not None \
+        else state.master
     keys = list(ds.registry.keys)
     g = [i for i, k in enumerate(keys) if k.endswith("#G")]
     return (m["loss"], ss.amax_history[g, 0].copy(), [keys[i] for i in g],
-            _to_cpu(state.master))
+            _to_cpu(master))
 
 
 def zero_update_rel(p0, master, ref_master, dev):
@@ -7144,6 +7248,621 @@ def train_zero(dev, dp):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: tensor parallelism (two ranks on the card, a 'model' dim of 2)
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b at full width cut to phase 19's layers, B = TRAIN_B x S =
+# TRAIN_S on both ranks of a (data 1, model 2) mesh: 6 q heads and 1 kv
+# head a rank, d_ff 4480 and 75968 vocab rows a rank.
+TP_LAYERS = DP_LAYERS
+TP_STEPS = 3
+# The first step against one process on the same batch, weights and
+# generator seed, in two forms. The plain one-process step adds each f32
+# sum in its own order (the head's input gradient over the whole
+# vocabulary, the cross-entropy's logsumexp over it); the emulation
+# (tp_emulation) is the one process with the two ranks' order of each
+# sum. Against the emulation, the checks: every site's first amax within
+# one e5m2 notch, the loss within TP_LOSS_TOL, the update within
+# TP_UPDATE_TOL (rel L2), the weight sites' health pairs equal. Against
+# the plain step, the amax and loss checks and the update as a reading.
+# Readings on an H100 at 700 W (PERF.md): TP against the emulation bit
+# for bit (update, gradients and loss 0, amax ratios 1.000, RNE and SR);
+# the emulation, and TP, against the plain step: update 0.1929 (RNE) /
+# 0.1954 (SR), amax ratios 0.800-1.200. `--tp-probe` places that spread
+# in the vocab-parallel cross-entropy and head (the projections' split
+# sums are exact there): their f32 order moves the final norm's gradient
+# by 5.6e-5 rel L2, and each layer's e5m2 Q nodes below widen it to 0.23
+# at layer 0, which Adam's first step, turning each gradient into its
+# sign, reads as 0.19. The planted faults against the emulation: the
+# quantize-then-sum fault's update 0.3890 (loss rel 1.183e-4), the
+# local-amax fault's amax ratios down to 0.583. (On the CPU,
+# tests/test_torch_tp.py, every sum of the plain step is exact: the
+# fault-free update reads 0 and the fault 0.458.)
+TP_NOTCH = 1.25
+TP_LOSS_TOL = 1e-4
+TP_UPDATE_TOL = 0.02
+# Launches a step on each rank, by layer: kernel 1's forward layout for the
+# column-parallel projections (wq, wk, wv, up, gate), its dgrad layout for
+# the row-parallel ones (wo, down), its wgrad layout for all seven; kernel
+# 5 for the row-parallel forward partials and the column-parallel dgrad
+# partials (seven); kernels 2-4 once (the forward and dQ as their count
+# variants, under track_health).
+TP_STEP_LAUNCHES = {
+    "fused_quant_matmul.nn": 5 * TP_LAYERS,
+    "fused_quant_matmul.nt": 2 * TP_LAYERS,
+    "fused_quant_matmul.tn": 7 * TP_LAYERS,
+    "fp8_attention_fwd": TP_LAYERS, "fp8_attention_bwd_dq": TP_LAYERS,
+    "fp8_attention_bwd_dkv": TP_LAYERS, "fp8_matmul": 7 * TP_LAYERS,
+    "sr_quantize": 0, "sr_quantize_onchip": 0,
+    "fp8_attention_fwd_counts": TP_LAYERS,
+    "fp8_attention_bwd_dq_counts": TP_LAYERS}
+
+
+def tp_launch_counts():
+    from repro_torch.kernels.fp8_attention import ops as at
+    out = launch_counts()
+    out["fp8_attention_fwd_counts"] = at.fp8_attention_fwd.launches_with_counts
+    out["fp8_attention_bwd_dq_counts"] = \
+        at.fp8_attention_bwd_dq.launches_with_counts
+    return out
+
+
+@contextlib.contextmanager
+def patched(patches):
+    """Each (module or class, name, value) of `patches` set for the block,
+    then restored."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    try:
+        for m, n, v in patches:
+            setattr(m, n, v)
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def tp_step(dev, setup, plan=None, steps=1, group=None, patches=(),
+            grads=False):
+    """`steps` steps from init_lm(seed 0) on the setup's batch (each rank
+    of a TP plan the same rows; generators seeded 0, 1, ...). `group`: a
+    one-rank stand-in for the 'model' group that the layers read
+    (`tensor_parallel.current`, its collectives the identity; the
+    one-process emulation of tp_emulation); `patches`: (module, name,
+    value) set for the steps. Returns the first step's loss, amaxes of
+    every site, health pairs and master weights (whole, on the host), with
+    `grads` the gradients the optimizer received (whole, f32, on the
+    device, by leaf path); every step's loss and wall time; the launches
+    and the bytes counted over 'model' of the steps after the first, a
+    step; and, under a plan, a digest of this rank's replicated state (the
+    master leaves TP leaves whole, the loss scale, the ScaleState)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import comm, tensor_parallel
+    from repro_torch.launch.train import state_digest
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.step import make_train_step
+    cfg, opt, ds, batch = setup
+    state, ss = opt.init(init_lm(cfg, seed=0, device=dev)), ds.init()
+    if plan is not None:
+        state = plan.shard_state(state)
+    if group is not None:
+        patches = tuple(patches) + (
+            (tensor_parallel, "current", lambda: group),
+            (tensor_parallel, "rank_sum", lambda x, tp: x),
+            (tensor_parallel, "rank_max", lambda x, tp: x))
+    got = {}
+    real = opt.apply_gradients
+
+    def capture(st, g, finite=None):
+        got.setdefault("grads", g)
+        return real(st, g, finite)
+    if grads:
+        object.__setattr__(opt, "apply_gradients", capture)
+    out = dict(keys=list(ds.registry.keys), losses=[], times=[])
+    try:
+        with patched(patches):
+            step = make_train_step(cfg, opt, scaling=ds, plan=plan,
+                                   device=dev)
+            for i in range(steps):
+                if i == 1:
+                    reset_launches()
+                    comm.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (state, ss), m = step(
+                    state, ss, batch,
+                    torch.Generator(device=dev).manual_seed(i))
+                torch.cuda.synchronize()
+                out["times"].append(time.perf_counter() - t0)
+                out["losses"].append(m["loss"])
+                if i == 0:
+                    out["amax"] = ss.amax_history[:, 0].copy()
+                    out["health"] = {
+                        k: np.asarray(v).tolist() for k, v in m.items()
+                        if k.startswith("health/") and k not in (
+                            "health/amax_sites", "health/scale_churn")}
+                    # The master alone is gathered whole (the moments are
+                    # not read).
+                    out["master"] = _to_cpu(
+                        plan.gather(state.master, to_host=True)
+                        if plan is not None else state.master)
+    finally:
+        if grads:
+            object.__delattr__(opt, "apply_gradients")
+    if grads:
+        g = got["grads"]
+        if plan is not None:
+            g = plan.gather(g)
+        out["grads"] = {k: v.float() for k, v in _flat_paths(g).items()}
+    if steps > 1:
+        out["launches"] = {k: v / (steps - 1)
+                           for k, v in tp_launch_counts().items()}
+        out["tp_bytes"] = comm.counts()["sent_bytes"].get("tp", 0) \
+            / (steps - 1)
+    if plan is not None:
+        dims = _flat_paths(plan.tp_dims())
+        repl = {k: v for k, v in _flat_paths(state.master).items()
+                if dims[k] is None}
+        out["repl_digest"] = state_digest(
+            {"master": repl, "loss_scale": vars(state.loss_scale),
+             "scale_state": {"amax": ss.amax_history, "scale": ss.scale}})
+        out["n_repl"] = len(repl)
+    return out
+
+
+def _flat_paths(tree, pre=""):
+    """{leaf path: leaf} of a nested dict, in sorted key order."""
+    if not isinstance(tree, dict):
+        return {pre: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(_flat_paths(tree[k], f"{pre}/{k}"))
+    return out
+
+
+def tp_one_rank_group(cfg, parts):
+    """A one-rank stand-in for the 'model' group (tp_step's `group`) whose
+    layout splits, by `parts`: "proj", every projection (each runs its
+    column- or row-parallel site: a row-parallel output and a
+    column-parallel input gradient on kernel 5 and the program's Q node,
+    `_summed_gemm`); "vocab", the table (the vocab-parallel embedding,
+    head and cross-entropy, on one rank)."""
+    import dataclasses
+    from repro_torch.distributed import tensor_parallel
+    vocab = cfg.padded_vocab_size
+
+    @dataclasses.dataclass(frozen=True)
+    class One(tensor_parallel.TPGroup):
+        def dim_of(self, w):
+            if w.dim() != 2:
+                return None
+            if vocab in w.shape:
+                return (0 if w.shape[0] == vocab else 1) \
+                    if "vocab" in parts else None
+            return 1 if "proj" in parts else None
+    return One(None, 0, 1)
+
+
+def tp_split_patches(parts):
+    """The two ranks' arithmetic in one process, for the group's `parts`
+    (tp_one_rank_group): `_summed_gemm`'s product as the two halves of its
+    contraction summed in f32 in rank order ("proj"); the head and the
+    cross-entropy on the two halves of the vocabulary, their partial sums
+    added as the two ranks' are ("vocab")."""
+    import torch
+    from repro_torch.core import qlinear
+    from repro_torch.core.precision_policy import dtype_of
+    from repro_torch.core.quantize import f32
+    from repro_torch.kernels.fp8_matmul import ops as mm
+    from repro_torch.models import transformer
+
+    def summed(x8, w8, sx, sw, s_out, cfg, out_cls, generator, tp):
+        k = x8.shape[1] // 2
+        acc = mm.fp8_matmul(x8[:, :k].contiguous(), w8[:k].contiguous()) \
+            + mm.fp8_matmul(x8[:, k:].contiguous(), w8[k:].contiguous())
+        q, amax, health = qlinear._q_node(
+            acc, f32(s_out) / (f32(sx) * f32(sw)), cfg, out_cls,
+            qlinear._rand8(acc.shape, cfg, out_cls, generator))
+        return q, amax * float(f32(s_out)), health
+
+    def chunked_ce(params, h, labels, mask, *, cfg, head_cfg, chunk):
+        # `_chunked_ce` as two vocab ranks run it (`layers.logits_head`'s
+        # vocab-parallel branch, `_vocab_parallel_ce`), each rank's logits
+        # a tensor of their own (no slice of a whole one: a strided view
+        # could take another reduction order).
+        table = params["embed"]["table"]
+        half = table.shape[0] // 2
+        cd, od = dtype_of(head_cfg.compute_dtype), dtype_of(
+            head_cfg.output_dtype)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, h.shape[1], chunk):
+            c1 = min(c0 + chunk, h.shape[1])
+            xf = h[:, c0:c1].to(cd).float()
+            lfs = []
+            for r in range(2):
+                w = table[r * half:(r + 1) * half].t()
+                lf = torch.einsum("bsd,dv->bsv", xf,
+                                  w.to(cd).float()).to(od).float()
+                if cfg.padded_vocab_size != cfg.vocab_size:
+                    col = torch.arange(r * half, (r + 1) * half,
+                                       device=lf.device)
+                    lf = torch.where(col < cfg.vocab_size, lf,
+                                     torch.full_like(lf, -1e30))
+                lfs.append(lf)
+            lab = labels[:, c0:c1].long()
+            with torch.no_grad():
+                gmax = torch.maximum(lfs[0].amax(dim=-1),
+                                     lfs[1].amax(dim=-1))
+            rows = []
+            for r, lf in enumerate(lfs):
+                local = lab - r * half
+                mine = (local >= 0) & (local < half)
+                g = torch.gather(lf, -1, local.clamp(0, half - 1)[
+                    ..., None])[..., 0]
+                rows.append(torch.stack([
+                    torch.exp(lf - gmax[..., None]).sum(dim=-1),
+                    torch.where(mine, g, torch.zeros_like(g))]))
+            sumexp, gold = (rows[0] + rows[1]).unbind(0)
+            total = total + torch.sum(
+                (torch.log(sumexp) + gmax - gold) * mask[:, c0:c1])
+        return total
+    out = ()
+    if "proj" in parts:
+        out += ((qlinear, "_summed_gemm", summed),)
+    if "vocab" in parts:
+        out += ((transformer, "_chunked_ce", chunked_ce),)
+    return out
+
+
+def tp_emulation(cfg):
+    """The one-process step with the arithmetic of two 'model' ranks:
+    (group, patches) for tp_step. The group, one rank standing for the
+    two, makes the layers run their TP sites on whole weights (each
+    projection column- or row-parallel, the vocab-parallel embedding,
+    head and cross-entropy); the patches split what two ranks split: a
+    row-parallel output's and a column-parallel input gradient's product
+    (`_summed_gemm`) into the two halves of its contraction on kernel 5,
+    added in f32 in rank order before the Q node, and the head and the
+    cross-entropy into the two halves of the vocabulary, their partial
+    sums added as the ranks' are. What TP leaves to the one process (the
+    order of each f32 sum) is then the two ranks' own: the TP step should
+    equal it bit for bit, where it differs from the plain one-process step
+    by that order alone."""
+    return tp_one_rank_group(cfg, ("proj", "vocab")), \
+        tp_split_patches(("proj", "vocab"))
+
+
+def tp_quantize_then_sum(x8, w8, sx, sw, s_out, cfg, out_cls, generator,
+                         tp):
+    """The planted fault of a row-parallel site (`qlinear._summed_gemm`'s
+    place): each rank's partial through the Q node, the payloads summed
+    over the ranks, the sum quantized again (the Megatron order)."""
+    from repro_torch.core.qlinear import _q_node, _rand8
+    from repro_torch.core.quantize import f32
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.kernels.fp8_matmul import ops as mm_ops
+    part = mm_ops.fp8_matmul(x8, w8)
+    q, _, _ = _q_node(part, f32(s_out) / (f32(sx) * f32(sw)), cfg, out_cls,
+                      _rand8(part.shape, cfg, out_cls, generator))
+    total = tensor_parallel.rank_sum(q.float(), tp)
+    q, amax, health = _q_node(total, f32(1.0), cfg, out_cls,
+                              _rand8(total.shape, cfg, out_cls, generator))
+    return q, amax * float(f32(s_out)), health
+
+
+def tp_compare(got, ref, dev, p0):
+    """The checks' readings of a TP run's first step against one
+    process's, both from the weights `p0`."""
+    import numpy as np
+    ratio = got["amax"][ref["amax"] > 0] / ref["amax"][ref["amax"] > 0]
+    w_keys = [k for k in ref["health"] if k.endswith(".W")]
+    h_diff = max((float(np.max(np.abs(np.asarray(got["health"][k])
+                                      - np.asarray(ref["health"][k]))))
+                  for k in ref["health"]), default=0.0)
+    w_equal = all(np.allclose(got["health"][k], ref["health"][k],
+                              rtol=1e-6, atol=0) for k in w_keys)
+    return dict(
+        loss_rel=abs(got["losses"][0] - ref["losses"][0])
+        / abs(ref["losses"][0]),
+        ratio_min=float(ratio.min()), ratio_max=float(ratio.max()),
+        keys_equal=got["keys"] == ref["keys"],
+        zero_pattern=bool(((got["amax"] > 0) == (ref["amax"] > 0)).all()),
+        update_rel=zero_update_rel(p0, got["master"], ref["master"], dev),
+        n_health=len(ref["health"]), health_max_diff=h_diff,
+        w_health_equal=w_equal, n_w=len(w_keys))
+
+
+def tp_runs(tmp: Path):
+    """Phase 21's work on the ranks, run by `dp_child` after phase 20's:
+    the (data 1, model 2) plan over the same two processes; TP_STEPS
+    steps under RNE (timed; launches and bytes a step), a step under SR,
+    the two planted faults; each run's first step against the parent's
+    one-process steps (`tp_one_process.pt`: the emulation and the plain
+    step). Each rank writes tp_rank<r>.json."""
+    import json
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import qlinear
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.scaling.context import ScaleContext
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("data", "model"))
+    plan = ParallelPlan.build(mesh, DistConfig(zero1=False))
+    ref = torch.load(tmp / "tp_one_process.pt", weights_only=False)
+    setups = {r: zero_repair_setup(dev, TRAIN_B, rne=r == "rne")
+              for r in ("rne", "sr")}
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    main = tp_step(dev, setups["rne"], plan, steps=TP_STEPS)
+    res["mem"] = torch.cuda.max_memory_allocated()
+    gc_collect()
+    runs = {"rne": main, "sr": tp_step(dev, setups["sr"], plan)}
+    for name, patch in (
+            ("qsum", (qlinear, "_summed_gemm", tp_quantize_then_sum)),
+            ("local_amax", (ScaleContext, "tp_combine",
+                            lambda self, rows_of: None))):
+        runs[name] = tp_step(dev, setups["rne"], plan, patches=(patch,))
+        gc_collect()
+    p0 = _to_cpu(init_lm(setups["rne"][0], seed=0, device=dev))
+    for name, run in runs.items():
+        one = ref["sr" if name == "sr" else "rne"]
+        res[name] = {w: tp_compare(run, one[w], dev, p0)
+                     for w in ("split", "plain")}
+        res[name]["repl_digest"] = run["repl_digest"]
+        res[name]["n_repl"] = run["n_repl"]
+    res.update(times=main["times"], losses=main["losses"],
+               launches=main["launches"], tp_bytes=main["tp_bytes"],
+               one_process_times=ref["rne"]["plain"]["times"])
+    (tmp / f"tp_rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    if dist.get_rank() == 0:
+        print(f"[dp-child] tensor parallel: {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+
+
+def train_tp(dev, dp):
+    """Phase 21 (module docstring): reads the ranks' readings of phase
+    19's `--dp-child` launch (`tp_runs`) and holds them to the limits."""
+    import json
+    from repro_torch.distributed.tensor_parallel import step_bytes_model
+    tmp = dp["tmp"]
+    ranks = [json.loads((tmp / f"tp_rank{r}.json").read_text())
+             for r in range(2)]
+    log(f"tp: two ranks on one card over gloo, a (data 1, model 2) mesh "
+        f"(qwen2-1.5b, {TP_LAYERS} layers at full width, 6 q heads and 1 "
+        f"kv head a rank, B={TRAIN_B} x S={TRAIN_S} on both ranks, hybrid "
+        f"delayed, track_health): every activation sum crosses host "
+        f"memory, not NVLink; these times are a baseline, not a claim")
+
+    def line(r):
+        return (f"amax ratio in [{r['ratio_min']:.3f}, {r['ratio_max']:.3f}]"
+                f" (notch {TP_NOTCH}), loss rel {r['loss_rel']:.3e}, update "
+                f"rel L2 {r['update_rel']:.4f}")
+    for name, r in dp["tp_emulated"].items():
+        log(f"tp {name}: the one-process emulation of two ranks' "
+            f"summation order against the plain one-process step: "
+            f"{line(r)} (the order alone) [{CARD}]")
+    r0 = ranks[0]
+    for name in ("rne", "sr", "qsum", "local_amax"):
+        r, p = r0[name]["split"], r0[name]["plain"]
+        log(f"tp {name} first step against the one-process emulation: "
+            f"{r['n_health']} sites' {line(r)} (< {TP_UPDATE_TOL}); health "
+            f"pairs: the {r['n_w']} weight sites' equal "
+            f"{r['w_health_equal']}, max |diff| over all "
+            f"{r['health_max_diff']:.3e}; against the plain one-process "
+            f"step: {line(p)} [{CARD}]")
+
+    def near(r):
+        return (r["keys_equal"] and r["zero_pattern"]
+                and 1 / TP_NOTCH <= r["ratio_min"]
+                and r["ratio_max"] <= TP_NOTCH
+                and r["loss_rel"] < TP_LOSS_TOL)
+
+    def passes(r):
+        return near(r) and r["update_rel"] < TP_UPDATE_TOL
+    for name in ("rne", "sr"):
+        for r in ranks:
+            if not (passes(r[name]["split"])
+                    and r[name]["split"]["w_health_equal"]
+                    and near(r[name]["plain"])):
+                raise AssertionError(f"tp {name}: {r[name]}")
+    for name in ("qsum", "local_amax"):
+        if any(passes(r[name]["split"]) for r in ranks):
+            raise AssertionError(f"the planted fault {name} went unseen: "
+                                 f"{[r[name] for r in ranks]}")
+    digests = [[r[n]["repl_digest"] for r in ranks] for n in ("rne", "sr")]
+    log(f"tp replicated state ({r0['rne']['n_repl']} master leaves TP "
+        f"leaves whole, the loss scale, the ScaleState): digests "
+        f"{digests[0][0][:16]} / {digests[0][1][:16]} after {TP_STEPS} "
+        f"steps, equal {all(d[0] == d[1] for d in digests)}")
+    if not all(d[0] == d[1] for d in digests):
+        raise AssertionError(f"tp: replicated state differs: {digests}")
+    model = step_bytes_model(TP_LAYERS, train_cfg(TP_LAYERS).d_model,
+                             TRAIN_B * TRAIN_S, 2)
+    times = sorted(r0["times"][1:])
+    p50 = times[len(times) // 2] * 1e3
+    one = sorted(r0["one_process_times"])[0] * 1e3
+    log(f"tp: step p50 {p50:.1f} ms a rank (steps 2-{TP_STEPS}; the "
+        f"first {r0['times'][0] * 1e3:.1f} ms), one process's first step "
+        f"{one:.1f} ms; max_memory_allocated a rank "
+        f"{[r['mem'] / 2 ** 30 for r in ranks]} GiB; bytes sent over "
+        f"'model' a step a rank: counted {r0['tp_bytes']:.0f}, the model's "
+        f"{model} (activation sums; the rest the observation vectors and "
+        f"the grad norm) [{CARD}]")
+    if not model <= r0["tp_bytes"] <= 1.05 * model:
+        raise AssertionError(f"tp bytes {r0['tp_bytes']} against {model}")
+    for r in ranks:
+        got = {k: r["launches"].get(k, 0) for k in TP_STEP_LAUNCHES}
+        if got != TP_STEP_LAUNCHES:
+            raise AssertionError(f"tp launches a step {got}, expected "
+                                 f"{TP_STEP_LAUNCHES}")
+    log(f"tp: launches a step on each rank {r0['launches']}")
+    return dict(launches=r0["launches"], p50_ms=p50, ranks=ranks)
+
+
+# ---------------------------------------------------------------------------
+# phase 21's probe (`python3 chip_smoke.py --tp-probe`, not part of the
+# smoke run): where the TP step's first update departs from one process's
+# ---------------------------------------------------------------------------
+
+def tp_probe_compare(got, ref, p0, dev):
+    """Readings of a probe step against another: loss rel, amax ratios,
+    the update's rel L2, the gradient's rel L2 (whole and leaf by leaf)
+    and the share of gradient elements whose sign (or zero) differs."""
+    import torch
+    ra, ga = ref["amax"], got["amax"]
+    pos = (ra > 0) & (ga > 0)
+    num = den = flips = n = 0.0
+    leaves = {}
+    for k, gr in ref["grads"].items():
+        g = got["grads"][k].to(gr.device)
+        d2 = float(torch.sum(torch.square((g - gr).double())))
+        r2 = float(torch.sum(torch.square(gr.double())))
+        f = float(torch.sum(torch.sign(g) != torch.sign(gr)))
+        num, den, flips, n = num + d2, den + r2, flips + f, n + g.numel()
+        leaves[k] = dict(rel=(d2 / max(r2, 1e-300)) ** 0.5,
+                         sign_share=f / g.numel(), n=g.numel())
+    return dict(loss_rel=abs(got["losses"][0] - ref["losses"][0])
+                / abs(ref["losses"][0]),
+                ratio_min=float((ga[pos] / ra[pos]).min()),
+                ratio_max=float((ga[pos] / ra[pos]).max()),
+                zero_pattern=bool(((ga > 0) == (ra > 0)).all()),
+                update_rel=zero_update_rel(p0, got["master"], ref["master"],
+                                           dev),
+                grad_rel=(num / den) ** 0.5, sign_share=flips / n,
+                leaves=leaves)
+
+
+def tp_probe_variants(cfg):
+    """The one-process variants of the probe: (name, the one-rank group's
+    parts (tp_one_rank_group) or None, whether the parts run the two
+    ranks' arithmetic (tp_split_patches)). "proj+vocab split" is
+    tp_emulation."""
+    return (("plain again", None, False), ("proj", ("proj",), False),
+            ("proj split", ("proj",), True), ("vocab", ("vocab",), False),
+            ("vocab split", ("vocab",), True),
+            ("proj+vocab split", ("proj", "vocab"), True))
+
+
+def tp_probe_child(tmp: str) -> int:
+    """The probe's two ranks (under torch.distributed.run): the TP step
+    on (data 1, model 2) and the quantize-then-sum fault, each against the
+    parent's one-process step (tp_probe_ref.pt); rank 0 writes
+    tp_probe_ranks.json."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import qlinear
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.transformer import init_lm
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo")
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("data", "model"))
+    plan = ParallelPlan.build(mesh, DistConfig(zero1=False))
+    setup = zero_repair_setup(dev, TRAIN_B, rne=True)
+    runs = {"tp": tp_step(dev, setup, plan, grads=True)}
+    gc_collect()
+    runs["tp qsum fault"] = tp_step(
+        dev, setup, plan, grads=True,
+        patches=((qlinear, "_summed_gemm", tp_quantize_then_sum),))
+    if dist.get_rank() == 0:
+        ref, split = (torch.load(tmp / f"tp_probe_{n}.pt",
+                                 weights_only=False) for n in ("ref", "split"))
+        for r in (ref, split):
+            r["grads"] = {n: g.to(dev) for n, g in r["grads"].items()}
+        p0 = _to_cpu(init_lm(setup[0], seed=0, device=dev))
+        out = {name: {"vs plain": tp_probe_compare(r, ref, p0, dev),
+                      "vs proj+vocab split": tp_probe_compare(r, split, p0,
+                                                              dev)}
+               for name, r in runs.items()}
+        (tmp / "tp_probe_ranks.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_probe() -> int:
+    """`--tp-probe`: phase 21's setup (qwen2-1.5b at full width, 4 layers,
+    B=4 x S=512, hybrid delayed under RNE, track_health). One process's
+    step, then the one-process variants (tp_probe_variants), then two
+    ranks' TP step and the quantize-then-sum fault, each against the
+    first; prints one line a run and writes every leaf's readings to
+    chiprun_out/tp_probe.json."""
+    import shutil
+    import tempfile
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.transformer import init_lm
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    CARD = card_line()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    kbuild.build(["fused_quant_matmul", "fp8_attention_fwd",
+                  "fp8_attention_bwd"])
+    log(f"tp probe: build {time.perf_counter() - t0:.1f} s [{CARD}]")
+    tmp = Path(tempfile.mkdtemp(prefix="tpprobe_"))
+    setup = zero_repair_setup(dev, TRAIN_B, rne=True)
+    cfg = setup[0]
+    p0 = _to_cpu(init_lm(cfg, seed=0, device=dev))
+    ref = tp_step(dev, setup, grads=True)
+    torch.save({k: v if k != "grads" else {n: g.cpu() for n, g in v.items()}
+                for k, v in ref.items()}, tmp / "tp_probe_ref.pt")
+    out = {}
+    for name, parts, split in tp_probe_variants(cfg):
+        run = tp_step(
+            dev, setup, grads=True,
+            group=tp_one_rank_group(cfg, parts) if parts else None,
+            patches=tp_split_patches(parts) if split else ())
+        out[name] = {"vs plain": tp_probe_compare(run, ref, p0, dev)}
+        if name == "proj+vocab split":
+            torch.save({k: v if k != "grads" else {
+                n: g.cpu() for n, g in v.items()} for k, v in run.items()},
+                tmp / "tp_probe_split.pt")
+        del run
+        gc_collect()
+    del ref
+    gc_collect()
+    try:
+        dp_finish(dp_start(tmp, "tp_probe", [str(ROOT / "chip_smoke.py"),
+                                             "--tp-probe-child", str(tmp)],
+                           []), "tp_probe", timeout=900)
+        out.update(json.loads((tmp / "tp_probe_ranks.json").read_text()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, vs in out.items():
+        for what, r in vs.items():
+            worst = sorted(r["leaves"].items(), key=lambda kv: -kv[1]["rel"])
+            log(f"tp probe {name} {what}: loss rel {r['loss_rel']:.3e}, amax "
+                f"ratio [{r['ratio_min']:.3f}, {r['ratio_max']:.3f}] zero "
+                f"pattern equal {r['zero_pattern']}, update rel L2 "
+                f"{r['update_rel']:.4f}, gradient rel L2 {r['grad_rel']:.3e}, "
+                f"sign share {r['sign_share']:.3e}; leaves by rel: "
+                + ", ".join(f"{k} {v['rel']:.2e}" for k, v in worst[:4])
+                + f" [{CARD}]")
+    dst = ROOT / "chiprun_out"
+    dst.mkdir(exist_ok=True)
+    (dst / "tp_probe.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
 def gc_collect():
     import torch
     gc.collect()
@@ -7320,6 +8039,7 @@ def main() -> int:
     fwd_rows = phase(check_attention, dev)
     phase(check_attention_bwd, dev)
     phase(check_attention_bwd_overflow, dev)
+    phase(check_attention_tp_heads, dev)
     phase(check_dkv_schedule, dev, dkv_probe)
     attn_rows = phase(time_attention_bwd, dev)
     phase(check_attention_counts, dev)
@@ -7436,11 +8156,12 @@ def main() -> int:
     gc_collect()
     dp = phase(train_dp, dev)
     gc_collect()
-    zero = None
+    zero = tp = None
     if dp is not None:
+        tp = phase(train_tp, dev, dp)
         zero = phase(train_zero, dev, dp)
     else:
-        failures.append("train_zero: not run (phase 19 failed)")
+        failures.append("train_zero, train_tp: not run (phase 19 failed)")
     gc_collect()
     if failures:
         log(f"{len(failures)} phase(s) failed:\n  " + "\n  ".join(failures))
@@ -7516,7 +8237,10 @@ def main() -> int:
                 trainer["per_step"][entry["name"]],
             f"qwen2-1.5b data parallel, fp8_ef wire, a rank of 2 "
             f"({DP_LAYERS} layers, hybrid, track_health)":
-                dp["launches"][entry["name"]]}
+                dp["launches"][entry["name"]],
+            f"qwen2-1.5b tensor parallel, a rank of (data 1, model 2) "
+            f"({TP_LAYERS} layers, hybrid, track_health)":
+                tp["launches"][entry["name"]]}
         entry["other_shapes"] = [dict(r[rows], variant=r["variant"])
                                  for r in count_rows[1:]]
     rg_paths = {
@@ -7611,6 +8335,8 @@ def main() -> int:
     paths[f"qwen2-1.5b data parallel, full wire, ZeRO-1, a rank of 2 "
           f"({DP_LAYERS} layers, hybrid, track_health)"] = \
         dp["launches_full"]
+    paths[f"qwen2-1.5b tensor parallel, a rank of (data 1, model 2) "
+          f"({TP_LAYERS} layers, hybrid, track_health)"] = tp["launches"]
     other = [[dict(r, shape=f"{r['dims']} M={r['m']} K={r['c']} N={r['n']}")
               for r in t5_gemm_rows + s2s_gemm_rows + arch_gemm_rows
               + xl_gemm_rows],
@@ -7661,4 +8387,8 @@ if __name__ == "__main__":
         sys.exit(dp_child(sys.argv[2]))
     if sys.argv[1:2] == ["--nccl-child"]:
         sys.exit(nccl_child())
+    if sys.argv[1:2] == ["--tp-probe"]:
+        sys.exit(tp_probe())
+    if sys.argv[1:2] == ["--tp-probe-child"]:
+        sys.exit(tp_probe_child(sys.argv[2]))
     sys.exit(main())

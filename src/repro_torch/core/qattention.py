@@ -32,7 +32,8 @@ from repro_torch.core.fp8_formats import FP8_DTYPES
 from repro_torch.core.precision_policy import (ACT, ERROR, QuantConfig,
                                                dtype_of)
 from repro_torch.core.qlinear import (_health, _observe, _quant_operand,
-                                      _track, kernel_backend)
+                                      _record_health, _track,
+                                      kernel_backend)
 from repro_torch.core.quantize import f32
 from repro_torch.obs.counters import counts_to_frac
 from repro_torch.scaling import context as scale_ctx
@@ -81,6 +82,12 @@ def _kernel_kwargs(cfg: QuantConfig):
                 saturate_p=cfg.saturate_for(ACT))
 
 
+def _heads_kw(heads):
+    """The kernels' `heads` argument on a tensor-parallel rank's heads,
+    and none otherwise (the wrappers' call as it is without TP)."""
+    return {} if heads is None else {"heads": heads}
+
+
 def _check_frozen_sites(ctx, keys):
     """Frozen serving refuses silent unit scales for the in-kernel sites."""
     if ctx.mode != "frozen":
@@ -104,10 +111,12 @@ class _FP8SDPA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, meta):
         from repro_torch.kernels.fp8_attention import ops as attn_ops
-        cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen = meta
-        q8 = _quant_operand(q, ACT, cfg, scales["q"], gen)
-        k8 = _quant_operand(k, ACT, cfg, scales["k"], gen)
-        v8 = _quant_operand(v, ACT, cfg, scales["v"], gen)
+        (cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen, heads,
+         tp) = meta
+        hd = 1 if tp is not None else None
+        q8 = _quant_operand(q, ACT, cfg, scales["q"], gen, hd, tp)
+        k8 = _quant_operand(k, ACT, cfg, scales["k"], gen, hd, tp)
+        v8 = _quant_operand(v, ACT, cfg, scales["v"], gen, hd, tp)
         seed = _seed(cfg, gen)
         track = _track(cfg)
         o, amax_s, amax_p, *counts = attn_ops.fp8_attention_fwd(
@@ -115,7 +124,7 @@ class _FP8SDPA(torch.autograd.Function):
             _fwd_factors(scales["q"], scales["k"], scales["v"], scales["s"],
                          scales["p"], sm_scale),
             mask_mode=mask_mode, window=window, with_counts=track,
-            **_kernel_kwargs(cfg))
+            **_heads_kw(heads), **_kernel_kwargs(cfg))
         if keys is not None and sctx.mode in ("collect", "calibrate"):
             sctx.record(keys["q"], _observe(q8))
             sctx.record(keys["k"], _observe(k8))
@@ -124,10 +133,11 @@ class _FP8SDPA(torch.autograd.Function):
             sctx.record(keys["p"], amax_p * float(scales["p"]))
             if track:
                 hs, hp = counts_to_frac(counts[0])
+                sh = tp is not None
                 for n, x in (("q", q8), ("k", k8), ("v", v8)):
-                    sctx.record_health(keys[n], _health(x, cfg, ACT))
-                sctx.record_health(keys["s"], hs)
-                sctx.record_health(keys["p"], hp)
+                    _record_health(sctx, keys[n], _health(x, cfg, ACT), sh)
+                _record_health(sctx, keys["s"], hs, sh)
+                _record_health(sctx, keys["p"], hp, sh)
         ctx.save_for_backward(q8.data, k8.data, v8.data)
         ctx.meta = meta
         ctx.seed = seed
@@ -138,24 +148,28 @@ class _FP8SDPA(torch.autograd.Function):
     def backward(ctx, dy):
         from repro_torch.kernels.fp8_attention import ops as attn_ops
         q8, k8, v8 = ctx.saved_tensors
-        cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen = ctx.meta
-        qdo = _quant_operand(dy, ERROR, cfg, scales["do"], gen)
+        (cfg, sm_scale, mask_mode, window, scales, sctx, keys, gen, heads,
+         tp) = ctx.meta
+        qdo = _quant_operand(dy, ERROR, cfg, scales["do"], gen,
+                             1 if tp is not None else None, tp)
         track = _track(cfg)
         dq, dk, dv, amax_dp, amax_ds, *counts = attn_ops.fp8_attention_bwd(
             q8, k8, v8, qdo.data, ctx.seed, _bwd_factors(scales, sm_scale),
             mask_mode=mask_mode, window=window, fmt_e=cfg.format_for(ERROR),
             rounding_e=cfg.rounding_for(ERROR),
             saturate_e=cfg.saturate_for(ERROR), with_counts=track,
-            **_kernel_kwargs(cfg))
+            **_heads_kw(heads), **_kernel_kwargs(cfg))
         if keys is not None and sctx.mode == "collect":
             sctx.record_bwd(keys["do"], _observe(qdo))
             sctx.record_bwd(keys["dp"], amax_dp * float(scales["dp"]))
             sctx.record_bwd(keys["ds"], amax_ds * float(scales["ds"]))
             if track:
                 hdp, hds = counts_to_frac(counts[0])
-                sctx.record_bwd_health(keys["do"], _health(qdo, cfg, ERROR))
-                sctx.record_bwd_health(keys["dp"], hdp)
-                sctx.record_bwd_health(keys["ds"], hds)
+                sh = tp is not None
+                _record_health(sctx, keys["do"], _health(qdo, cfg, ERROR),
+                               sh, bwd=True)
+                _record_health(sctx, keys["dp"], hdp, sh, bwd=True)
+                _record_health(sctx, keys["ds"], hds, sh, bwd=True)
         qd, kd, vd = ctx.dtypes
         return dq.to(qd), dk.to(kd), dv.to(vd), None
 
@@ -163,13 +177,19 @@ class _FP8SDPA(torch.autograd.Function):
 def fp8_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              cfg: QuantConfig, sm_scale: float, mask_mode: str = "causal",
              window: int = 0, site: Optional[str] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             tp=None) -> torch.Tensor:
     """Fused FP8 attention over (B,H,Q,dh) queries and unrepeated
     (B,Hkv,S,dh) keys/values, differentiable (mask_mode 'causal' or
     'full' for the backward). Under an active ScaleContext with a site,
     operand scales come from the context, the q/k/v and in-kernel S/P
     amaxes are recorded, and the backward records #E / #dp.E / #ds.E.
-    SR bits (q/k/v, the per-call kernel seed, dO) come from `generator`."""
+    SR bits (q/k/v, the per-call kernel seed, dO) come from `generator`.
+    tp: the 'model' group (`distributed.tensor_parallel.TPGroup`) when q,
+    k, v hold this rank's heads, chunk r of m of the whole tensor's: the
+    operands' SR bits are their slices of the whole tensors', the
+    kernels' in-kernel SR hash reads the heads' whole-tensor indices, and
+    the health pairs are marked as read from a shard."""
     ctx = scale_ctx.current()
     keys = None
     scales = {n: f32(1.0) for n in _ORDER}
@@ -184,7 +204,10 @@ def fp8_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if generator is None and cfg.needs_key:
         raise ValueError("QuantConfig uses stochastic rounding; fp8_sdpa "
                          "needs a torch.Generator")
-    meta = (cfg, sm_scale, mask_mode, window, scales, ctx, keys, generator)
+    heads = None if tp is None else (q.shape[1] * tp.size,
+                                     q.shape[1] * tp.rank)
+    meta = (cfg, sm_scale, mask_mode, window, scales, ctx, keys, generator,
+            heads, tp)
     return _FP8SDPA.apply(q, k, v, meta)
 
 

@@ -77,14 +77,28 @@ from repro_torch.core.precision_policy import (ACT, ERROR, GRAD, WEIGHT,
                                                PAPER_FP8, QuantConfig,
                                                dtype_of)
 from repro_torch.core.quantize import QTensor, fp8_amax_bits, f32
+from repro_torch.core.quantize import random_bits
 from repro_torch.core.quantize import dequantize as _dequantize
 from repro_torch.core.quantize import quantize as _quantize
 from repro_torch.distributed import comm
 from repro_torch.distributed import global_batch
+from repro_torch.distributed import tensor_parallel
 from repro_torch.obs.counters import payload_health
 from repro_torch.scaling import context as scale_ctx
 
 N_SCALES = 6   # [a, b, E, G, Y, dA_err], the reference's scale layout
+
+# Tensor-parallel roles of a site (`qeinsum(tp=)`): the dim each tensor of
+# the site is split along over 'model', by role (absent: replicated).
+# "col": a column-parallel projection ('...k,kn->...n', W's columns);
+# "row": a row-parallel one (W's rows, a's last dim); "heads": a 4-D
+# attention contraction on the rank's heads.
+_A_DIM = {"row": -1, "heads": 1}
+_B_DIM = {"col": -1, "row": 0, "heads": 1}
+_Y_DIM = {"col": -1, "heads": 1}
+# The dim of the input gradient dA: "col"'s is a partial over W's column
+# shards, summed before its Q node, and whole; "row"'s is a's shard.
+_DA_DIM = {"row": -1, "heads": 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,17 +133,24 @@ def kernel_backend(cfg: QuantConfig) -> bool:
 
 
 def _quant_operand(x: torch.Tensor, cls: str, cfg: QuantConfig,
-                   scale=None, generator: Optional[torch.Generator] = None
-                   ) -> QTensor:
+                   scale=None, generator: Optional[torch.Generator] = None,
+                   dim: Optional[int] = None, tp=None) -> QTensor:
     """Quantize one operand: the history-derived per-site scale under
     delayed scaling (reciprocal multiply); otherwise the tensor's own amax
-    scale for a class `amax_for` selects, else the unit scale."""
+    scale for a class `amax_for` selects, else the unit scale. `x` this
+    rank's shard along `dim` of a tensor split over `tp`: its SR bits are
+    its slice of the whole tensor's."""
     fmt = get_format(cfg.format_for(cls))
     if cfg.delayed:
         scale = f32(1.0) if scale is None else scale
     else:
         scale = None
-    return _quantize(x, fmt, rounding=cfg.rounding_for(cls),
+    rand = None
+    if cfg.rounding_for(cls) == "sr" and tp is not None and dim is not None:
+        rand = tensor_parallel.bits(
+            lambda shape: random_bits(shape, x.device, generator), x.shape,
+            dim, tp)
+    return _quantize(x, fmt, rounding=cfg.rounding_for(cls), rand=rand,
                      generator=generator, scale=scale,
                      use_amax_scale=cfg.amax_for(cls),
                      saturate=cfg.saturate_for(cls))
@@ -159,21 +180,80 @@ def _health(q: QTensor, cfg: QuantConfig, cls: str) -> torch.Tensor:
     return payload_health(q.data, cfg.format_for(cls))
 
 
+def _rand8(shape, cfg: QuantConfig, out_cls: str, generator, dim=None,
+           tp=None):
+    """The uint8 SR bits of a GEMM output's Q node (None under RNE): the
+    whole output's, drawn as the kernel's wrapper draws them, and this
+    rank's slice along `dim` of an output split over `tp`."""
+    if cfg.rounding_for(out_cls) != "sr":
+        return None
+    dev = generator.device if generator is not None else None
+    return tensor_parallel.bits(
+        lambda s: torch.randint(0, 256, s, dtype=torch.uint8, device=dev,
+                                generator=generator), shape, dim, tp)
+
+
 def _fused_gemm(x8, w8, sx, sw, s_out, cfg: QuantConfig, out_cls: str,
-                dims: str, generator=None):
+                dims: str, generator=None, rand8=None):
     """One fused output-quantizing GEMM: out8 = Q((x8.w8) / (s_out/(sx*sw)))
     plus the output amax in real units (grid amax * s_out), and the
     output's (2,) health pair from the kernel's count epilogue under
-    `_track(cfg)` (else None)."""
+    `_track(cfg)` (else None). `rand8`: the SR bits (None: the kernel's
+    wrapper draws them from `generator`)."""
     from repro_torch.kernels.fused_quant_matmul import ops as fq_ops
     kscale = f32(s_out) / (f32(sx) * f32(sw))
     res = fq_ops.fused_quant_matmul(
         x8, w8, kscale, dims=dims, out_format=cfg.format_for(out_cls),
         rounding=cfg.rounding_for(out_cls),
         saturate=cfg.saturate_for(out_cls), generator=generator,
-        with_amax=True, with_counts=_track(cfg))
+        rand8=rand8, with_amax=True, with_counts=_track(cfg))
     health = res[2] if _track(cfg) else None
     return res[0], res[1] * float(f32(s_out)), health
+
+
+def _shard_gemm(x8, w8, sx, sw, s_out, cfg: QuantConfig, out_cls: str,
+                dims: str, generator, dim, tp):
+    """`_fused_gemm` of a GEMM whose output is this rank's shard along
+    `dim` of a tensor split over `tp` (dim or tp None: a whole output):
+    its SR bits are its slice of the whole output's."""
+    from repro_torch.kernels.fused_quant_matmul import ref as fq_ref
+    if tp is None or dim is None:
+        return _fused_gemm(x8, w8, sx, sw, s_out, cfg, out_cls, dims,
+                           generator)
+    m, n, _ = fq_ref.gemm_shape(x8.shape, w8.shape, dims)
+    return _fused_gemm(x8, w8, sx, sw, s_out, cfg, out_cls, dims, generator,
+                       rand8=_rand8((m, n), cfg, out_cls, generator, dim,
+                                    tp))
+
+
+def _q_node(acc: torch.Tensor, kscale, cfg: QuantConfig, out_cls: str,
+            rand8=None):
+    """A GEMM output's Q node on its f32 accumulator, as kernel 1's
+    epilogue takes it: Q(acc * (1/kscale)) in the class's format and
+    rounding (`rand8` its SR bits), the payload's amax in grid units, and
+    its health pair under `_track(cfg)` (else None)."""
+    fmt = cfg.format_for(out_cls)
+    q = _quantize(acc, fmt, rounding=cfg.rounding_for(out_cls), rand=rand8,
+                  scale=kscale, saturate=cfg.saturate_for(out_cls)).data
+    health = payload_health(q, fmt) if _track(cfg) else None
+    return q, fp8_amax_bits(q), health
+
+
+def _summed_gemm(x8, w8, sx, sw, s_out, cfg: QuantConfig, out_cls: str,
+                 generator, tp):
+    """A GEMM whose contraction is split over `tp`: this rank's f32
+    partial x8 (M, K/m) . w8 (K/m, N) on kernel 5 (`fp8_matmul`), summed
+    over the ranks in rank order, then the output's Q node on the sum
+    (`_q_node`): the one process's Q node on the whole product. Returns
+    `_fused_gemm`'s triple. Quantizing each partial and summing the
+    payloads instead is wrong: it is the planted fault the tests hold the
+    step against."""
+    from repro_torch.kernels.fp8_matmul import ops as mm_ops
+    acc = tensor_parallel.rank_sum(mm_ops.fp8_matmul(x8, w8), tp)
+    q, amax, health = _q_node(acc, f32(s_out) / (f32(sx) * f32(sw)), cfg,
+                              out_cls, _rand8(acc.shape, cfg, out_cls,
+                                              generator))
+    return q, amax * float(f32(s_out)), health
 
 
 def _fused_dequant(out8: torch.Tensor, s_out, cfg: QuantConfig) -> torch.Tensor:
@@ -213,23 +293,27 @@ def _compute(spec: str, qa: QTensor, qb: QTensor,
 
 
 def _summed_wgrad(spec: str, qa: QTensor, qb: QTensor, cfg: QuantConfig,
-                  group, generator, scale, out_dtype=None):
+                  group, generator, scale, out_dtype=None, dim=None,
+                  tp=None):
     """A weight gradient summed over the ranks of `group` before its Q
     node (module docstring): the f32 product, its f32 sum, cast to
-    `out_dtype` (None: kept f32), then `_fake_quant_grad`."""
+    `out_dtype` (None: kept f32), then `_fake_quant_grad` (a tensor-
+    parallel shard along `dim` of the whole gradient: its slice of the
+    whole gradient's SR bits)."""
     g = comm.all_reduce(_product(spec, qa, qb, cfg), "sum", group)
     if out_dtype is not None:
         g = g.to(out_dtype)
-    return _fake_quant_grad(g, cfg, generator, scale)
+    return _fake_quant_grad(g, cfg, generator, scale, dim, tp)
 
 
 def _fake_quant_grad(g: torch.Tensor, cfg: QuantConfig,
-                     generator: Optional[torch.Generator], scale=None):
+                     generator: Optional[torch.Generator], scale=None,
+                     dim=None, tp=None):
     """The weight gradient stored in FP8 (class G, at the site's #G scale
     under delayed scaling) and read back in g's dtype; the optimizer
     unscales in f32. Returns (gradient, its payload's amax, its health
     pair under `_track(cfg)` or None)."""
-    q = _quant_operand(g, GRAD, cfg, scale, generator)
+    q = _quant_operand(g, GRAD, cfg, scale, generator, dim, tp)
     obs = _observe(q) if cfg.delayed else None
     health = _health(q, cfg, GRAD) if _track(cfg) else None
     return _dequantize(q, dtype=g.dtype), obs, health
@@ -239,6 +323,15 @@ def _plain_einsum(spec: str, a, b, cfg: QuantConfig) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     y = torch.einsum(spec, a.to(cd).float(), b.to(cd).float())
     return y.to(dtype_of(cfg.output_dtype))
+
+
+def _record_health(sctx, key: str, pair: torch.Tensor, sharded: bool,
+                   bwd: bool = False):
+    """Record a forward (or backward) health pair of `key`, marked as read
+    from this rank's shard of a tensor-parallel payload (`sharded`)."""
+    (sctx.record_bwd_health if bwd else sctx.record_health)(key, pair)
+    if sharded:
+        sctx.mark_sharded(key)
 
 
 def _observe(q: QTensor) -> torch.Tensor:
@@ -258,16 +351,24 @@ def _sum_group(w: torch.Tensor, cls: str):
 class _QEinsum(torch.autograd.Function):
     """The fused-path custom gradient (`_qeinsum_fwd` / `_qeinsum_bwd_fused`
     of the reference). Non-tensor arguments ride in `meta`: (cfg, classes,
-    scales, sctx, keys, fkeys, generator)."""
+    scales, sctx, keys, fkeys, generator, role, tp): role the site's
+    tensor-parallel role ("col", "row" or None) over the group `tp`."""
 
     @staticmethod
     def forward(ctx, a, b, meta):
-        cfg, classes, scales, sctx, keys, fkeys, gen = meta
-        qa = _quant_operand(a, classes[0], cfg, scales[0], gen)
-        qb = _quant_operand(b, classes[1], cfg, scales[1], gen)
+        cfg, classes, scales, sctx, keys, fkeys, gen, role, tp = meta
+        qa = _quant_operand(a, classes[0], cfg, scales[0], gen,
+                            _A_DIM.get(role), tp)
+        qb = _quant_operand(b, classes[1], cfg, scales[1], gen,
+                            _B_DIM.get(role), tp)
         a2 = qa.data.reshape((-1, qa.data.shape[-1]))
-        y8, obs_y, h_y = _fused_gemm(a2, qb.data, qa.scale, qb.scale,
-                                     scales[4], cfg, ACT, "nn", gen)
+        if role == "row":
+            y8, obs_y, h_y = _summed_gemm(a2, qb.data, qa.scale, qb.scale,
+                                          scales[4], cfg, ACT, gen, tp)
+        else:
+            y8, obs_y, h_y = _shard_gemm(a2, qb.data, qa.scale, qb.scale,
+                                         scales[4], cfg, ACT, "nn", gen,
+                                         _Y_DIM.get(role), tp)
         y = _fused_dequant(y8, scales[4], cfg).reshape(
             qa.data.shape[:-1] + (qb.data.shape[-1],))
         if keys is not None and sctx.mode in ("collect", "calibrate"):
@@ -275,9 +376,11 @@ class _QEinsum(torch.autograd.Function):
             sctx.record(keys["b"], _observe(qb))
             sctx.record(fkeys["y"], obs_y)
             if _track(cfg):
-                sctx.record_health(keys["a"], _health(qa, cfg, classes[0]))
-                sctx.record_health(keys["b"], _health(qb, cfg, classes[1]))
-                sctx.record_health(fkeys["y"], h_y)
+                _record_health(sctx, keys["a"], _health(qa, cfg, classes[0]),
+                               role in _A_DIM)
+                _record_health(sctx, keys["b"], _health(qb, cfg, classes[1]),
+                               role in _B_DIM)
+                _record_health(sctx, fkeys["y"], h_y, role in _Y_DIM)
         ctx.save_for_backward(qa.data, qb.data)
         ctx.meta = meta
         ctx.qscales = (qa.scale, qb.scale)
@@ -288,9 +391,10 @@ class _QEinsum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         qa_data, qb_data = ctx.saved_tensors
-        cfg, classes, scales, sctx, keys, fkeys, gen = ctx.meta
+        cfg, classes, scales, sctx, keys, fkeys, gen, role, tp = ctx.meta
         sa, sb = ctx.qscales
-        qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen)
+        qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen,
+                             _Y_DIM.get(role), tp)
         dy2 = qdy.data.reshape((-1, qdy.data.shape[-1]))
         a2 = qa_data.reshape((-1, qa_data.shape[-1]))
         # The weight operand's gradient is FP8-stored (class G, site #G);
@@ -299,20 +403,29 @@ class _QEinsum(torch.autograd.Function):
         cls_b = GRAD if classes[1] == WEIGHT else ERROR
         s_da = scales[3] if cls_a == GRAD else scales[5]
         s_db = scales[3] if cls_b == GRAD else scales[5]
-        # dA = Q(dY . W^T): (M, N) x (K, N) -> (M, K)
-        da8, obs_da, h_da = _fused_gemm(dy2, qb_data, qdy.scale, sb, s_da,
-                                        cfg, cls_a, "nt", gen)
+        if role == "col":
+            # dA = Q(sum over ranks of dY_r . W_r^T): kernel 5 on W_r^T.
+            da8, obs_da, h_da = _summed_gemm(
+                dy2, qb_data.t().contiguous(), qdy.scale, sb, s_da, cfg,
+                cls_a, gen, tp)
+        else:
+            # dA = Q(dY . W^T): (M, N) x (K, N) -> (M, K)
+            da8, obs_da, h_da = _shard_gemm(dy2, qb_data, qdy.scale, sb,
+                                            s_da, cfg, cls_a, "nt", gen,
+                                            _DA_DIM.get(role), tp)
         da = _fused_dequant(da8, s_da, cfg).reshape(qa_data.shape)
         if ctx.sum_group is not None:
             # dW = Q(sum over ranks of A^T . dY): kernel 5 on A^T.
             db, obs_db, h_db = _summed_wgrad(
                 "km,mn->kn", QTensor(a2.t().contiguous(), sa),
-                QTensor(dy2, qdy.scale), cfg, ctx.sum_group, gen, s_db)
+                QTensor(dy2, qdy.scale), cfg, ctx.sum_group, gen, s_db,
+                dim=_B_DIM.get(role), tp=tp)
             db = db.to(dtype_of(cfg.output_dtype)).reshape(qb_data.shape)
         else:
             # dW = Q(A^T . dY): (M, K) x (M, N) -> (K, N)
-            db8, obs_db, h_db = _fused_gemm(a2, dy2, sa, qdy.scale, s_db,
-                                            cfg, cls_b, "tn", gen)
+            db8, obs_db, h_db = _shard_gemm(a2, dy2, sa, qdy.scale, s_db,
+                                            cfg, cls_b, "tn", gen,
+                                            _B_DIM.get(role), tp)
             db = _fused_dequant(db8, s_db, cfg).reshape(qb_data.shape)
         if keys is not None and sctx.mode == "collect":
             track = _track(cfg)
@@ -335,32 +448,46 @@ class _QEinsum(torch.autograd.Function):
             if "err" in fkeys:
                 sctx.record_bwd(fkeys["err"], obs_err)
             if track:
-                sctx.record_bwd_health(keys["E"], _health(qdy, cfg, ERROR))
-                sctx.record_bwd_health(keys["G"], h_g)
+                _record_health(sctx, keys["E"], _health(qdy, cfg, ERROR),
+                               role in _Y_DIM, bwd=True)
+                _record_health(sctx, keys["G"], h_g, role in _B_DIM,
+                               bwd=True)
                 if "err" in fkeys:
-                    sctx.record_bwd_health(fkeys["err"], h_err)
+                    _record_health(sctx, fkeys["err"], h_err,
+                                   role in _DA_DIM, bwd=True)
         return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 
 class _QEinsumUnfused(torch.autograd.Function):
     """The unfused custom gradient (`_qeinsum_fwd`'s unfused branch and
     `_qeinsum_bwd` of the reference). `meta`: (spec, cfg, classes, scales,
-    sctx, keys, generator): scales [a, b, E, G] (None: unit scales, or the
-    operand's amax scale under jit_amax); keys the delayed site's operand
-    keys, or None. Saves the fp8 payloads qa, qb."""
+    sctx, keys, generator, role, tp): scales [a, b, E, G] (None: unit
+    scales, or the operand's amax scale under jit_amax); keys the delayed
+    site's operand keys, or None; role the site's tensor-parallel role
+    over `tp` (a "row" site's forward and a "col" site's dA are f32
+    partials, summed over the ranks before the cast). Saves the fp8
+    payloads qa, qb."""
 
     @staticmethod
     def forward(ctx, a, b, meta):
-        spec, cfg, classes, scales, sctx, keys, gen = meta
-        qa = _quant_operand(a, classes[0], cfg, scales[0], gen)
-        qb = _quant_operand(b, classes[1], cfg, scales[1], gen)
-        y = _compute(spec, qa, qb, cfg)
+        spec, cfg, classes, scales, sctx, keys, gen, role, tp = meta
+        qa = _quant_operand(a, classes[0], cfg, scales[0], gen,
+                            _A_DIM.get(role), tp)
+        qb = _quant_operand(b, classes[1], cfg, scales[1], gen,
+                            _B_DIM.get(role), tp)
+        if role == "row":
+            y = tensor_parallel.rank_sum(_product(spec, qa, qb, cfg), tp).to(
+                dtype_of(cfg.output_dtype))
+        else:
+            y = _compute(spec, qa, qb, cfg)
         if keys is not None and sctx.mode in ("collect", "calibrate"):
             sctx.record(keys["a"], _observe(qa))
             sctx.record(keys["b"], _observe(qb))
             if _track(cfg):
-                sctx.record_health(keys["a"], _health(qa, cfg, classes[0]))
-                sctx.record_health(keys["b"], _health(qb, cfg, classes[1]))
+                _record_health(sctx, keys["a"], _health(qa, cfg, classes[0]),
+                               role in _A_DIM)
+                _record_health(sctx, keys["b"], _health(qb, cfg, classes[1]),
+                               role in _B_DIM)
         ctx.save_for_backward(qa.data, qb.data)
         ctx.meta = meta
         ctx.qscales = (qa.scale, qb.scale)
@@ -372,26 +499,34 @@ class _QEinsumUnfused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         qa_data, qb_data = ctx.saved_tensors
-        spec, cfg, classes, scales, sctx, keys, gen = ctx.meta
+        spec, cfg, classes, scales, sctx, keys, gen, role, tp = ctx.meta
         qa = QTensor(qa_data, ctx.qscales[0])
         qb = QTensor(qb_data, ctx.qscales[1])
-        qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen)
+        qdy = _quant_operand(dy, ERROR, cfg, scales[2], gen,
+                             _Y_DIM.get(role), tp)
         da_spec, db_spec = adjoint_specs(spec)
         out_dtype = dtype_of(cfg.output_dtype)
         # Weight gradients are stored in FP8 (class G, paper Fig. 1b); in
         # a "full" step summed over the ranks first.
+        # A "col" site's dA is a partial over W's column shards.
         g_obs, grads = [], []
-        for x, y, adj, cls, group in ((qdy, qb, da_spec, classes[0],
-                                       ctx.sum_groups[0]),
-                                      (qa, qdy, db_spec, classes[1],
-                                       ctx.sum_groups[1])):
+        for x, y, adj, cls, group, dim, partial in (
+                (qdy, qb, da_spec, classes[0], ctx.sum_groups[0],
+                 _A_DIM.get(role), role == "col"),
+                (qa, qdy, db_spec, classes[1], ctx.sum_groups[1],
+                 _B_DIM.get(role), False)):
             if group is not None:
                 g, *obs = _summed_wgrad(adj, x, y, cfg, group, gen,
-                                        scales[3], out_dtype)
+                                        scales[3], out_dtype, dim, tp)
             else:
-                g = _compute(adj, x, y, cfg)
+                if partial:
+                    g = tensor_parallel.rank_sum(
+                        _product(adj, x, y, cfg), tp).to(out_dtype)
+                else:
+                    g = _compute(adj, x, y, cfg)
                 if cls == WEIGHT:
-                    g, *obs = _fake_quant_grad(g, cfg, gen, scales[3])
+                    g, *obs = _fake_quant_grad(g, cfg, gen, scales[3], dim,
+                                               tp)
             if cls == WEIGHT:
                 g_obs.append(obs)
             grads.append(g)
@@ -402,10 +537,12 @@ class _QEinsumUnfused(torch.autograd.Function):
                 sctx.record_bwd(keys["G"], functools.reduce(
                     torch.maximum, [o[0] for o in g_obs]))
             if _track(cfg):
-                sctx.record_bwd_health(keys["E"], _health(qdy, cfg, ERROR))
+                _record_health(sctx, keys["E"], _health(qdy, cfg, ERROR),
+                               role in _Y_DIM, bwd=True)
                 if g_obs:
-                    sctx.record_bwd_health(keys["G"], functools.reduce(
-                        torch.maximum, [o[1] for o in g_obs]))
+                    _record_health(sctx, keys["G"], functools.reduce(
+                        torch.maximum, [o[1] for o in g_obs]),
+                        role in _B_DIM, bwd=True)
         return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 
@@ -413,7 +550,8 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
             cfg: QuantConfig = PAPER_FP8,
             classes: Tuple[str, str] = (ACT, WEIGHT),
             site: Optional[str] = None,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            tp: Optional[str] = None) -> torch.Tensor:
     """Quantized einsum with its custom gradient. A disabled config is the
     16-bit plain einsum. Under delayed scaling with an active ScaleContext
     and a site name, the operand scales (and, on the fused path, the output
@@ -421,7 +559,15 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
     calibrate) and the backward records the E / G (and #da.E)
     observations (collect). Without a context or a site delayed scaling
     runs at unit scales, as in the reference. SR bits come from
-    `generator`."""
+    `generator`.
+
+    tp: the site's tensor-parallel role when a 'model' group is active
+    (`distributed.tensor_parallel.current()`), the caller's operands this
+    rank's shards: "col" (b's columns: y and dY split), "row" (a's last
+    dim and b's rows: y a partial, summed over the ranks in f32 before
+    its Q node), "heads" (a 4-D attention contraction on the rank's
+    heads). A "col" site's dA is summed the same way before its Q node.
+    Without an active group the role is ignored."""
     parse_spec(spec)
     if not cfg.enabled:
         return _plain_einsum(spec, a, b, cfg)
@@ -429,6 +575,8 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"QuantConfig uses stochastic rounding; qeinsum("
                          f"{spec!r}) needs a torch.Generator")
     classes = tuple(classes)
+    group = tensor_parallel.current() if tp is not None else None
+    role = tp if group is not None else None
     ctx = scale_ctx.current()
     fused = _fused_epilogue(spec, classes, cfg)
     keys = fkeys = None
@@ -445,10 +593,11 @@ def qeinsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
         scales = [None] * 4 if keys is None else [
             ctx.scale_for(keys.get(n, "")) for n in ("a", "b", "E", "G")]
         return _QEinsumUnfused.apply(
-            a, b, (spec, cfg, classes, scales, ctx, keys, generator))
+            a, b, (spec, cfg, classes, scales, ctx, keys, generator, role,
+                   group))
     scales = [f32(1.0)] * N_SCALES
     if keys is not None:
         scales = [ctx.scale_for(keys[n]) for n in ("a", "b", "E", "G")] + [
             ctx.scale_for(fkeys["y"]), ctx.scale_for(fkeys.get("err", ""))]
-    meta = (cfg, classes, scales, ctx, keys, fkeys, generator)
+    meta = (cfg, classes, scales, ctx, keys, fkeys, generator, role, group)
     return _QEinsum.apply(a, b, meta)

@@ -194,6 +194,9 @@ struct Args {
   int q_fmt, k_fmt, v_fmt, do_fmt, fmt_s, fmt_p, fmt_e;
   int sr_s, sr_p, sr_e, sat_s, sat_p, sat_e;
   float f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds, f_dq, f_dk, f_dv;
+  // The SR hash's head index of batch row b, head h: b * hash_h + head0 + h
+  // (hash_h = H, head0 = 0, unless q holds heads head0.. of hash_h).
+  int hash_h, head0;
 };
 
 __device__ __forceinline__ bool is_valid(const Args& p, int row, int col) {
@@ -350,7 +353,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel(Args p) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const int row0 = iq * BQ;
-  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const uint32_t bh = (uint32_t)(b * p.hash_h + p.head0 + h);
   const uint32_t seed = *p.seed;
   const long long qoff = (long long)(b * p.H + h) * p.Q * D;
   const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
@@ -787,7 +790,7 @@ __global__ void __launch_bounds__(128, D == 128 ? 2 : 1)
             iq = gridDim.z / DH - 1 - blockIdx.z / DH;
   const int hk = h / (p.H / p.Hkv);
   const int row0 = iq * BQ;
-  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const uint32_t bh = (uint32_t)(b * p.hash_h + p.head0 + h);
   const uint32_t seed = *p.seed;
   const long long qoff = (long long)(b * p.H + h) * p.Q * D;
   const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
@@ -1237,7 +1240,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 2)
   const int dh = blockIdx.z % F::DH;
   const int group = p.H / p.Hkv, hk = h / group;
   const int kv0 = kb * BKV, jblk = kv0 / LANE;
-  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const uint32_t bh = (uint32_t)(b * p.hash_h + p.head0 + h);
   const uint32_t seed = *p.seed;
   const long long kvoff = (long long)(b * p.Hkv + hk) * p.S * D;
   const long long qoff = (long long)(b * p.H + h) * p.Q * D;
@@ -1620,6 +1623,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dO,
   p.fmt_s = iv[13]; p.fmt_p = iv[14]; p.fmt_e = iv[15];
   p.sr_s = iv[16]; p.sr_p = iv[17]; p.sr_e = iv[18];
   p.sat_s = iv[19]; p.sat_p = iv[20]; p.sat_e = iv[21];
+  p.hash_h = iv[23]; p.head0 = iv[24];
   p.f_s = fv[0]; p.s_s = fv[1]; p.f_p = fv[2]; p.s_p = fv[3];
   p.f_dp = fv[4]; p.s_dp = fv[5]; p.f_ds = fv[6]; p.f_dq = fv[7];
   p.f_dk = fv[8]; p.f_dv = fv[9];
@@ -1759,11 +1763,12 @@ extern "C" int attn_bwd_dq_smem_bytes(int d) {
   });
 }
 
-// Integer arguments `iv` (23): B, H, Hkv, Q, S, q_len, s_len, causal,
+// Integer arguments `iv` (25): B, H, Hkv, Q, S, q_len, s_len, causal,
 // window, q/k/v/dO formats, fmt_s, fmt_p, fmt_e, sr_s, sr_p, sr_e, sat_s,
-// sat_p, sat_e, D. Float arguments `fv` (10): f_s, s_s, f_p, s_p, f_dp,
-// s_dp, f_ds, f_dq, f_dk, f_dv. Both arrays are read on the host. D must be
-// the library's FP8_ATTN_D and S a multiple of 128 (the wrapper pads).
+// sat_p, sat_e, D, hash_h, head0 (the SR hash's heads, Args). Float
+// arguments `fv` (10): f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds, f_dq, f_dk,
+// f_dv. Both arrays are read on the host. D must be the library's
+// FP8_ATTN_D and S a multiple of 128 (the wrapper pads).
 // Return cudaGetLastError().
 
 // Kernel 1, long-span variant: grid (ceil(Q/64) x D/128, H, B). Writes dq,

@@ -173,6 +173,9 @@ struct Args {
   int q_fmt, k_fmt, v_fmt, fmt_s, fmt_p, sr_s, sr_p, sat_s, sat_p;
   float f_s, s_s, f_p, f_o;
   const uint32_t* seed;
+  // The SR hash's head index of batch row b, head h: b * hash_h + head0 + h
+  // (hash_h = H, head0 = 0, unless q holds heads head0.. of hash_h).
+  int hash_h, head0;
 };
 
 // A column's key: valid for a row iff lo <= key <= hi of the row's range.
@@ -275,7 +278,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(Args p) {
   const int hk = h / (p.H / p.Hkv);
   const int row0 = iq * BQ;
   const int nk = p.S / LANE;
-  const uint32_t bh = (uint32_t)(b * p.H + h);
+  const uint32_t bh = (uint32_t)(b * p.hash_h + p.head0 + h);
   const uint32_t seed = *p.seed;
   const bool kv_words = p.mask == KV || p.mask == CHUNK;
   const int start = p.mask == CHUNK ? p.chunk[2 * b] : 0;
@@ -728,14 +731,14 @@ extern "C" int attn_fwd_launch(
     int Hkv, int Q, int S, int s_len, int mask, int window,
     int q_fmt, int k_fmt, int v_fmt, int fmt_s, int fmt_p, int sr_s, int sr_p,
     int sat_s, int sat_p, int D, float f_s, float s_s, float f_p, float f_o,
-    const void* seed, void* stream) {
+    const void* seed, int hash_h, int head0, void* stream) {
   Args p{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
          static_cast<const uint8_t*>(v), kvm, chunk,
          static_cast<__nv_bfloat16*>(o), amax_s, amax_p, counts, B, H, Hkv,
          Q, S,
          s_len, mask, window, q_fmt, k_fmt, v_fmt, fmt_s, fmt_p, sr_s,
          sr_p, sat_s, sat_p, f_s, s_s, f_p, f_o,
-         static_cast<const uint32_t*>(seed)};
+         static_cast<const uint32_t*>(seed), hash_h, head0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D != FP8_ATTN_D) return static_cast<int>(cudaErrorInvalidValue);
   return counts ? launch<true, FP8_ATTN_D>(p, B, H, Q, S, st)

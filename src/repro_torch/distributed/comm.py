@@ -22,7 +22,7 @@ Counters (`counts()`, `reset_counts()`), per process:
  * sent_bytes — the bytes a rank sends, by kind ("payload" for the
    1-byte legs, "reduce" for the f32 all-reduces and reduce-scatters,
    "gather" for f32 all-gathers, "zero_gather" for ZeRO-1's weight
-   all-gather): an all-to-all of n chunks of c bytes sends (n - 1) c, an
+   all-gather, "tp" for the tensor-parallel collectives over 'model'): an all-to-all of n chunks of c bytes sends (n - 1) c, an
    all-gather of c bytes (n - 1) c, an all-reduce of B bytes the ring's
    2 (n - 1) / n B, a reduce-scatter of B bytes (n - 1) / n B.
  * staged_bytes — bytes copied between the device and host buffers for a
@@ -123,27 +123,29 @@ def all_gather_bytes(chunk: torch.Tensor, group) -> torch.Tensor:
     return torch.stack([_from_wire(group, o, chunk) for o in out])
 
 
-def all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Any tensor -> (n, *x.shape), row i from rank i."""
+def all_gather(x: torch.Tensor, group, kind: str = "gather") -> torch.Tensor:
+    """Any tensor -> (n, *x.shape), row i from rank i; its bytes count as
+    `kind`."""
     n = group_size(group)
     send = _to_wire(group, x.contiguous())
     out: List[torch.Tensor] = [_recv_like(send) for _ in range(n)]
     dist.all_gather(out, send, group=group)
-    _count("sent/gather", (n - 1) * x.numel() * x.element_size())
+    _count(f"sent/{kind}", (n - 1) * x.numel() * x.element_size())
     _count("calls/all_gather", 1)
     return torch.stack([_from_wire(group, o, x) for o in out])
 
 
-def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, op: str, group,
+               kind: str = "reduce") -> torch.Tensor:
     """SUM or MAX of `x` over `group`; returns a new tensor on x's
-    device (x itself is left as it was)."""
+    device (x itself is left as it was); its bytes count as `kind`."""
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     n = group_size(group)
     buf = _to_wire(group, x.contiguous())
     if buf is x:
         buf = x.clone()
     dist.all_reduce(buf, op=rop, group=group)
-    _count("sent/reduce", 2.0 * (n - 1) / n * x.numel() * x.element_size())
+    _count(f"sent/{kind}", 2.0 * (n - 1) / n * x.numel() * x.element_size())
     _count("calls/all_reduce", 1)
     return _from_wire(group, buf, x)
 

@@ -17,6 +17,15 @@ training step enters around its loss and backward passes:
    `group`);
  * the nll's denominator is the global mask count (the step's own).
 
+Under tensor parallelism (a 'data' and a 'model' dim) the 'data' sum
+composes with the 'model' sums unchanged: a rank's weight leaf is its
+'model' shard, whose gradient is the same shard of the whole gradient, so
+`group` (the rank's 'data' group, ranks of one 'model' coordinate) sums
+that shard before its G node; the sums over 'model' (a row-parallel
+forward, a column-parallel input gradient, `distributed.tensor_parallel`)
+are of activations, within each 'data' rank's rows, and never of a weight
+gradient.
+
 A weight operand qualifies when it is a parameter leaf of the step, or a
 function of one leaf alone (a cast, a view, a transpose, a layer's slice):
 autograd's graph is walked from the operand through nodes with a single

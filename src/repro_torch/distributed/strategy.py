@@ -34,9 +34,18 @@ whole layout and this rank's shards (master weights and Adam moments;
 the scalars stay whole); `shard` / `gather` do one tree. A rank's shard
 of a leaf is chunk r of N along its dim, r its rank in the 'data' group.
 
-The port runs data parallelism and ZeRO-1; tensor parallelism is recorded
-by `build` (so `describe()` is the reference's, field for field) but the
-training step refuses it (ROADMAP.md, queue 1, slice 10c).
+Tensor parallelism (`tp_dims(params)`, `tp_rank`, `tp_group()`): the
+'model' entry of each leaf's param spec fixes the dim it is split along,
+and rank r of the 'model' group holds chunk r of m. `shard_state` takes a
+leaf's 'model' chunk, then of that its 'data' chunk (ZeRO-1 picks its dim
+on the whole shape among the dims TP leaves whole, the reference's
+`zero1_specs`); `unshard_state` gathers over 'data', then 'model'. The
+training step runs TP for the attention-plus-dense-FFN decoders (the
+layers' column- and row-parallel sites, head-sharded attention, the
+vocab-parallel embedding, head and cross-entropy: `distributed.
+tensor_parallel`) and refuses the rest under a TP plan, naming ROADMAP.md
+and slice 10d (`train.step._refuse_tp`); `build` refuses the fp8 wire and
+the fp8 gather with an active model dim, as the reference's does.
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ from repro_torch.core.quantize import quantize_rne
 from repro_torch.distributed import comm, sharding
 from repro_torch.distributed.grad_compress import (
     make_compressed_dp_allreduce, make_full_dp_allreduce, wire_bytes_model)
-from repro_torch.models.convert import zero_shard, zero_unshard
+from repro_torch.models.convert import shard_leaves, unshard_leaves
 from repro_torch.optim.optimizers import tmap
 
 # e4m3's shared gather scale is floored here, as the wire's scales are.
@@ -95,7 +104,7 @@ class ParallelPlan:
     tp: Optional[TensorParallel]
     _groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
-    _zero: Dict[str, Any] = dataclasses.field(
+    _layout: Dict[str, Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
     # -- construction --------------------------------------------------------
@@ -265,6 +274,31 @@ class ParallelPlan:
         return sharding.batch_specs(batch, mesh_sizes(self.mesh),
                                     batch_axes=self.dp_axes)
 
+    # -- tensor-parallel layout -----------------------------------------------
+    def tp_group(self):
+        return self.group(self.tp.axis)
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index in its 'model' group (0 without TP)."""
+        return dist.get_rank(self.tp_group()) if self.tp is not None else 0
+
+    def tp_dims(self, params: Any = None) -> Any:
+        """The 'model' dim of each parameter leaf (its `param_specs` entry,
+        or None: replicated), from the whole tree `params`, kept for later
+        calls without it; None without TP. Rank r holds chunk r of m."""
+        if self.tp is None:
+            return None
+        if params is not None:
+            self._layout["tp_dims"] = tmap(
+                lambda s: sharding.dim_of(s, self.tp.axis),
+                self.param_specs(params))
+        if "tp_dims" not in self._layout:
+            raise ValueError("the plan has no tensor-parallel layout yet: "
+                             "call plan.shard_state(state) (or plan."
+                             "tp_dims(params)) with the whole tree first")
+        return self._layout["tp_dims"]
+
     # -- ZeRO-1 shard bookkeeping ---------------------------------------------
     def zero_group(self):
         return self.group(self.zero1.axis)
@@ -285,35 +319,53 @@ class ParallelPlan:
             return None
         if params is not None:
             specs = self.master_specs(params)
-            self._zero["dims"] = tmap(
+            self._layout["dims"] = tmap(
                 lambda s: sharding.dim_of(s, self.zero1.axis), specs)
-        if "dims" not in self._zero:
+        if "dims" not in self._layout:
             raise ValueError("the plan has no ZeRO layout yet: call "
                              "plan.zero_dims(params) or plan.shard_state("
                              "state) with the whole tree first")
-        return self._zero["dims"]
+        return self._layout["dims"]
 
     def shard(self, tree: Any) -> Any:
-        """This rank's shards of a whole tree shaped like the master."""
-        return zero_shard(tree, self.zero_dims(), self.zero_rank,
-                          self.zero_size)
+        """This rank's shards of a whole tree shaped like the master: its
+        'model' chunk (TP), then of that its 'data' chunk (ZeRO-1)."""
+        if self.tp is not None:
+            tree = shard_leaves(tree, self.tp_dims(), self.tp_rank,
+                                self.tp_size)
+        if self.zero1 is not None:
+            tree = shard_leaves(tree, self.zero_dims(), self.zero_rank,
+                                self.zero_size)
+        return tree
 
     def gather(self, tree: Any, *, to_host: bool = False) -> Any:
         """The whole tree of the ranks' shards (an all-gather a sharded
-        leaf over 'data', every rank taking part; any dtype). `to_host`:
-        each whole leaf moves to host memory as soon as it is gathered
-        (the device never holds more than one whole leaf)."""
-        grp = self.zero_group()
-
-        def one(x, d):
-            if d is not None:
-                x = zero_unshard(list(comm.all_gather(x, grp)), d)
+        leaf over 'data', then over 'model', every rank taking part; any
+        dtype). `to_host`: each whole leaf moves to host memory as soon as
+        it is gathered (the device never holds more than one whole
+        leaf)."""
+        def one(x, zd, td):
+            if zd is not None:
+                x = unshard_leaves(
+                    list(comm.all_gather(x, self.zero_group())), zd)
+            if td is not None:
+                x = unshard_leaves(
+                    list(comm.all_gather(x, self.tp_group())), td)
             return x.cpu() if to_host else x
-        return tmap(one, tree, self.zero_dims())
+        return tmap(one, tree, *self.layout_dims(tree))
+
+    def layout_dims(self, tree: Any):
+        """(ZeRO dims, TP dims) of a tree shaped like the master, each a
+        tree of Nones where its strategy is off."""
+        nones = tmap(lambda _: None, tree)
+        return (self.zero_dims() if self.zero1 is not None else nones,
+                self.tp_dims() if self.tp is not None else nones)
 
     def shard_state(self, state):
         """A whole MixedPrecisionState -> this rank's (master, mu, nu
-        sharded; fixes the layout from the whole master)."""
+        sharded over 'model' and 'data'; fixes the layouts from the whole
+        master)."""
+        self.tp_dims(state.master)
         self.zero_dims(state.master)
         return self._map_state(state, self.shard)
 
@@ -332,16 +384,14 @@ class ParallelPlan:
 
     def full_shapes(self, shards: Any) -> Any:
         """The whole shapes of a tree of this rank's shards."""
-        n = self.zero_size
-
-        def one(x, d):
+        def one(x, zd, td):
             shape = list(x.shape)
-            if d is not None:
-                shape[d] *= n
+            if zd is not None:
+                shape[zd] *= self.zero_size
+            if td is not None:
+                shape[td] *= self.tp_size
             return tuple(shape)
-        if self.zero1 is None:
-            return tmap(lambda x: tuple(x.shape), shards)
-        return tmap(one, shards, self.zero_dims())
+        return tmap(one, shards, *self.layout_dims(shards))
 
     def gather_params(self, params: Any, *, fp8: bool) -> Any:
         """ZeRO-1's weight all-gather of the compute params (this rank's

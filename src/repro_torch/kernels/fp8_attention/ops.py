@@ -60,7 +60,8 @@ HEAD_DIMS = (128, 256)     # the head dims the kernels are built for
 _FMT_ID = {"e4m3": 0, "e5m2": 1}
 _MASK_ID = {"causal": 0, "full": 1, "kv": 2, "chunk": 3}
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
-             + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
+             + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p])
 
 
 def padded_head_dim(d: int) -> int:
@@ -175,12 +176,13 @@ def fwd_live_blocks(iq: int, b: int, *, q_rows: int, s_len: int,
 
 def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
             s_len, fmt_s, fmt_p, rounding_s, rounding_p, saturate_s,
-            saturate_p, lib=None, counts=False):
+            saturate_p, lib=None, counts=False, heads=None):
     """Kernel 2 on padded CUDA payloads (D in HEAD_DIMS, S a multiple of
     128), through `lib` (a probe build) or the package's library. Returns (o,
     amaxes (2, B, H, tiles): the S and P amax of each query tile), and with
     `counts` (the count variant) also the (B, H, tiles, 2, 3) int32 S / P
-    [saturated, flushed, observed] counts of each query tile."""
+    [saturated, flushed, observed] counts of each query tile. `heads`:
+    `fp8_attention_fwd`'s."""
     b_, h_, q_rows, d = q8.shape
     hkv, s_pad = k8.shape[1], k8.shape[2]
     if d not in HEAD_DIMS or s_pad % LANE:
@@ -199,6 +201,7 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
     fn.restype = ctypes.c_int
     f_s, s_s, f_p, f_o = (float(np.float32(x)) for x in scal)
     seed_t = seed_tensor(seed, dev)
+    hash_h, head0 = heads if heads is not None else (h_, 0)
     err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(),
              kvm.data_ptr() if kvm is not None else None,
              chunk_pos.data_ptr() if chunk_pos is not None else None,
@@ -210,7 +213,8 @@ def _launch(q8, k8, v8, kvm, chunk_pos, seed, scal, *, mask_mode, window,
              _FMT_ID[format_of_dtype(v8.dtype).name], _FMT_ID[fmt_s],
              _FMT_ID[fmt_p], int(rounding_s == "sr"), int(rounding_p == "sr"),
              int(saturate_s), int(saturate_p), d, f_s, s_s, f_p, f_o,
-             seed_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+             seed_t.data_ptr(), hash_h, head0,
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fp8_attention_fwd")
     fp8_attention_fwd.launches += 1
     fp8_attention_fwd.launches_by_mask[mask_mode] += 1
@@ -251,7 +255,7 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       fmt_s: str = "e5m2", fmt_p: str = "e5m2",
                       rounding_s: str = "sr", rounding_p: str = "sr",
                       saturate_s: bool = True, saturate_p: bool = True,
-                      with_counts: bool = False):
+                      with_counts: bool = False, heads=None):
     """Fused FP8 attention forward on logical payloads.
 
     q8 (B,H,Q,D); k8/v8 (B,Hkv,S,D), any fp8 dtypes; seed: int or integer
@@ -261,7 +265,10 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     takes chunk_pos (B,2) int [start, n_valid]. Returns (o (B,H,Q,D) bf16,
     amax_s, amax_p) with 0-d f32 amaxes in grid units; with_counts=True
     (training masks only) also the (2, 3) int64 S / P counts (module
-    docstring)."""
+    docstring). heads: (H_whole, h0) when q holds heads h0.. of a tensor
+    of H_whole heads (tensor parallelism): the SR hash reads each head's
+    whole-tensor index, b * H_whole + h0 + h, as the one process's does;
+    None: (H, 0)."""
     if mask_mode not in _MASK_ID:
         raise ValueError(f"unknown mask mode {mask_mode!r}")
     if with_counts and mask_mode not in ("causal", "full"):
@@ -285,13 +292,13 @@ def fp8_attention_fwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         raise ValueError("mask_mode='chunk' needs chunk_pos")
     kw = dict(fmt_s=fmt_s, fmt_p=fmt_p, rounding_s=rounding_s,
               rounding_p=rounding_p, saturate_s=saturate_s,
-              saturate_p=saturate_p)
+              saturate_p=saturate_p, heads=heads)
     dev = q8.device.type
     if dev == "cpu":
         return _ref.fp8_attention_fwd_ref(
             q8, k8, v8, seed, scal, mask_mode=mask_mode, window=window,
             kv_mask=kv_mask, chunk_pos=chunk_pos, with_counts=with_counts,
-            **kw)
+            hash_heads=kw.pop("heads"), **kw)
     if dev != "cuda":
         raise ValueError(f"fp8_attention_fwd: unsupported device {q8.device}")
     hd = padded_head_dim(d)
@@ -335,18 +342,19 @@ def _bwd_args(q8, k8, v8, do8, *, scal, q_len, s_len,
               mask_mode="causal", window=0, fmt_s="e5m2", fmt_p="e5m2",
               fmt_e="e5m2", rounding_s="sr", rounding_p="sr",
               rounding_e="sr", saturate_s=True, saturate_p=True,
-              saturate_e=False):
+              saturate_e=False, heads=None):
     b_, h_, q_rows, d = q8.shape
     hkv, s_pad = k8.shape[1], k8.shape[2]
     if d not in HEAD_DIMS or s_pad % LANE:
         raise ValueError(f"kernel needs D in {HEAD_DIMS}, S % {LANE} == 0")
     fid = [_FMT_ID[format_of_dtype(x.dtype).name] for x in (q8, k8, v8, do8)]
-    iv = (ctypes.c_int * 23)(
+    hash_h, head0 = heads if heads is not None else (h_, 0)
+    iv = (ctypes.c_int * 25)(
         b_, h_, hkv, q_rows, s_pad, q_len, s_len, int(mask_mode == "causal"),
         window, *fid, _FMT_ID[fmt_s], _FMT_ID[fmt_p], _FMT_ID[fmt_e],
         int(rounding_s == "sr"), int(rounding_p == "sr"),
         int(rounding_e == "sr"), int(saturate_s), int(saturate_p),
-        int(saturate_e), d)
+        int(saturate_e), d, hash_h, head0)
     fv = (ctypes.c_float * 10)(*(float(np.float32(x)) for x in scal))
     return iv, fv
 
@@ -505,7 +513,8 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                       fmt_e: str = "e5m2", rounding_s: str = "sr",
                       rounding_p: str = "sr", rounding_e: str = "sr",
                       saturate_s: bool = True, saturate_p: bool = True,
-                      saturate_e: bool = False, with_counts: bool = False):
+                      saturate_e: bool = False, with_counts: bool = False,
+                      heads=None):
     """Fused FP8 attention backward (training masks 'causal' / 'full').
 
     q8/do8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads (do8: the
@@ -513,7 +522,8 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     forward's); scal: 10 host f32 [f_s, s_s, f_p, s_p, f_dp, s_dp, f_ds,
     f_dq, f_dk, f_dv]. Returns (dq (B,H,Q,D), dk, dv (B,Hkv,S,D) f32,
     amax_dp, amax_ds) with 0-d f32 amaxes in grid units; with_counts=True
-    also the (2, 3) int64 dP / dS counts (module docstring).
+    also the (2, 3) int64 dP / dS counts (module docstring). heads: as
+    `fp8_attention_fwd`'s.
 
     CPU tensors take the plain version (ref.py); CUDA tensors run the dQ
     kernel, then the dK/dV kernel (each counts its launches), or raise.
@@ -540,11 +550,12 @@ def fp8_attention_bwd(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     kw = dict(mask_mode=mask_mode, window=window, fmt_s=fmt_s, fmt_p=fmt_p,
               fmt_e=fmt_e, rounding_s=rounding_s, rounding_p=rounding_p,
               rounding_e=rounding_e, saturate_s=saturate_s,
-              saturate_p=saturate_p, saturate_e=saturate_e)
+              saturate_p=saturate_p, saturate_e=saturate_e, heads=heads)
     dev = q8.device.type
     if dev == "cpu":
         return _ref.fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal,
-                                          with_counts=with_counts, **kw)
+                                          with_counts=with_counts,
+                                          hash_heads=kw.pop("heads"), **kw)
     if dev != "cuda":
         raise ValueError(f"fp8_attention_bwd: unsupported device {q8.device}")
     hd = padded_head_dim(d)

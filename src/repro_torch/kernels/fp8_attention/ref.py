@@ -189,13 +189,15 @@ def fp8_attention_fwd_ref(q8, k8, v8, seed, scal, *, mask_mode="causal",
                           fmt_s="e5m2", fmt_p="e5m2", rounding_s="sr",
                           rounding_p="sr", saturate_s=True, saturate_p=True,
                           q_len: Optional[int] = None,
-                          with_counts: bool = False):
+                          with_counts: bool = False, hash_heads=None):
     """q8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads; seed int; scal 4 host
     f32 [f_s, s_s, f_p, f_o]. kv_mask (B,S): validity ('kv') or int slot
     positions ('chunk', -1 = hole) with chunk_pos (B,2) [start, n_valid].
     Returns (o (B,H,Q,D) bf16, amax_s, amax_p) — 0-d f32 amaxes in grid
     units over the attended region (row < q_len, default Q) — and,
-    with_counts=True, the (2, 3) int64 S / P health counts."""
+    with_counts=True, the (2, 3) int64 S / P health counts. hash_heads:
+    (H_whole, h0), the SR hash's head index b * H_whole + h0 + h (q holds
+    heads h0.. of a tensor of H_whole heads); None: (H, 0)."""
     if mask_mode not in MASK_MODES:
         raise ValueError(f"unknown mask mode {mask_mode!r}")
     b_, h_, q_rows, d = q8.shape
@@ -211,7 +213,9 @@ def fp8_attention_fwd_ref(q8, k8, v8, seed, scal, *, mask_mode="causal",
     rows = (r_idx % q_rows).view(1, 1, -1, 1)
     heads = (torch.arange(hkv, device=dev).view(1, -1, 1, 1) * g
              + (r_idx // q_rows).view(1, 1, -1, 1))
-    bh = torch.arange(b_, device=dev).view(-1, 1, 1, 1) * h_ + heads
+    hash_h, head0 = (h_, 0) if hash_heads is None else hash_heads
+    bh = torch.arange(b_, device=dev).view(-1, 1, 1, 1) * hash_h + head0 \
+        + heads
     qpos = None
     if mask_mode == "chunk":
         cp = torch.as_tensor(chunk_pos, device=dev).long()
@@ -287,14 +291,15 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
                           saturate_s=True, saturate_p=True, saturate_e=False,
                           q_len: Optional[int] = None,
                           with_stats: bool = False,
-                          with_counts: bool = False):
+                          with_counts: bool = False, hash_heads=None):
     """q8/do8 (B,H,Q,D), k8/v8 (B,Hkv,S,D) fp8 payloads; seed int or
     integer tensor; scal 10 host f32 [f_s, s_s, f_p, s_p, f_dp, s_dp,
     f_ds, f_dq, f_dk, f_dv]. Returns (dq (B,H,Q,D) f32, dk, dv (B,Hkv,S,D)
     f32, amax_dp, amax_ds) — 0-d f32 amaxes of the quantized dP / dS in
     grid units over the attended region — then, with_counts=True, the
     (2, 3) int64 dP / dS health counts, and, with_stats=True, the per-row
-    statistics (m, l, rd), each (B,H,Q) f32."""
+    statistics (m, l, rd), each (B,H,Q) f32. hash_heads: as
+    `fp8_attention_fwd_ref`'s."""
     if mask_mode not in ("causal", "full"):
         raise ValueError(f"the attention backward supports causal/full, not "
                          f"{mask_mode!r}")
@@ -311,7 +316,9 @@ def fp8_attention_bwd_ref(q8, k8, v8, do8, seed, scal, *,
     rows = (r_idx % q_rows).view(1, 1, -1, 1)
     heads = (torch.arange(hkv, device=dev).view(1, -1, 1, 1) * g
              + (r_idx // q_rows).view(1, 1, -1, 1))
-    bh = torch.arange(b_, device=dev).view(-1, 1, 1, 1) * h_ + heads
+    hash_h, head0 = (h_, 0) if hash_heads is None else hash_heads
+    bh = torch.arange(b_, device=dev).view(-1, 1, 1, 1) * hash_h + head0 \
+        + heads
     skw = dict(seed=seed, f_s=f_s, s_s=s_s, mask_mode=mask_mode,
                window=window, q_len=q_rows if q_len is None else q_len,
                s_len=s_len, fmt_s=fmt_s, rounding_s=rounding_s,

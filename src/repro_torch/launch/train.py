@@ -282,8 +282,8 @@ def _dim_at(dims, key: str):
 
 def _gather_leaf(t, dim: int, plan):
     from repro_torch.distributed import comm
-    from repro_torch.models.convert import zero_unshard
-    return zero_unshard(list(comm.all_gather(t, plan.zero_group())), dim)
+    from repro_torch.models.convert import unshard_leaves
+    return unshard_leaves(list(comm.all_gather(t, plan.zero_group())), dim)
 
 
 def reset_kernel_launches():

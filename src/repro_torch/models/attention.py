@@ -50,6 +50,7 @@ from repro_torch.core.precision_policy import ACT, QuantConfig
 from repro_torch.core.qattention import (fp8_sdpa, fp8_sdpa_chunk,
                                          fp8_sdpa_decode, fuse_attention)
 from repro_torch.core.qlinear import qeinsum
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.models.remat import checkpointed
@@ -207,23 +208,24 @@ def _append_cache(cache_layer, k, v, positions, *, k_scale: float = 1.0,
     return cache_layer
 
 
-def _qk_scores(q, k, qcfg: QuantConfig, qgen) -> torch.Tensor:
+def _qk_scores(q, k, qcfg: QuantConfig, qgen, role=None) -> torch.Tensor:
     """q: (B,H,Q,dh) x k: (B,H,K,dh) -> (B,H,Q,K) f32 (the product in the
-    output dtype, then widened)."""
+    output dtype, then widened). role: qeinsum's tensor-parallel role
+    ("heads" on a rank's heads)."""
     if qcfg.enabled and qcfg.quantize_attention:
         s = qeinsum("bhqd,bhkd->bhqk", q, k, cfg=qcfg, classes=(ACT, ACT),
-                    site="qk", generator=qgen)
+                    site="qk", generator=qgen, tp=role)
     else:
         s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.bfloat16).float(),
                          k.to(torch.bfloat16).float())
     return s.float()
 
 
-def _pv(probs, v, qcfg: QuantConfig, qgen) -> torch.Tensor:
+def _pv(probs, v, qcfg: QuantConfig, qgen, role=None) -> torch.Tensor:
     if qcfg.enabled and qcfg.quantize_attention:
         return qeinsum("bhqk,bhkd->bhqd", probs.to(torch.bfloat16), v,
                        cfg=qcfg, classes=(ACT, ACT), site="pv",
-                       generator=qgen)
+                       generator=qgen, tp=role)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(torch.bfloat16).float(),
                         v.to(torch.bfloat16).float()).to(torch.bfloat16)
 
@@ -237,17 +239,17 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         b, hkv * groups, s, dh)
 
 
-def _sdpa(q, k, v, mask, scale: float, qcfg: QuantConfig, qgen):
+def _sdpa(q, k, v, mask, scale: float, qcfg: QuantConfig, qgen, role=None):
     """Dense scaled-dot-product attention on (B,H,S,dh); f32 softmax."""
-    s = _qk_scores(q, k, qcfg, qgen) * scale
+    s = _qk_scores(q, k, qcfg, qgen, role) * scale
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, -1e30))
-    return _pv(torch.softmax(s, dim=-1), v, qcfg, qgen)
+    return _pv(torch.softmax(s, dim=-1), v, qcfg, qgen, role)
 
 
 def chunked_causal_attention(q, k, v, *, chunk: int, scale: float,
                              qcfg: QuantConfig, qgen, window: int = 0,
-                             remat: bool = False) -> torch.Tensor:
+                             remat: bool = False, role=None) -> torch.Tensor:
     """Causal attention over (B,H,S,dh) in q chunks of `chunk` rows, each
     against its static causal prefix (or window band); with `remat` each
     chunk is recomputed in the backward (`models.remat.checkpointed`)."""
@@ -265,9 +267,9 @@ def chunked_causal_attention(q, k, v, *, chunk: int, scale: float,
                 mask[None, None])
         if remat:
             outs.append(checkpointed(
-                lambda g, *a: _sdpa(*a, scale, qcfg, g), qgen, *args))
+                lambda g, *a: _sdpa(*a, scale, qcfg, g, role), qgen, *args))
         else:
-            outs.append(_sdpa(*args, scale, qcfg, qgen))
+            outs.append(_sdpa(*args, scale, qcfg, qgen, role))
     return torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
 
 
@@ -318,6 +320,14 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
                          + (" and page" if mode == "chunk" else ""))
     if (mode == "cross") != (kv_x is not None):
         raise ValueError("kv_x is given with mode 'cross', and only then")
+    tp = tensor_parallel.current()
+    if tp is not None:
+        if mode != "train":
+            raise ValueError(f"mode {mode!r} under tensor parallelism: the "
+                             "training step alone runs on a 'model' group")
+        return _attention_tp(params, x, cfg=cfg, qcfg=qcfg,
+                             positions=positions, window=window, qgen=qgen,
+                             tp=tp), None
 
     q = qeinsum("bsd,dn->bsn", x, params["wq"], cfg=qcfg, site="wq",
                 generator=qgen)
@@ -420,3 +430,64 @@ def attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     y = qeinsum("bsn,nd->bsd", o, params["wo"], cfg=qcfg, site="wo",
                 generator=qgen)
     return y, new_cache
+
+
+def _attention_tp(params, x: torch.Tensor, *, cfg: ModelConfig,
+                  qcfg: QuantConfig, positions: torch.Tensor, window: int,
+                  qgen, tp) -> torch.Tensor:
+    """Causal training self-attention on a 'model' group of m ranks, the
+    rank's weights its shards where the group's layout splits them
+    (`TPGroup.dim_of`: a projection's columns, wo's rows).
+
+    Where H and Hkv both divide m, each rank projects, attends and
+    projects out its own H/m query heads and Hkv/m kv heads (the GQA
+    groups stay aligned: q head j reads kv head j // (H / Hkv) on every
+    rank): wq / wk / wv column-parallel, kernels 2-4 (or the unfused
+    contractions, "heads") on the rank's heads, wo row-parallel. Otherwise
+    a column shard is not whole heads: each sharded projection's output is
+    gathered whole over the ranks, attention runs whole on every rank (the
+    reference's fallback to replication) and its output is sliced to the
+    rank's rows of wo."""
+    b, sq, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    aligned = h % tp.size == 0 and hkv % tp.size == 0
+    scale = 1.0 / (dh ** 0.5)
+
+    def project(name: str) -> torch.Tensor:
+        col = tp.dim_of(params[name]) is not None
+        y = qeinsum("bsd,dn->bsn", x, params[name], cfg=qcfg, site=name,
+                    generator=qgen, tp="col" if col else None)
+        if cfg.qkv_bias:
+            y = y + params["b" + name[1]].to(y.dtype)
+        return tensor_parallel.gather(y, -1, tp) if col and not aligned \
+            else y
+
+    q, k, v = project("wq"), project("wk"), project("wv")
+    hl, hkvl = (h // tp.size, hkv // tp.size) if aligned else (h, hkv)
+    q = apply_rope(q.reshape(b, sq, hl, dh), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, sq, hkvl, dh), positions, cfg.rope_theta)
+    v = v.reshape(b, sq, hkvl, dh)
+    _observe_kv(cfg, k, v)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if fuse_attention(qcfg):
+        o = fp8_sdpa(qt, kt, vt, cfg=qcfg, sm_scale=scale,
+                     mask_mode="causal", window=window, site="sdpa",
+                     generator=qgen, tp=tp if aligned else None)
+    else:
+        role = "heads" if aligned else None
+        kt, vt = _repeat_kv(kt, hl // hkvl), _repeat_kv(vt, hl // hkvl)
+        if sq > cfg.attn_chunk_threshold or window:
+            o = chunked_causal_attention(
+                qt, kt, vt, chunk=min(cfg.attn_chunk_size, sq), scale=scale,
+                qcfg=qcfg, qgen=qgen, window=window, remat=cfg.remat,
+                role=role)
+        else:
+            pos = torch.arange(sq, device=x.device)
+            mask = (pos[:, None] >= pos[None, :])[None, None]
+            o = _sdpa(qt, kt, vt, mask, scale, qcfg, qgen, role)
+    o = o.transpose(1, 2).reshape(b, sq, hl * dh)
+    row = tp.dim_of(params["wo"]) is not None
+    if row and not aligned:
+        o = tensor_parallel.scatter(o, -1, tp)
+    return qeinsum("bsn,nd->bsd", o, params["wo"], cfg=qcfg, site="wo",
+                   generator=qgen, tp="row" if row else None)

@@ -21,8 +21,9 @@ tree stacked over the wire's ranks and the port's one tree a rank:
 `stack_wire_error`, `unstack_wire_error` and `wire_error_from_jax` convert
 (the checkpoint stores the stacked one). ZeRO-1's master weights and
 moments have two as well, the whole tree (the reference's layout, which
-the checkpoint stores) and one rank's shards: `zero_shard` and
-`zero_unshard` convert, given each leaf's ZeRO dim. `jax_path` maps a
+the checkpoint stores) and one rank's shards: `shard_leaves` and
+`unshard_leaves` convert, given each leaf's ZeRO dim, and tensor
+parallelism's shards over 'model' likewise, given its TP dim. `jax_path` maps a
 parameter path of the port to the reference's (the sharding rules match
 the reference's paths).
 """
@@ -148,28 +149,32 @@ def _np_leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# ZeRO-1's two layouts. `dims` is a tree like the state's, each leaf the dim
-# the leaf is split along over the ranks (None: kept whole on every rank).
+# A sharded state's two layouts, the whole tree and one rank's shards, for
+# ZeRO-1 over 'data' and tensor parallelism over 'model' alike. `dims` is a
+# tree like the state's, each leaf the dim the leaf is split along over the
+# ranks (None: kept whole on every rank). The reference's params, as numpy
+# through `from_jax_params`, are the whole tree.
 # ---------------------------------------------------------------------------
 
-def zero_shard(tree, dims, index: int, n: int):
+def shard_leaves(tree, dims, index: int, n: int):
     """Rank `index`'s shards of a whole tree: chunk `index` of `n` equal
     chunks of each leaf along its dim (a contiguous copy); leaves without
     a dim are returned as they are."""
     if isinstance(tree, dict):
-        return {k: zero_shard(v, dims[k], index, n) for k, v in tree.items()}
+        return {k: shard_leaves(v, dims[k], index, n)
+                for k, v in tree.items()}
     if dims is None:
         return tree
     return torch.chunk(tree, n, dim=dims)[index].contiguous()
 
 
-def zero_unshard(shards, dims):
+def unshard_leaves(shards, dims):
     """[rank 0's shard tree, rank 1's, ...] -> the whole tree: each leaf's
     shards concatenated along its dim in rank order (a leaf without a dim
     is rank 0's)."""
     first = shards[0]
     if isinstance(first, dict):
-        return {k: zero_unshard([s[k] for s in shards], dims[k])
+        return {k: unshard_leaves([s[k] for s in shards], dims[k])
                 for k in first}
     if dims is None:
         return first

@@ -55,9 +55,11 @@ from repro_torch.core.precision_policy import QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attention, init_attention,
                                           init_cache, init_paged_pool)
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed, embed_init,
-                                       logits_head, mlp, rmsnorm)
+                                       logits_head, mlp, rmsnorm,
+                                       vocab_shard)
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.remat import checkpointed
 from repro_torch.models.rglru import (init_rglru, init_rglru_state,
@@ -397,20 +399,47 @@ def _chunked_ce(params, h, labels, mask, *, cfg: ModelConfig,
                 head_cfg: QuantConfig, chunk: int) -> torch.Tensor:
     """Sum over positions of mask * (logsumexp - gold logit), computed per
     sequence chunk of `chunk` positions ((B, chunk, V) logits at a time),
-    with the padded vocabulary columns masked to -1e30."""
+    with the padded vocabulary columns masked to -1e30. Under a 'model'
+    group with a vocab-parallel head (`layers.vocab_shard`) each rank
+    holds (B, chunk, V / m) logits, its vocabulary columns
+    (`_vocab_parallel_ce`)."""
     s = h.shape[1]
+    shard = vocab_shard(params["embed"])
+    v0 = shard[1] if shard is not None else 0
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         c1 = min(c0 + chunk, s)
         lf = logits_head(params["embed"], h[:, c0:c1], qcfg=head_cfg).float()
         if cfg.padded_vocab_size != cfg.vocab_size:
-            col = torch.arange(lf.shape[-1], device=lf.device)
+            col = torch.arange(v0, v0 + lf.shape[-1], device=lf.device)
             lf = torch.where(col < cfg.vocab_size, lf,
                              torch.full_like(lf, -1e30))
-        logz = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels[:, c0:c1, None].long())[..., 0]
+        lab = labels[:, c0:c1].long()
+        if shard is None:
+            logz = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, lab[..., None])[..., 0]
+        else:
+            logz, gold = _vocab_parallel_ce(lf, lab, v0, shard[0])
         total = total + torch.sum((logz - gold) * mask[:, c0:c1])
     return total
+
+
+def _vocab_parallel_ce(lf, labels, v0: int, tp):
+    """(logsumexp, gold logit) of each row from this rank's logit columns
+    [v0, v0 + V/m): the row max by a MAX over the ranks (outside autograd:
+    the logsumexp's gradient does not depend on it), the sum of exp and
+    the gold logit (its owner's, zero elsewhere) summed over the ranks in
+    one collective whose backward is the identity on every rank."""
+    v = lf.shape[-1]
+    with torch.no_grad():
+        gmax = tensor_parallel.rank_max(lf.amax(dim=-1), tp)
+    local = labels - v0
+    mine = (local >= 0) & (local < v)
+    g = torch.gather(lf, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    part = torch.stack([torch.exp(lf - gmax[..., None]).sum(dim=-1),
+                        torch.where(mine, g, torch.zeros_like(g))])
+    sumexp, gold = tensor_parallel.reduce_from(part, tp).unbind(0)
+    return torch.log(sumexp) + gmax, gold
 
 
 def lm_loss(params, batch: Dict[str, Any], *, cfg: ModelConfig,

@@ -77,6 +77,10 @@ class ScaleContext:
     health: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     health_bwd: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    # Health keys read from this rank's shard of a tensor-parallel payload
+    # (`mark_sharded`): `tp_combine` averages their pairs over 'model' and
+    # takes the others from one rank.
+    tp_sharded: Set[str] = dataclasses.field(default_factory=set)
     _scope: List[str] = dataclasses.field(default_factory=list)
 
     def site_key(self, site: str) -> str:
@@ -137,16 +141,53 @@ class ScaleContext:
             prev = self.health_bwd.get(key)
             self.health_bwd[key] = frac2 if prev is None else prev + frac2
 
+    def mark_sharded(self, key: str):
+        """`key`'s health pairs are read from this rank's shard of a
+        tensor-parallel payload (`tp_combine` averages them)."""
+        self.tp_sharded.add(key)
+
     def pending(self) -> List[torch.Tensor]:
         """Every recorded value as flat f32 tensors, in read order:
         forward amaxes, backward amax sums, forward health pairs, backward
         health sums, each in key order. Concatenated, they are the vector
         `observations` and `health_observations` read."""
-        vals = ([self.collected[k] for k in sorted(self.collected)]
-                + [self.collected_bwd[k] for k in sorted(self.collected_bwd)]
-                + [self.health[k] for k in sorted(self.health)]
-                + [self.health_bwd[k] for k in sorted(self.health_bwd)])
-        return [v.float().reshape(-1) for v in vals]
+        return [t[k].float().reshape(-1) for t in self._tables()
+                for k in sorted(t)]
+
+    def _tables(self):
+        return (self.collected, self.collected_bwd, self.health,
+                self.health_bwd)
+
+    def tp_combine(self, rows_of) -> None:
+        """Combine this rank's observations with the other ranks' of its
+        'model' group, in place: `rows_of(vec)` -> (m, len) every rank's
+        `pending()` vector. Amaxes take the MAX over the ranks (a sharded
+        tensor's whole amax; a replicated one's own, as MAX is
+        idempotent); a health pair read from a shard the mean of the
+        ranks' pairs (the whole payload's fractions, the shards being of
+        equal size), added in rank order; any other pair is replicated
+        and rank 0's is kept."""
+        vals = self.pending()
+        if not vals:
+            return
+        rows = rows_of(torch.cat(vals))
+        n_amax = len(self.collected) + len(self.collected_bwd)
+        amax = rows[:, :n_amax].amax(dim=0)
+        acc = rows[0, n_amax:]
+        for i in range(1, rows.shape[0]):
+            acc = acc + rows[i, n_amax:]
+        mean = acc / torch.full((), float(rows.shape[0]), device=acc.device)
+        hkeys = sorted(self.health) + sorted(self.health_bwd)
+        pick = torch.tensor([k in self.tp_sharded for k in hkeys
+                             for _ in range(2)], device=acc.device)
+        health = torch.where(pick, mean, rows[0, n_amax:])
+        flat = torch.cat([amax, health])
+        i = 0
+        for table in self._tables():
+            for k in sorted(table):
+                n = table[k].numel()
+                table[k] = flat[i:i + n].reshape(table[k].shape)
+                i += n
 
     def _host(self, host_values):
         if host_values is None:
@@ -253,7 +294,8 @@ def combine_microbatches(ctxs: List[ScaleContext]) -> ScaleContext:
     max-combines the token cotangents, each a sum over the microbatch's
     uses), divided by the uses of one microbatch when read."""
     out = ScaleContext(mode=ctxs[0].mode, scales=ctxs[0].scales,
-                       bwd_uses=dict(ctxs[0].bwd_uses))
+                       bwd_uses=dict(ctxs[0].bwd_uses),
+                       tp_sharded=set().union(*(c.tp_sharded for c in ctxs)))
     for name in ("collected", "collected_bwd", "health", "health_bwd"):
         merged = getattr(out, name)
         for ctx in ctxs:

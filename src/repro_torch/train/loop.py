@@ -39,13 +39,17 @@ the bytes `distributed.comm` counted in the step (`comm/sent_payload_bytes`,
 file; the ranks meet at a barrier after the last save, and a preemption
 signal that reaches any rank stops them all after the same step.
 
-ZeRO-1 (plan.zero1): each rank initializes the whole state, keeps its
-shards (`plan.shard_state`) and trains them. The checkpoint keeps the
+ZeRO-1 (plan.zero1) and tensor parallelism (plan.tp): each rank
+initializes the whole state, keeps its shards (`plan.shard_state`: its
+'model' chunk, and of that its 'data' chunk) and trains them; the ranks
+of a 'model' group take the same rows of every global batch (the batch
+is sliced by the rank's dp coordinates alone). The checkpoint keeps the
 reference's layout, whole arrays: every rank takes part in gathering the
-master weights and the moments (`plan.unshard_state`) and rank 0 writes
-them; on restore every rank reads the whole arrays and keeps its slice. A
-checkpoint written without ZeRO-1 therefore restores under it, and the
-other way round. `run()` returns this rank's sharded state.
+master weights and the moments (`plan.unshard_state`, over 'data', then
+'model') and rank 0 writes them; on restore every rank reads the whole
+arrays and keeps its slice. A checkpoint restores onto any mesh (and
+onto one process), whatever mesh wrote it. `run()` returns this rank's
+sharded state.
 """
 from __future__ import annotations
 
@@ -134,6 +138,10 @@ class TrainLoop:
         self.shard = plan is not None and plan.dp is not None \
             and plan.dp_size > 1
         self.zero = plan is not None and plan.zero1 is not None
+        # The state is held as this rank's shards (ZeRO-1 over 'data',
+        # tensor parallelism over 'model').
+        self.sharded = self.zero or (plan is not None
+                                     and plan.tp is not None)
         self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
         self.ckpt = Checkpointer(loop.checkpoint_dir,
                                  keep_last_k=loop.keep_last_k)
@@ -198,7 +206,7 @@ class TrainLoop:
 
     def _save(self, step, state, scale_state, err, extra):
         stacked = self._stacked_error(err) if self.wire else None
-        if self.zero:
+        if self.sharded:
             state = self.plan.unshard_state(state, to_host=True)
         if self.rank0:
             self.ckpt.save(step, self._pack(state, scale_state, stacked),
@@ -206,9 +214,9 @@ class TrainLoop:
         del stacked, state
 
     def _restore_target(self, state):
-        """A whole-layout state to restore into: under ZeRO-1 host tensors
-        of the whole shapes (the checkpoint holds whole arrays)."""
-        if not self.zero:
+        """A whole-layout state to restore into: for a sharded state host
+        tensors of the whole shapes (the checkpoint holds whole arrays)."""
+        if not self.sharded:
             return state
         shapes = self.plan.full_shapes(state.master)
 
@@ -250,7 +258,7 @@ class TrainLoop:
         dev = self.device
         state = self.optimizer.init(init_lm(self.cfg, seed=self.seed,
                                             device=dev))
-        if self.zero:
+        if self.sharded:
             state = self.plan.shard_state(state)
         scale_state = self.scaling.init() if self.scaling else None
         err = self.plan.init_wire_state(state.master) if self.wire else None
@@ -269,7 +277,8 @@ class TrainLoop:
                 self._pack(self._restore_target(state), scale_state,
                            stacked))
             whole, scale_state, stacked = self._unpack(tree)
-            state = self._keep_slice(state, whole) if self.zero else whole
+            state = self._keep_slice(state, whole) if self.sharded \
+                else whole
             del whole
             if self.wire:
                 # This rank's slot of the stacked residual, in its own
@@ -322,8 +331,8 @@ class TrainLoop:
             with self.tracer.span("device_sync", step=step):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-            counted = _count_delta(sent0, comm.counts()) if self.shard \
-                else {}
+            counted = _count_delta(sent0, comm.counts()) \
+                if self.shard or self.sharded else {}
             if self.wire and step % self.loop.log_every == 0:
                 # Sampled wire-collective timing: the residual is exactly
                 # gradient-shaped, so reducing it runs the real collective

@@ -37,11 +37,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.loss_scale import LossScaler, all_finite
+from repro_torch.core.loss_scale import LossScaler
 from repro_torch.core.master_weights import (MixedPrecisionOptimizer,
                                              MixedPrecisionState)
 from repro_torch.device import resolve_device
-from repro_torch.distributed import comm, global_batch
+from repro_torch.distributed import comm, global_batch, tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import encode, forward, lm_loss
 from repro_torch.optim.optimizers import (make_leafwise, make_optimizer,
@@ -68,18 +68,57 @@ def make_optimizer_for(cfg: ModelConfig, *, name: str = "adam",
         accum_names=names, leaf_update=leaf)
 
 
-def _refuse_unported(plan, cfg: ModelConfig, spmd: bool):
-    """What the step does not run yet raises, naming ROADMAP.md: tensor
-    parallelism (slice 10c); under "full", a mixture-of-experts model's
-    global-dispatch ablation, whose dispatch the reference computes over
-    the global batch, and a tied embedding table under a quantized head,
-    whose gradient would be summed in the backward through the head and
-    not through the embedding (`distributed.global_batch`)."""
-    if plan.tp is not None:
+def _refuse_tp(plan, cfg: ModelConfig):
+    """Tensor parallelism runs the attention-plus-dense-FFN decoders (the
+    registry's qwen2, codeqwen, internlm2, mistral-large and llava, with
+    llava's patch prefix) under two recipes: delayed scaling on the fused
+    path (kernels 1-4, with the count variants under track_health) and
+    the paper's recipe (no scaling) on the unfused path; with
+    n_microbatches, remat and ZeRO-1 on a 'data' dim. The rest raises,
+    naming ROADMAP.md and slice 10d: the mixture-of-experts FFN (expert
+    parallelism), the RG-LRU, local-attention and xLSTM layers, the
+    encoder-decoder (and seamless), a table whose vocabulary does not
+    divide the 'model' dim (which the rules shard along d), a quantized
+    logits head, just-in-time amax scaling and delayed scaling off the
+    fused path."""
+    q = cfg.policy.quant
+    m = plan.tp_size
+    kinds = set(cfg.layer_kinds())
+    why = None
+    if cfg.n_experts:
+        why = "the mixture-of-experts FFN (expert parallelism)"
+    elif cfg.is_encoder_decoder:
+        why = "the encoder-decoder"
+    elif kinds != {"attn"}:
+        why = f"the {', '.join(sorted(kinds - {'attn'}))} layers"
+    elif cfg.padded_vocab_size % m:
+        why = (f"a vocabulary of {cfg.padded_vocab_size} rows over "
+               f"{m} 'model' ranks (the table shards along d)")
+    elif cfg.policy.quantize_logits_head:
+        why = "a quantized logits head"
+    elif q.enabled and q.scaling == "jit_amax":
+        why = "just-in-time amax scaling"
+    elif q.enabled and q.delayed and not (
+            q.fuse_epilogue and q.fuse_attention
+            and q.backend.startswith("pallas")):
+        why = "delayed scaling off the fused path"
+    if why is not None:
         raise NotImplementedError(
-            "tensor parallelism is not ported to the training step yet "
-            "(ROADMAP.md, queue 1, slice 10c); build the plan with "
-            "DistConfig(tp=False) or a mesh without a 'model' dim")
+            f"{why} under tensor parallelism is not ported (ROADMAP.md, "
+            "queue 1, slice 10d); build the plan with DistConfig(tp=False) "
+            "or a mesh without a 'model' dim")
+
+
+def _refuse_unported(plan, cfg: ModelConfig, spmd: bool):
+    """What the step does not run yet raises, naming ROADMAP.md: outside
+    tensor parallelism's scope (`_refuse_tp`, slice 10d); under "full",
+    a mixture-of-experts model's global-dispatch ablation, whose dispatch
+    the reference computes over the global batch, and a tied embedding
+    table under a quantized head, whose gradient would be summed in the
+    backward through the head and not through the embedding
+    (`distributed.global_batch`)."""
+    if plan.tp is not None:
+        _refuse_tp(plan, cfg)
     if spmd and cfg.n_experts and not cfg.moe_per_sample_dispatch:
         raise NotImplementedError(
             "the mixture-of-experts global-dispatch ablation "
@@ -182,10 +221,32 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     squared grad norm over 'data' before the update, so that every rank
     skips an overflowing step together, and updates its shards in place.
     At two ranks its states are those without ZeRO-1, sliced, bit for
-    bit. Refused (NotImplementedError, naming ROADMAP.md): tensor
-    parallelism (slice 10c) and, under "full", a mixture-of-experts
-    model's global-dispatch ablation and a tied embedding under a
-    quantized head (`_refuse_unported`).
+    bit.
+
+    Tensor parallelism (plan.tp, a 'model' dim of m ranks, wire "full"):
+    `state` holds this rank's 'model' shards (and of those its 'data'
+    shards under ZeRO-1; `plan.shard_state`); every rank of a 'model'
+    group takes the same rows. The step enters the group
+    (`distributed.tensor_parallel.active`) around its loss and backward
+    passes, with the plan's layout of the step's parameters
+    (`TPGroup.with_layout`), and the layers run their TP sites on the
+    shards the layout names: a
+    row-parallel output and a column-parallel input gradient quantized
+    after their f32 sum over 'model', attention on the rank's heads, the
+    vocab-parallel embedding, head and cross-entropy; SR bits drawn whole
+    and sliced. After each microbatch's backward its observations are
+    combined over 'model' (`ScaleContext.tp_combine`: amaxes by MAX, a
+    shard's health pairs averaged, a replicated one's taken once); the
+    squared grad norm and the overflow flag sum a leaf's part over the
+    dims its shards split it along; the loss is the same on every rank.
+    So the group computes what one process computes on the same batch,
+    up to f32 summation order, and the leaves TP leaves whole stay equal
+    on every rank, bit for bit.
+
+    Refused (NotImplementedError, naming ROADMAP.md): under a TP plan
+    what slice 10d ports (`_refuse_tp`) and, under "full", a
+    mixture-of-experts model's global-dispatch ablation and a tied
+    embedding under a quantized head (`_refuse_unported`).
 
     The master weights and optimizer state are updated in place (see
     core.master_weights)."""
@@ -199,6 +260,7 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     if plan is not None:
         _refuse_unported(plan, cfg, spmd)
     zero = plan is not None and plan.zero1 is not None
+    tpar = plan is not None and plan.tp is not None
     gather_fp8 = zero and wire and plan.dist.wire_zero_gather == "fp8"
     if wire:
         amax_sync = None
@@ -207,8 +269,10 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
     groups: Dict[str, object] = {}
 
     def group_table():
-        if groups or not (wire or spmd or zero):
+        if groups or not (wire or spmd or zero or tpar):
             return groups
+        groups["tp"] = tensor_parallel.TPGroup(
+            plan.tp_group(), plan.tp_rank, plan.tp_size) if tpar else None
         groups["dp"] = plan.dp_group() if (wire or spmd) else None
         groups["wire"] = plan.dp_allreduce() if wire else None
         groups["inner"] = [(plan.group(a), comm.group_size(plan.group(a)))
@@ -234,12 +298,24 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
         microbatches: f32 gradients accumulated as g / n, the losses' and
         metrics' means, the contexts combined. `collect` makes a fresh
         scaling context's manager (None without scaling)."""
+        tpg = groups.get("tp")
+        if tpg is not None:
+            tpg = tpg.with_layout(_leaves(tmap(lambda p, d: (p, d), params,
+                                               plan.tp_dims())))
+
         def pass_(mb):
             denom = global_denom(mb) if spmd else None
-            with (collect() if collect else contextlib.nullcontext()) as ctx:
+            with (collect() if collect else contextlib.nullcontext()) as ctx, \
+                    tensor_parallel.active(tpg):
                 loss, mets = lm_loss(params, mb, cfg=cfg, qgen=generator,
                                      loss_scale=scale, loss_denom=denom)
                 loss.backward()
+            if ctx is not None and tpg is not None:
+                # The microbatch's observations over 'model' (amaxes by
+                # MAX, a shard's health pairs averaged), before the
+                # microbatches combine.
+                ctx.tp_combine(lambda v: comm.all_gather(v, tpg.group,
+                                                         kind="tp"))
             return loss.detach(), mets, ctx
 
         if n_microbatches == 1:
@@ -297,24 +373,32 @@ def make_train_step(cfg: ModelConfig, optimizer: MixedPrecisionOptimizer,
 
     def norm_and_finite(grads):
         """(the whole gradient's sum of squares, its overflow flag or None
-        for `apply_gradients` to compute). Under ZeRO-1 the shards' parts
-        are summed over 'data' in one all-reduce."""
-        if not zero:
+        for `apply_gradients` to compute). A leaf's part is summed over
+        the dims its shards split it along: 'data' under ZeRO-1 (one
+        all-reduce), then 'model' under TP (a rank-order sum); a leaf
+        replicated over a dim counts once."""
+        if not (zero or tpar):
             return sum(torch.sum(torch.square(g.float()))
                        for g in _leaves(grads)), None
-        pairs = list(zip(_leaves(grads), _leaves(plan.zero_dims())))
-        shards = [g for g, d in pairs if d is not None]
-        whole = [g for g, d in pairs if d is None]
+        zdims, tdims = plan.layout_dims(grads)
         zero_ = torch.zeros((), dtype=torch.float32, device=dev)
-        part = torch.stack([
-            sum((torch.sum(torch.square(g)) for g in shards), zero_),
-            sum(((~torch.isfinite(g)).sum().float() for g in shards),
-                zero_)])
-        part = comm.all_reduce(part, "sum", groups["zero"])
-        sq = part[0] + sum((torch.sum(torch.square(g)) for g in whole),
-                           zero_)
-        finite = (part[1] == 0) & all_finite({str(i): g for i, g in
-                                              enumerate(whole)})
+        # [sq, non-finite count] of the leaves split over (data, model).
+        part = {(z, t): [zero_, zero_] for z in (0, 1) for t in (0, 1)}
+        for g, zd, td in zip(_leaves(grads), _leaves(zdims),
+                             _leaves(tdims)):
+            acc = part[(int(zd is not None), int(td is not None))]
+            acc[0] = acc[0] + torch.sum(torch.square(g.float()))
+            acc[1] = acc[1] + (~torch.isfinite(g)).sum().float()
+        if zero:
+            red = comm.all_reduce(torch.stack(part[(1, 0)] + part[(1, 1)]),
+                                  "sum", groups["zero"])
+            part[(1, 0)], part[(1, 1)] = list(red[:2]), list(red[2:])
+        if tpar:
+            red = tensor_parallel.rank_sum(
+                torch.stack(part[(0, 1)] + part[(1, 1)]), groups["tp"])
+            part[(0, 1)], part[(1, 1)] = list(red[:2]), list(red[2:])
+        sq = sum(v[0] for v in part.values())
+        finite = sum(v[1] for v in part.values()) == 0
         return sq, finite
 
     def combine_ranks(local, pending, ctx):

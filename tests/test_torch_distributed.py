@@ -673,20 +673,24 @@ def test_amax_sync_equalizes_scale_states(dp):
 
 
 def test_slice_10b_and_moe_full_are_refused(dp):
-    """Tensor parallelism raises NotImplementedError naming slice 10c and
-    ROADMAP.md, and so does the mixture-of-experts global-dispatch
-    ablation under "full"; ZeRO-1, an fp8 ZeRO gather and a
-    mixture-of-experts model (per-sample dispatch) under "full" build, in
-    the step and the loop (tests/test_torch_zero.py trains them); an fp8
-    wire with an active model dim is refused by build, as in the
-    reference; under fp8_ef (per rank in the reference too) the
-    mixture-of-experts model trains, its replicas equal."""
+    """Tensor parallelism on a (2, 2) mesh builds and steps for the dense
+    decoder (tests/test_torch_tp.py holds its numerics) and raises
+    NotImplementedError naming slice 10d and ROADMAP.md for a
+    mixture-of-experts model; so does the mixture-of-experts
+    global-dispatch ablation under "full" (naming ROADMAP.md); ZeRO-1, an
+    fp8 ZeRO gather and a mixture-of-experts model (per-sample dispatch)
+    under "full" build, in the step and the loop (tests/test_torch_zero.py
+    trains them); an fp8 wire with an active model dim is refused by
+    build, as in the reference; under fp8_ef (per rank in the reference
+    too) the mixture-of-experts model trains, its replicas equal."""
     out = dp["ranks"][0]["refusals"]
-    for name in ("zero1", "fp8_gather", "loop_zero1", "moe_full"):
+    for name in ("zero1", "fp8_gather", "loop_zero1", "moe_full", "tp"):
         assert out[name] is None, (name, out[name])
-    assert out["tp"] is not None and "slice 10c" in out["tp"]
-    for name in ("tp", "moe_global_dispatch_full"):
+    assert out["tp_moe"] is not None and "slice 10d" in out["tp_moe"]
+    for name in ("tp_moe", "moe_global_dispatch_full"):
         assert out[name] is not None and "ROADMAP.md" in out[name], name
+    for r in dp["ranks"]:
+        assert np.isfinite(r["refusals"]["tp_step_loss"])
     assert "moe_per_sample_dispatch=False" in \
         out["moe_global_dispatch_full"]
     assert out["fp8_tp_build"] is not None

@@ -240,11 +240,13 @@ def test_from_jax_params_splits_scanned_stacks():
 
 def test_unported_archs_are_refused():
     """What stays unported is refused, naming ROADMAP.md: an arch outside
-    the registry, and make_train_step's plan= with tensor parallelism
-    (slice 10c). amax_sync= (slice 10a) and ZeRO-1 plans (slice 10b,
-    tests/test_torch_zero.py) are ported: a ZeRO-1 plan on a two-rank
-    'data' mesh builds a step (its process groups are looked up at the
-    first call)."""
+    the registry, and make_train_step's plan= with tensor parallelism for
+    a slice-10d family (a mixture-of-experts model). amax_sync= (slice
+    10a), ZeRO-1 plans (slice 10b, tests/test_torch_zero.py) and tensor
+    parallelism for the dense decoders (slice 10c, tests/test_torch_tp.py)
+    are ported: a ZeRO-1 plan on a two-rank 'data' mesh and a TP plan
+    build a step (their process groups are looked up at the first
+    call)."""
     import types
 
     from repro_torch.core.precision_policy import DistConfig
@@ -264,10 +266,12 @@ def test_unported_archs_are_refused():
                                  mesh=torch.arange(2))
     tp = ParallelPlan(mesh, DistConfig(zero1=False), dp, None,
                       TensorParallel())
-    with pytest.raises(NotImplementedError, match="slice 10c"):
-        make_train_step(small, opt, device="cpu", plan=tp)
+    assert callable(make_train_step(small, opt, device="cpu", plan=tp))
+    moe = build_config("moonshot-v1-16b-a3b", smoke=True)
+    with pytest.raises(NotImplementedError, match="slice 10d"):
+        make_train_step(moe, make_optimizer_for(moe), device="cpu", plan=tp)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(small, opt, device="cpu", plan=tp)
+        make_train_step(moe, make_optimizer_for(moe), device="cpu", plan=tp)
     for z in (DistConfig(), DistConfig(wire_zero_gather="fp8")):
         zero1 = ParallelPlan(mesh, z, dp, ZeRO1Sharded(), None)
         assert callable(make_train_step(small, opt, device="cpu",

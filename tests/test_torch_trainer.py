@@ -238,10 +238,12 @@ def test_microbatches_accumulate_like_one_batch():
 
 
 def test_refusals_that_stay():
-    """A plan with tensor parallelism (slice 10c) is refused by the step
-    and the loop, naming ROADMAP.md; amax_sync, data-parallel plans
-    (tests/test_torch_distributed.py) and ZeRO-1 plans
-    (tests/test_torch_zero.py) are ported: the step and the loop build
+    """A plan with tensor parallelism is refused by the step and the loop
+    for a slice-10d family (a mixture-of-experts model), naming ROADMAP.md
+    and slice 10d; amax_sync, data-parallel plans
+    (tests/test_torch_distributed.py), ZeRO-1 plans
+    (tests/test_torch_zero.py) and TP plans for the dense decoders
+    (tests/test_torch_tp.py) are ported: the step and the loop build
     with one."""
     import types
 
@@ -258,8 +260,11 @@ def test_refusals_that_stay():
     zero1 = ParallelPlan(mesh, DistConfig(), dp, ZeRO1Sharded(), None)
     tp = ParallelPlan(mesh, DistConfig(zero1=False), dp, None,
                       TensorParallel())
+    moe = tmc.ModelConfig(policy=tcfg.policy, remat=False, n_experts=4,
+                          **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_make_train_step(tcfg, opt, device="cpu", plan=tp)
+        t_make_train_step(moe, opt, device="cpu", plan=tp)
+    assert callable(t_make_train_step(tcfg, opt, device="cpu", plan=tp))
     assert callable(t_make_train_step(tcfg, opt, device="cpu", plan=zero1))
     assert callable(t_make_train_step(tcfg, opt, device="cpu",
                                       amax_sync=lambda v: v))
@@ -267,8 +272,10 @@ def test_refusals_that_stay():
     # holds remat=True to remat=False bit for bit).
     assert callable(t_make_train_step(tcfg.replace(remat=True), opt,
                                       device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 10d"):
+        TrainLoop(moe, opt, iter(()), LoopConfig(), plan=tp, device="cpu")
+    assert TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=tp,
+                     device="cpu").sharded
     assert TrainLoop(tcfg, opt, iter(()), LoopConfig(), plan=zero1,
                      device="cpu").zero
     with pytest.raises(ValueError, match="microbatches"):

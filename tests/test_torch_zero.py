@@ -43,7 +43,8 @@ from repro.models.registry import build_config as j_build_config
 from repro.models.transformer import init_lm
 from repro_torch.data.pipeline import host_shard, microbatch_shard
 from repro_torch.distributed import sharding
-from repro_torch.models.convert import jax_path, zero_shard, zero_unshard
+from repro_torch.models.convert import (jax_path, shard_leaves,
+                                        unshard_leaves)
 from test_torch_distributed import (CFG_KW, LOSS_REL, QUANT_KW,
                                     UPDATE_REL_L2, global_batches, leaves,
                                     leaves_t, rel, rel_l2)
@@ -219,7 +220,7 @@ def test_plan_specs_are_the_reference(n):
 
 
 def test_zero_layouts_round_trip():
-    """`zero_shard` / `zero_unshard`: a whole tree -> N ranks' shards ->
+    """`shard_leaves` / `unshard_leaves`: a whole tree -> N ranks' shards ->
     the whole tree, leaf for leaf; a leaf without a dim is whole on every
     rank."""
     g = torch.Generator().manual_seed(0)
@@ -228,11 +229,11 @@ def test_zero_layouts_round_trip():
                   "d": torch.randn(5, generator=g)}}
     dims = {"a": 0, "b": {"c": 1, "d": None}}
     for n in (2, 4):
-        shards = [zero_shard(tree, dims, i, n) for i in range(n)]
+        shards = [shard_leaves(tree, dims, i, n) for i in range(n)]
         assert shards[1]["a"].shape == (8 // n, 6)
         assert shards[1]["b"]["c"].shape == (3, 12 // n)
         assert shards[1]["b"]["d"] is tree["b"]["d"]
-        back = zero_unshard(shards, dims)
+        back = unshard_leaves(shards, dims)
         for k, v in leaves_t(back).items():
             assert torch.equal(v, leaves_t(tree)[k])
 

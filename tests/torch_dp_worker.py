@@ -1,6 +1,6 @@
 """One rank of tests/test_torch_distributed.py's gloo process group.
 
-    python tests/torch_dp_worker.py RANK WORKDIR [zero]
+    python tests/torch_dp_worker.py RANK WORKDIR [zero | tp]
 
 Reads WORKDIR/inputs.pkl (the reference's initial weights, the batches,
 the reduction fixtures; numpy only), runs every multi-rank case of the
@@ -17,7 +17,10 @@ Three process groups, one after the other, all on FileStores in WORKDIR:
 With `zero` it runs tests/test_torch_zero.py's cases instead (`zero_main`):
 the e4m3 gather, the "full" path's microbatch rows and mixture-of-experts
 aux losses, ZeRO-1 on against off on four ranks, then on two, the
-TrainLoop's resume and elastic restores under ZeRO-1.
+TrainLoop's resume and elastic restores under ZeRO-1. With `tp`,
+tests/test_torch_tp.py's (`tp_main`): tensor parallelism on (1, 4) and
+(2, 2) meshes of the four ranks, then on (1, 2) on ranks 0 and 1 while
+ranks 2 and 3 run the one-process steps they are held against.
 """
 import datetime
 import os
@@ -243,9 +246,14 @@ def refusals(flat, inp):
     opt = make_optimizer_for(cfg)
     tp_mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
                          mesh_dim_names=("data", "model"))
+    # Tensor parallelism runs delayed scaling on the fused path.
+    fused = cfg.replace(policy=dataclasses.replace(
+        cfg.policy, quant=dataclasses.replace(cfg.policy.quant,
+                                              backend="pallas")))
+    tp_plan = ParallelPlan.build(tp_mesh, DistConfig(zero1=False))
     cases = {
         "zero1": (cfg, ParallelPlan.build(flat, DistConfig())),
-        "tp": (cfg, ParallelPlan.build(tp_mesh, DistConfig(zero1=False))),
+        "tp": (fused, tp_plan),
         "fp8_gather": (cfg, ParallelPlan.build(flat, DistConfig(
             zero1=False, tp=False, wire_zero_gather="fp8"))),
     }
@@ -259,6 +267,7 @@ def refusals(flat, inp):
     cases["moe_global_dispatch_full"] = (
         moe.replace(moe_per_sample_dispatch=False),
         ParallelPlan.build(flat, DistConfig(zero1=False, tp=False)))
+    cases["tp_moe"] = (moe, tp_plan)
     out = {}
     for name, (c, plan) in cases.items():
         try:
@@ -267,6 +276,16 @@ def refusals(flat, inp):
             out[name] = None
         except NotImplementedError as e:
             out[name] = str(e)
+    # One step of the dense decoder under the TP plan, on this rank's
+    # rows of the 'data' dim.
+    from repro_torch.data.pipeline import host_shard
+    topt = make_optimizer_for(fused)
+    state = tp_plan.shard_state(topt.init(init_lm(fused, seed=0,
+                                                  device="cpu")))
+    _, m = make_train_step(fused, topt, plan=tp_plan, device="cpu")(
+        state, host_shard(inp["batches"][0], tp_plan.dp_rank,
+                          tp_plan.dp_size), torch.Generator().manual_seed(0))
+    out["tp_step_loss"] = m["loss"]
     try:
         TrainLoop(cfg, opt, iter(()), LoopConfig(
             checkpoint_dir=tempfile.mkdtemp()), plan=cases["zero1"][1],
@@ -636,8 +655,383 @@ def main(rank, workdir):
         pickle.dump(out, f)
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism (tests/test_torch_tp.py): `python tests/torch_dp_worker.py
+# RANK WORKDIR tp`, inputs in WORKDIR/inputs.pkl.
+# ---------------------------------------------------------------------------
+
+# The runs' recipes: the port's config's QuantConfig keywords.
+TP_QUANT = {
+    "rne": dict(recipe="hybrid", scaling="delayed", backend="pallas",
+                track_health=True, act_rounding="rne", error_rounding="rne",
+                grad_rounding="rne"),
+    "sr": dict(recipe="hybrid", scaling="delayed", backend="pallas",
+               track_health=True),
+    "paper": dict(backend="pallas"),
+}
+
+
+def tp_cfg(inp, quant="rne", **over):
+    import dataclasses
+
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.models.registry import build_config
+    cfg = build_config("qwen2-1.5b", smoke=True, **dict(inp["cfg_kw"], **over))
+    return cfg.replace(policy=dataclasses.replace(
+        cfg.policy, quant=QuantConfig(**TP_QUANT[quant])))
+
+
+def _tree_rows(tree, dims):
+    """{path: array} of the leaves whose dim is None (replicated)."""
+    out = {}
+
+    def walk(t, d, pre):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], d[k] if d is not None else None, f"{pre}/{k}")
+        elif d is None:
+            out[pre] = npt(t)
+    walk(tree, dims, "")
+    return out
+
+
+def tprun(mesh, inp, quant="rne", *, zero1=False, n_mb=1, steps=2,
+          fault=None, **over):
+    """`steps` steps of the port's step under a TP plan on `mesh`, from the
+    reference's weights, on this rank's dp rows of the inputs' global
+    batches; the master gathered whole after each step. fault: "qsum"
+    (each rank's row-parallel partial quantized, the payloads summed) or
+    "local_amax" (the observations not combined over 'model')."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.data.pipeline import host_shard
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = tp_cfg(inp, quant, **over)
+    plan = ParallelPlan.build(mesh, DistConfig(zero1=zero1))
+    params = from_jax_params(inp["params"], cfg, device="cpu")
+    ds = None
+    if cfg.policy.quant.delayed:
+        ds = DelayedScaling(discover_lm_sites(cfg, params, inp["probe"]),
+                            qcfg=cfg.policy.quant)
+    opt = make_optimizer_for(cfg, learning_rate=1e-3)
+    state = plan.shard_state(opt.init(params))
+    ss = ds.init() if ds else None
+    step = make_train_step(cfg, opt, scaling=ds, plan=plan,
+                           n_microbatches=n_mb, device="cpu")
+    out = dict(metrics=[], masters=[], amax=[], keys=list(ds.registry.keys)
+               if ds else None, sent={})
+    with planted(fault):
+        for i, b in enumerate(inp["batches"][:steps]):
+            b = host_shard(b, plan.dp_rank, plan.dp_size)
+            gen = torch.Generator().manual_seed(i)
+            comm.reset_counts()
+            if ds is None:
+                state, m = step(state, b, gen)
+            else:
+                (state, ss), m = step(state, ss, b, gen)
+                out["amax"].append(ss.amax_history[:, 0].copy())
+            for k, v in comm.counts()["sent_bytes"].items():
+                out["sent"][k] = out["sent"].get(k, 0) + v
+            out["metrics"].append(m)
+            out["masters"].append(npt(plan.unshard_state(state).master))
+    out["local_repl"] = _tree_rows(state.master, plan.tp_dims())
+    out["loss_scale"] = npt(vars(state.loss_scale))
+    out["scale"] = ss.scale.copy() if ss is not None else None
+    out["tp_rank"], out["dp_rank"] = plan.tp_rank, plan.dp_rank
+    return out
+
+
+def solo_run(inp, quant="rne", *, n_mb=1, steps=2, **over):
+    """tprun's steps in one process without a plan, on the whole global
+    batches."""
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = tp_cfg(inp, quant, **over)
+    params = from_jax_params(inp["params"], cfg, device="cpu")
+    ds = None
+    if cfg.policy.quant.delayed:
+        ds = DelayedScaling(discover_lm_sites(cfg, params, inp["probe"]),
+                            qcfg=cfg.policy.quant)
+    opt = make_optimizer_for(cfg, learning_rate=1e-3)
+    state, ss = opt.init(params), ds.init() if ds else None
+    step = make_train_step(cfg, opt, scaling=ds, n_microbatches=n_mb,
+                           device="cpu")
+    out = dict(metrics=[], masters=[], amax=[], keys=list(ds.registry.keys)
+               if ds else None, p0=npt(state.master))
+    for i, b in enumerate(inp["batches"][:steps]):
+        gen = torch.Generator().manual_seed(i)
+        if ds is None:
+            state, m = step(state, b, gen)
+        else:
+            (state, ss), m = step(state, ss, b, gen)
+            out["amax"].append(ss.amax_history[:, 0].copy())
+        out["metrics"].append(m)
+        out["masters"].append(npt(state.master))
+    return out
+
+
+class planted:
+    """The planted faults of tprun, patched in for the block."""
+
+    def __init__(self, fault):
+        self.fault = fault
+
+    def __enter__(self):
+        from repro_torch.core import qlinear
+        from repro_torch.scaling.context import ScaleContext
+        self.saved = (qlinear._summed_gemm, ScaleContext.tp_combine)
+        if self.fault == "qsum":
+            qlinear._summed_gemm = quantize_then_sum
+        elif self.fault == "local_amax":
+            ScaleContext.tp_combine = lambda self, rows_of: None
+        elif self.fault is not None:
+            raise ValueError(self.fault)
+
+    def __exit__(self, *exc):
+        from repro_torch.core import qlinear
+        from repro_torch.scaling.context import ScaleContext
+        qlinear._summed_gemm, ScaleContext.tp_combine = self.saved
+        return False
+
+
+def quantize_then_sum(x8, w8, sx, sw, s_out, cfg, out_cls, generator, tp):
+    """The planted fault of a row-parallel site: each rank's partial
+    through the Q node, the payloads summed over the ranks, the sum
+    quantized again (the Megatron order)."""
+    from repro_torch.core.qlinear import _q_node, _rand8
+    from repro_torch.core.quantize import f32
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.kernels.fp8_matmul import ops as mm_ops
+    part = mm_ops.fp8_matmul(x8, w8)
+    q, _, _ = _q_node(part, f32(s_out) / (f32(sx) * f32(sw)), cfg, out_cls,
+                      _rand8(part.shape, cfg, out_cls, generator))
+    total = tensor_parallel.rank_sum(q.float(), tp)
+    q, amax, health = _q_node(total, f32(1.0), cfg, out_cls,
+                              _rand8(total.shape, cfg, out_cls, generator))
+    return q, amax * float(f32(s_out)), health
+
+
+def vocab_pieces(tpg, inp):
+    """The vocab-parallel embedding and cross-entropy on this rank's shard
+    of a table, against the whole table in this process: the lookup and
+    its table gradient, the CE's sum and dh."""
+    from repro_torch.core.precision_policy import QuantConfig
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import _chunked_ce
+    cfg = tp_cfg(inp)
+    v, d = cfg.padded_vocab_size, cfg.d_model
+    g = torch.Generator().manual_seed(11)
+    table = torch.randn(v, d, generator=g).to(torch.bfloat16)
+    h = torch.randn(4, 32, d, generator=g).to(torch.bfloat16)
+    tokens = torch.randint(0, v, (4, 32), generator=g)
+    mask = (torch.rand(4, 32, generator=g) > 0.2).float()
+    sl = slice(tpg.rank * v // tpg.size, (tpg.rank + 1) * v // tpg.size)
+    head_cfg = QuantConfig(enabled=False)
+    res = {}
+    for name, tp in (("tp", tpg), ("whole", None)):
+        t = (table[sl] if tp else table).clone().requires_grad_(True)
+        hh = h.clone().requires_grad_(True)
+        with tensor_parallel.active(tp and tp.with_layout([(t, 0)])):
+            e = embed({"table": t}, tokens)
+            e.float().square().sum().backward()
+            emb_grad = t.grad.clone()
+            t.grad = None
+            ce = _chunked_ce({"embed": {"table": t}}, hh, tokens, mask,
+                             cfg=cfg, head_cfg=head_cfg, chunk=16)
+            ce.backward()
+        res[name] = dict(embed=npt(e), embed_grad=npt(emb_grad),
+                         ce=float(ce), dh=npt(hh.grad),
+                         table_grad=npt(t.grad))
+    res["rows"] = (sl.start, sl.stop)
+    return res
+
+
+def tp_loops(rank, plan, workdir, inp):
+    """The TrainLoop under a TP plan: 4 steps against 2 + a restore + 2,
+    the state gathered whole."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import make_optimizer_for
+    cfg = tp_cfg(inp)
+    root = os.path.join(workdir, "tploops")
+
+    def run(name, total, p):
+        ds = DelayedScaling(discover_lm_sites(
+            cfg, init_lm(cfg, device="cpu"), inp["probe"]),
+            qcfg=cfg.policy.quant)
+        opt = make_optimizer_for(cfg, learning_rate=1e-3)
+        data = lambda s: synthetic_lm_batches(DataConfig(  # noqa: E731
+            vocab_size=cfg.vocab_size, seq_len=32, batch_size=4),
+            start_step=s)
+        loop = TrainLoop(cfg, opt, data, LoopConfig(
+            total_steps=total, checkpoint_every=2,
+            checkpoint_dir=os.path.join(root, name), log_every=100),
+            scaling=ds, plan=p, device="cpu")
+        res = loop.run()
+        st = p.unshard_state(res["state"]) if p is not None \
+            else res["state"]
+        return dict(master=npt(st.master), opt=npt(st.opt_state),
+                    ss=res["scale_state"].amax_history.copy(),
+                    last=res["last_step"],
+                    repl=_tree_rows(res["state"].master, p.tp_dims())
+                    if p is not None else None)
+
+    out = {"full": run("full", 4, plan)}
+    run("resumed", 2, plan)
+    out["resumed"] = run("resumed", 4, plan)
+    dist.barrier()
+    if rank == 0:
+        # The (1, 2) checkpoint of step 4 restored in one process.
+        out["solo_restore"] = run("full", 4, None)
+        with np.load(os.path.join(root, "full", "step_0000000004",
+                                  "leaves.npz")) as data:
+            out["ckpt_shapes"] = {k: data[k].shape for k in data.files}
+    return out
+
+
+def tp_group4(rank, workdir, inp, out):
+    """All four ranks: the misaligned heads on (1, 4), then (2, 2) with
+    ZeRO-1 on and off."""
+    join(os.path.join(workdir, "tpgroup"), rank, WORLD)
+    m14 = DeviceMesh("cpu", torch.arange(WORLD).reshape(1, 4),
+                     mesh_dim_names=("data", "model"))
+    m22 = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                     mesh_dim_names=("data", "model"))
+    runs = out["runs"]
+    runs["1x4"] = tprun(m14, inp)
+    runs["2x2/zero"] = tprun(m22, inp, zero1=True)
+    runs["2x2/nozero"] = tprun(m22, inp, zero1=False)
+    dist.destroy_process_group()
+
+
+def tp_pair(rank, workdir, inp, out):
+    """Ranks 0 and 1 on (1, 2): the recipes, the options, the faults, the
+    vocab-parallel pieces and the TrainLoop."""
+    from repro_torch.core.precision_policy import DistConfig
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.strategy import ParallelPlan
+    join(os.path.join(workdir, "tppair"), rank, 2)
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("data", "model"))
+    runs = out["runs"]
+    runs["1x2"] = tprun(mesh, inp)
+    runs["1x2/sr"] = tprun(mesh, inp, "sr")
+    runs["1x2/paper"] = tprun(mesh, inp, "paper")
+    runs["1x2/mb2"] = tprun(mesh, inp, n_mb=2)
+    runs["1x2/remat"] = tprun(mesh, inp, remat=True)
+    runs["1x2/qsum"] = tprun(mesh, inp, steps=1, fault="qsum")
+    runs["1x2/local_amax"] = tprun(mesh, inp, steps=1, fault="local_amax")
+    plan = ParallelPlan.build(mesh, DistConfig(zero1=False))
+    tpg = tensor_parallel.TPGroup(plan.tp_group(), plan.tp_rank,
+                                  plan.tp_size)
+    out["vocab"] = vocab_pieces(tpg, inp)
+    out["archs"] = {f"{a}/{q}": arch_case(mesh, inp, a, q)
+                    for a in DENSE_ARCHS for q in ("rne", "paper")}
+    out["loops"] = tp_loops(rank, plan, workdir, inp)
+    dist.destroy_process_group()
+
+
+DENSE_ARCHS = ("codeqwen1.5-7b", "internlm2-20b", "mistral-large-123b",
+               "llava-next-34b")
+
+
+def arch_case(mesh, inp, arch, quant):
+    """One step of a dense config (smoke width, 2 layers) under a TP plan
+    on `mesh` and in this process without a plan, from the same weights,
+    batch and seed (llava's with a 4-row patch prefix): the two losses and
+    the update's rel L2 of the TP step against the one-process step."""
+    import dataclasses
+
+    from repro_torch.core.precision_policy import DistConfig, QuantConfig
+    from repro_torch.distributed.strategy import ParallelPlan
+    from repro_torch.models.registry import build_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.scaling.calibrate import discover_lm_sites
+    from repro_torch.scaling.state import DelayedScaling
+    from repro_torch.train.step import make_optimizer_for, make_train_step
+    cfg = build_config(arch, smoke=True, n_layers=2, remat=False)
+    cfg = cfg.replace(policy=dataclasses.replace(
+        cfg.policy, quant=QuantConfig(**TP_QUANT[quant])))
+    batch = dict(inp["batches"][0])
+    if arch.startswith("llava"):
+        rng = np.random.default_rng(3)
+        batch["extra_embeds"] = rng.standard_normal(
+            (8, 4, cfg.d_model)).astype(np.float32)
+    res = []
+    for plan in (ParallelPlan.build(mesh, DistConfig(zero1=False)), None):
+        params = init_lm(cfg, seed=0, device="cpu")
+        opt = make_optimizer_for(cfg, learning_rate=1e-3)
+        state = opt.init(params)
+        p0 = npt(state.master)
+        if plan is not None:
+            state = plan.shard_state(state)
+        ds = DelayedScaling(discover_lm_sites(cfg, params, inp["probe"]),
+                            qcfg=cfg.policy.quant) \
+            if cfg.policy.quant.delayed else None
+        step = make_train_step(cfg, opt, scaling=ds, plan=plan, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        if ds is None:
+            state, m = step(state, batch, gen)
+        else:
+            (state, _), m = step(state, ds.init(), batch, gen)
+        whole = plan.unshard_state(state) if plan is not None else state
+        res.append((m["loss"], npt(whole.master)))
+    (lt, mt), (lo, mo) = res
+
+    def flat(t):
+        return np.concatenate([np.ravel(v) for v in _tree_rows(t, None)
+                               .values()]).astype(np.float64)
+    z = flat(p0)
+    du = flat(mt) - z
+    dw = flat(mo) - z
+    return dict(loss_tp=lt, loss_one=lo,
+                update_rel=float(np.linalg.norm(du - dw)
+                                 / max(np.linalg.norm(dw), 1e-30)))
+
+
+def tp_solo(rank, inp, out):
+    """Ranks 2 and 3 while 0 and 1 run the pair: the one-process runs."""
+    runs = out["solo"]
+    if rank == 2:
+        runs["rne"] = solo_run(inp)
+        runs["sr"] = solo_run(inp, "sr")
+    else:
+        runs["paper"] = solo_run(inp, "paper")
+        runs["mb2"] = solo_run(inp, n_mb=2)
+
+
+def tp_main(rank, workdir):
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {"runs": {}, "solo": {}}
+    try:
+        tp_group4(rank, workdir, inp, out)
+        if rank < 2:
+            tp_pair(rank, workdir, inp, out)
+        else:
+            tp_solo(rank, inp, out)
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    out["jax_loaded"] = "jax" in sys.modules
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 if __name__ == "__main__":
     if sys.argv[3:] == ["zero"]:
         zero_main(int(sys.argv[1]), sys.argv[2])
+    elif sys.argv[3:] == ["tp"]:
+        tp_main(int(sys.argv[1]), sys.argv[2])
     else:
         main(int(sys.argv[1]), sys.argv[2])
